@@ -1,0 +1,166 @@
+"""Config dataclasses for the PyTorch port of the SplitEE framework.
+
+A copy of the reference package's config classes: the port imports
+nothing of the JAX package, so it keeps its own. The dataclasses are
+plain and frozen, so a config built here compares equal field by field
+to the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """State-space / RWKV parameters."""
+    kind: str = "rwkv6"            # "rwkv6" | "mamba2"
+    state_size: int = 64
+    num_heads: int = 0             # 0 -> derive from d_model // state_size
+    expand: int = 2
+    chunk_size: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec (audio) architectures."""
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    source_len: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class ExitConfig:
+    """The paper's technique: exit head after every layer (or stride)."""
+    enabled: bool = True
+    stride: int = 1
+    # LM archs tie all exits to one unembedding; classification testbeds
+    # use one head per exit
+    share_head: bool = True
+    confidence: str = "maxprob"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // num_heads
+    num_classes: int = 0           # classification exits; 0 -> LM head
+
+    causal: bool = True            # False -> bidirectional (BERT-style)
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    mrope: bool = False
+    sliding_window: int = 0
+    sliding_window_override: int = 0
+
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_attn_every: int = 0
+    encoder: Optional[EncoderConfig] = None
+
+    modality: str = "text"
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    activation: str = "swiglu"     # swiglu | gelu_mlp
+    tie_embeddings: bool = False
+
+    exits: ExitConfig = ExitConfig()
+    dtype: str = "bfloat16"
+
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def exit_layers(self) -> Tuple[int, ...]:
+        """1-indexed layers with an exit head attached (always includes L)."""
+        n = self.decoder_layers
+        s = self.exits.stride
+        layers = tuple(i for i in range(s, n + 1, s))
+        if not layers or layers[-1] != n:
+            layers = layers + (n,)
+        return layers
+
+    @property
+    def decoder_layers(self) -> int:
+        return self.num_layers
+
+    def effective_window(self, seq_len: int) -> int:
+        """Attention window for a given sequence length (0 = full)."""
+        if self.sliding_window:
+            return self.sliding_window
+        if self.sliding_window_override and seq_len > self.sliding_window_override:
+            return self.sliding_window_override
+        return 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense model (embedding + layers +
+        exits); other families are not ported yet."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"param_count for family {self.family!r}: not ported yet")
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        q = self.num_heads * hd
+        kv = self.num_kv_heads * hd
+        attn = d * q + 2 * d * kv + q * d
+        mlp = 3 * d * f if self.activation == "swiglu" else 2 * d * f
+        head_out = self.num_classes if self.num_classes else v
+        n_heads_p = 1 if (not self.exits.enabled or self.exits.share_head) \
+            else len(self.exit_layers)
+        return v * d + self.num_layers * (attn + mlp) + n_heads_p * d * head_out
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced config of the same family: 2 layers, d_model<=128, <=4 experts."""
+    d = min(cfg.d_model, 128)
+    heads = min(cfg.num_heads, 4)
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    if cfg.num_kv_heads < cfg.num_heads:
+        kv = max(1, heads // 2)
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, num_experts=min(4, cfg.moe.num_experts))
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(cfg.ssm, state_size=min(16, cfg.ssm.state_size),
+                                  chunk_size=16, num_heads=0)
+    enc = None
+    if cfg.encoder is not None:
+        enc = dataclasses.replace(
+            cfg.encoder, num_layers=2, d_model=d, num_heads=heads,
+            num_kv_heads=kv, d_ff=4 * d, source_len=32)
+    return dataclasses.replace(
+        cfg,
+        num_layers=2,
+        d_model=d,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=0,
+        d_ff=4 * d,
+        vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        hybrid_attn_every=2 if cfg.hybrid_attn_every else 0,
+        moe=moe,
+        ssm=ssm,
+        encoder=enc,
+    )

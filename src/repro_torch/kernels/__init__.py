@@ -1,0 +1,33 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Each kernel lives in ``<name>/`` with ``ref.py`` (plain version),
+``kernel.py`` (ctypes binding), ``ops.py`` (dispatch by device) and
+``csrc/*.cu``. Every wrapper counts the launches it makes on a CUDA
+tensor; `launch_counts` reads all counts in one place.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.exit_confidence import kernel as _exit_kernel
+from repro_torch.kernels.flash_attention import kernel as _attn_kernel
+
+SOURCES = (_attn_kernel.SOURCE, _exit_kernel.SOURCE)
+
+
+def launch_counts() -> Dict[str, int]:
+    """{kernel name: launches since the last reset}, for every kernel."""
+    return dict(_build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel source not yet built (one nvcc per source, run
+    in parallel); returns {source stem: ptxas log} of those built."""
+    return _build.build(Path(s) for s in SOURCES)

@@ -1,0 +1,73 @@
+"""Exit-confidence ops: dispatch by device.
+
+A CPU tensor runs the plain PyTorch version (`ref.py`); a CUDA tensor
+launches the hand-written kernel; any other device raises. There is no
+fallback from one to the other.
+
+Shapes: ``h (B, D)`` with ``w (D, V)``, or a leading group axis ``h (G, B,
+D)`` with ``w (G, D, V)`` to evaluate G heads at once (what the JAX
+package gets by ``vmap`` over the per-layer exit heads).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.exit_confidence.kernel import (
+    exit_confidence_cuda, exit_confidence_fused_cuda)
+from repro_torch.kernels.exit_confidence.ref import (
+    exit_confidence_fused_ref, exit_confidence_ref)
+
+NORM_KINDS = ("rmsnorm", "layernorm")
+
+
+def _fold_bias(h, w, bias):
+    """Fold an exit-head bias into the product by augmenting h with a ones
+    column and w with the bias row, so the plain kernel needs no bias
+    input."""
+    ones = torch.ones(h.shape[:-1] + (1,), dtype=h.dtype, device=h.device)
+    h = torch.cat([h, ones], dim=-1)
+    w = torch.cat([w, bias.to(w.dtype).unsqueeze(-2)], dim=-2)
+    return h, w
+
+
+def _unknown_device(op: str, t: torch.Tensor):
+    return ValueError(f"{op}: no kernel for device {t.device}")
+
+
+def exit_confidence(h, w, bias=None):
+    """Confidence + argmax of the exit head: h @ w [+ bias].
+
+    Returns ``(conf f32, pred i32)`` of shape (B,) — (G, B) when grouped —
+    where conf is the max softmax probability (the paper's C_i).
+    """
+    if h.device.type == "cpu":
+        return exit_confidence_ref(h, w, bias)
+    if h.device.type == "cuda":
+        if bias is not None:
+            h, w = _fold_bias(h, w, bias)
+        return exit_confidence_cuda(h, w)
+    raise _unknown_device("exit_confidence", h)
+
+
+def exit_confidence_fused(x, norm_params, w, bias=None, *,
+                          kind: str = "rmsnorm"):
+    """Fused exit epilogue: exit-norm + head product + online softmax.
+
+    ``x`` is the RAW pooled hidden (pooling selects a token and the norm
+    is per token, so the two commute); ``norm_params`` is the exit-norm
+    dict ``{"scale"[, "bias"]}`` with entries (D,) shared or (B, D) per
+    row — (G, D) or (G, B, D) when grouped; ``bias`` an optional head
+    bias (V,) — (G, V) when grouped. One launch on the card.
+    """
+    if kind not in NORM_KINDS:
+        raise ValueError(f"exit_confidence_fused kind={kind!r} is unknown; "
+                         f"choose one of {NORM_KINDS}")
+    if x.device.type == "cpu":
+        return exit_confidence_fused_ref(x, norm_params, w, bias, kind=kind)
+    if x.device.type == "cuda":
+        # rmsnorm has no shift: like apply_norm (the plain version), ignore
+        # a "bias" entry (the reference's Pallas kernel would add it)
+        nbias = norm_params.get("bias") if kind == "layernorm" else None
+        return exit_confidence_fused_cuda(x, norm_params["scale"], nbias, w,
+                                          bias, kind=kind)
+    raise _unknown_device("exit_confidence_fused", x)

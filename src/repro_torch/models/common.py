@@ -1,0 +1,80 @@
+"""Shared building blocks: norms, RoPE, init helpers.
+
+Numerics follow the reference twin: norms reduce in float32 with eps 1e-6
+and the population variance, and cast back to the input dtype; RoPE is
+the half-split rotation.
+"""
+from __future__ import annotations
+
+import torch
+
+NORM_EPS = 1e-6
+
+
+# ---------------------------------------------------------------- init utils
+
+def dense_init(gen: torch.Generator, fan_in: int, fan_out: int,
+               dtype: torch.dtype, device=None) -> torch.Tensor:
+    scale = fan_in ** -0.5
+    w = torch.randn((fan_in, fan_out), generator=gen, dtype=torch.float32,
+                    device=device or gen.device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype, device=None) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=device or gen.device)
+    return (w * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------- norms
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = NORM_EPS) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = NORM_EPS) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def init_norm(d: int, kind: str, dtype: torch.dtype, device=None):
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_norm(x: torch.Tensor, p, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)         # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

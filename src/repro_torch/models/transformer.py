@@ -1,0 +1,199 @@
+"""Multi-exit decoder stack, dense family: the model the SplitEE policy
+runs on.
+
+Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names
+are the reference pytree's paths (``layers.attn.wq`` is
+``params["layers"]["attn"]["wq"]``). Layers are stacked on a leading L
+axis, as in the reference's ``init_params``; per-layer views come from
+`layer_params`. The layer loop is a Python loop.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device, torch_dtype
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.exit_confidence.ops import exit_confidence
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as ff
+from repro_torch.models.common import (apply_norm, dense_init, embed_init,
+                                       init_norm)
+
+
+class ParamTree(nn.Module):
+    """Nested parameters, indexable like the reference's dict pytree.
+
+    Every nested dict becomes a child module and every leaf an
+    ``nn.Parameter`` without gradient, so ``named_parameters()`` lists the
+    pytree paths and ``.to(device)`` moves the whole tree."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, (Mapping, ParamTree)):
+                self.add_module(key, val if isinstance(val, ParamTree)
+                                else ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        if key in self._modules:
+            return self._modules[key]
+        raise KeyError(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+    def keys(self):
+        return list(self._parameters) + list(self._modules)
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+
+def _is_tree(x) -> bool:
+    return isinstance(x, (Mapping, ParamTree))
+
+
+def layer_params(layers, i: int) -> Dict[str, Any]:
+    """Views of layer ``i`` of a stacked-layer tree."""
+    return {k: layer_params(v, i) if _is_tree(v) else v[i]
+            for k, v in layers.items()}
+
+
+def _stack(trees):
+    first = trees[0]
+    return {k: _stack([t[k] for t in trees]) if _is_tree(first[k])
+            else torch.stack([t[k] for t in trees]) for k in first}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.arch_id}): not ported yet")
+
+
+# ------------------------------------------------------------------- helpers
+
+def head_out_dim(cfg: ModelConfig) -> int:
+    return cfg.num_classes if cfg.num_classes else cfg.vocab_size
+
+
+def pool_hidden(cfg: ModelConfig, x):
+    """Exit-head pooling: CLS token for classification, last token for LM."""
+    return x[:, 0, :] if cfg.num_classes else x[:, -1, :]
+
+
+# ---------------------------------------------------------------------- init
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p: Dict[str, Any] = {
+        "ln1": init_norm(d, cfg.norm, dt, dev),
+        "attn": attn.init_attention(
+            gen, d, cfg.num_heads, cfg.num_kv_heads, hd,
+            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=dt, device=dev),
+        "ln2": init_norm(d, cfg.norm, dt, dev),
+        "mlp": ff.init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, dev),
+        "exit_norm": init_norm(d, cfg.norm, dt, dev),
+    }
+    if cfg.exits.enabled and not cfg.exits.share_head:
+        p["exit_w"] = dense_init(gen, d, head_out_dim(cfg), dt, dev)
+    return p
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (default ``cuda``). The draws differ from ``jax.random``'s; parity
+    with the reference goes through `repro_torch.bridge`."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.dtype)
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "layers": _stack([_init_layer(cfg, gen, dt, dev)
+                          for _ in range(cfg.num_layers)]),
+        "final_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
+    }
+    if cfg.exits.share_head or not cfg.exits.enabled:
+        params["exit_w"] = dense_init(gen, cfg.d_model, head_out_dim(cfg), dt,
+                                      dev)
+    return ParamTree(params)
+
+
+# -------------------------------------------------------------- embed inputs
+
+def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, Any]):
+    """tokens (B, S) int -> (B, S, D). (The reference's modality stubs,
+    which pass 'embeds', are not ported yet.)"""
+    return params["embed"][batch["tokens"].long()]
+
+
+def _positions(cfg: ModelConfig, b: int, s: int, device=None):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE positions: not ported yet")
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
+
+
+# ------------------------------------------------------------ full-seq layer
+
+def _layer_full(cfg: ModelConfig, lp, x, positions, *, window: int):
+    """One dense layer over the full sequence."""
+    _check_family(cfg)
+    h = attn.attn_prefill(
+        lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), positions,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, causal=cfg.causal,
+        window=window, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+        mrope=cfg.mrope)
+    x = x + h
+    h = ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
+                       cfg.activation)
+    return x + h
+
+
+def _exit_w(params, lp):
+    return lp["exit_w"] if "exit_w" in lp else params["exit_w"]
+
+
+# ------------------------------------------------- streaming exit observables
+
+def forward_exits(params, cfg: ModelConfig, batch: Mapping[str, Any]):
+    """Full forward collecting per-exit (confidence, prediction).
+
+    Returns dict with conf (L, B) f32, pred (L, B) i32 — layer i's exit
+    observables at row i-1 — and the final hidden (B, S, D). Pooling
+    precedes the exit norm (the norm is per token, so they commute), and
+    one grouped confidence call covers every exit.
+    """
+    x = embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = _positions(cfg, b, s, device=x.device)
+    window = cfg.effective_window(s)
+    pooled = []
+    for i in range(cfg.num_layers):
+        x = _layer_full(cfg, layer_params(params["layers"], i), x, positions,
+                        window=window)
+        pooled.append(pool_hidden(cfg, x))
+    exit_norm = params["layers"]["exit_norm"]
+    pooled_n = apply_norm(torch.stack(pooled),
+                          {k: v.unsqueeze(1) for k, v in exit_norm.items()},
+                          cfg.norm)                        # (L, B, D)
+    if cfg.exits.share_head or not cfg.exits.enabled:
+        conf, pred = exit_confidence(pooled_n.reshape(-1, cfg.d_model),
+                                     params["exit_w"])
+    else:
+        conf, pred = exit_confidence(pooled_n, params["layers"]["exit_w"])
+    return {"conf": conf.reshape(cfg.num_layers, b),
+            "pred": pred.reshape(cfg.num_layers, b),
+            "hidden": x}

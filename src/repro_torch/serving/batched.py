@@ -1,0 +1,251 @@
+"""Batched edge/cloud serving runtime — the vectorized production path.
+
+The stream is served in micro-batches of B samples:
+
+  1. **ingest** — `data.stream.microbatches` groups the sample stream;
+  2. **select** — `SplitEEController.choose_splits` draws all B arms from
+     the bandit state frozen at the batch boundary (delayed feedback);
+  3. **edge** — samples are bucketed by chosen depth and each bucket is
+     one `edge_fn`/`edge_fn_s` call, its rows padded to a power of two
+     by repeating the last row (the reference pads so XLA compiles few
+     shapes; the port keeps the padding so launches, outputs and byte
+     accounting match it);
+  4. **cloud** — non-exiting rows land in an `OffloadQueue`, kept on the
+     device as tensors; at the batch boundary the queue flushes one
+     `cloud_fn` call per depth bucket (again pow2-padded);
+  5. **update** — `SplitEEController.update_batch` folds the batch.
+
+With B = 1 the pipeline makes the same decisions as the sequential
+runtime; with B > 1 the policy is UCB with feedback delayed by up to B-1
+rounds. Only ``edge_mode="bucketed"`` is ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.controller import SplitEEController
+from repro_torch.core.rewards import CostModel
+from repro_torch.data.stream import microbatches
+from repro_torch.serving.simulator import EdgeCloudRuntime, _no_codec
+
+
+def _pow2(k: int) -> int:
+    """Smallest power of two >= k: a bucket's row capacity. (The
+    reference's `_bucket_cap` also rounds up to a replica count for its
+    sharded runtime; on one device it is this.)"""
+    return 1 << (k - 1).bit_length() if k > 1 else 1
+
+
+def _pad_rows(arr, cap: int):
+    """Pad the leading axis to `cap` rows by repeating the last row
+    (numpy array or tensor)."""
+    k = arr.shape[0]
+    if k == cap:
+        return arr
+    if isinstance(arr, torch.Tensor):
+        return torch.cat([arr, arr[-1:].expand(cap - k, *arr.shape[1:])])
+    return np.concatenate([arr, np.repeat(arr[-1:], cap - k, axis=0)])
+
+
+class PendingFlush:
+    """Cloud launches of one `OffloadQueue.flush_async`, not yet read back.
+
+    Holds the device tensors the `cloud_fn` calls returned (the launches
+    are queued on the stream); ``resolve()`` copies them to the host and
+    returns ``{slot: (conf_L, pred_L)}``. ``slot_bytes`` holds the bytes
+    each offloaded slot shipped.
+    """
+
+    def __init__(self, launches, slot_bytes: Dict[int, int]):
+        self._launches = launches        # [(slots, conf, pred)] depth order
+        self._result: Optional[Dict[int, tuple]] = None
+        self.slot_bytes = slot_bytes
+
+    def resolve(self) -> Dict[int, tuple]:
+        if self._result is None:
+            out: Dict[int, tuple] = {}
+            for slots, conf_dev, pred_dev in self._launches:
+                conf_np = conf_dev.cpu().numpy()
+                pred_np = pred_dev.cpu().numpy()
+                for j, slot in enumerate(slots):
+                    out[slot] = (float(conf_np[j]), int(pred_np[j]))
+            self._result = out
+            self._launches = []
+        return self._result
+
+
+class OffloadQueue:
+    """Accumulates offloaded activations; flushes batched cloud calls.
+
+    Rows stay on the device as (S, D) tensors (the reference keeps host
+    numpy copies; a bfloat16 tensor has no numpy dtype, and the cloud
+    half runs on the same device). `flush_async()` issues one `cloud_fn`
+    call per distinct depth with its rows stacked and pow2-padded. The
+    offload bytes of a row are its ``numel * element_size``. (The
+    reference's in-flight ring and pad multiple serve its sharded and
+    distributed runtimes, which are not ported yet.)
+    """
+
+    def __init__(self, runtime: EdgeCloudRuntime, params, *, codec=None):
+        _no_codec(codec)
+        self.runtime = runtime
+        self.params = params
+        self.rows: Dict[int, List[torch.Tensor]] = {}   # depth -> [(S, D)]
+        self.slots: Dict[int, List[int]] = {}
+
+    def add_rows(self, depth: int, hidden_rows: torch.Tensor,
+                 slots: List[int]):
+        """hidden_rows: (k, S, D), one row per queued sample."""
+        self.rows.setdefault(depth, []).extend(hidden_rows)
+        self.slots.setdefault(depth, []).extend(slots)
+
+    def flush_async(self) -> PendingFlush:
+        """Queue one `cloud_fn` call per queued depth; don't read back."""
+        launches = []
+        slot_bytes: Dict[int, int] = {}
+        for d in sorted(self.rows):
+            slots = self.slots[d]
+            hidden = _pad_rows(torch.stack(self.rows[d]),
+                               _pow2(len(slots)))
+            rb = hidden[0].numel() * hidden.element_size()
+            conf_L, pred_L = self.runtime.cloud_fn(self.params, hidden, d)
+            launches.append((list(slots), conf_L, pred_L))
+            for s in slots:
+                slot_bytes[s] = rb
+        self.rows.clear()
+        self.slots.clear()
+        return PendingFlush(launches, slot_bytes)
+
+
+def _edge_phase(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
+                arms: np.ndarray, cost: CostModel, queue: OffloadQueue, *,
+                side_info: bool):
+    """One micro-batch's edge pass: one call per distinct depth. Samples
+    that don't exit are queued on ``queue``; returns (conf_paths,
+    batch_preds) indexed by batch slot."""
+    B = len(arms)
+    conf_paths: List[Optional[np.ndarray]] = [None] * B
+    batch_preds = [0] * B
+    for arm in np.unique(arms):
+        arm = int(arm)
+        idx = np.nonzero(arms == arm)[0]
+        toks = _pad_rows(tokens[idx], _pow2(len(idx)))
+        jb = {"tokens": toks}
+        if side_info:
+            conf_all, pred_all, hidden = runtime.edge_fn_s(params, jb, arm)
+            conf_np = conf_all.cpu().numpy()                 # (L, cap)
+            pred_np = pred_all.cpu().numpy()
+            for j, s in enumerate(idx):
+                conf_paths[s] = conf_np[: arm + 1, j]
+                batch_preds[s] = int(pred_np[arm, j])
+        else:
+            conf_v, pred_v, hidden = runtime.edge_fn(params, jb, arm)
+            conf_np = conf_v.cpu().numpy()                   # (cap,)
+            pred_np = pred_v.cpu().numpy()
+            for j, s in enumerate(idx):
+                conf_paths[s] = conf_np[j:j + 1]
+                batch_preds[s] = int(pred_np[j])
+        keep_j = [j for j, s in enumerate(idx)
+                  if not (float(conf_paths[s][-1]) >= cost.alpha
+                          or arm + 1 == cost.num_layers)]
+        if keep_j:
+            queue.add_rows(arm, hidden[keep_j], [int(idx[j]) for j in keep_j])
+    return conf_paths, batch_preds
+
+
+class _BatchedSession:
+    """Incremental driver of the batched micro-batch schedule: one
+    `push(batch)` runs select -> edge -> cloud flush -> delayed-feedback
+    fold; `result()` reports without ending the session."""
+
+    def __init__(self, runtime: EdgeCloudRuntime, params, cost: CostModel,
+                 *, batch_size: int = 32, side_info: bool = False,
+                 beta: float = 1.0, labels_for_accounting: bool = True,
+                 edge_mode: str = "bucketed", codec=None):
+        if edge_mode != "bucketed":
+            raise NotImplementedError(
+                f"edge_mode={edge_mode!r}: not ported yet (only 'bucketed')")
+        _no_codec(codec)
+        self.runtime = runtime
+        self.params = params
+        self.cost = cost
+        self.batch_size = batch_size
+        self.side_info = side_info
+        self.labels_for_accounting = labels_for_accounting
+        self.ctl = SplitEEController(cost, beta=beta, side_info=side_info)
+        self.queue = OffloadQueue(runtime, params)
+        self.correct: List[int] = []
+        self.preds: List[int] = []
+        self.n = 0
+
+    def push(self, batch):
+        """Serve one micro-batch (any size >= 1); an empty push is a no-op."""
+        if not batch:
+            return
+        B = len(batch)
+        arms = self.ctl.choose_splits(B)
+        tokens = np.stack([np.asarray(s["tokens"]) for s in batch])
+
+        conf_paths, batch_preds = _edge_phase(
+            self.runtime, self.params, tokens, arms, self.cost, self.queue,
+            side_info=self.side_info)
+
+        pending = self.queue.flush_async()
+        cloud = pending.resolve()
+        conf_Ls: List[Optional[float]] = [None] * B
+        obs = [0] * B
+        for s, (c_L, p_L) in cloud.items():
+            conf_Ls[s] = c_L
+            batch_preds[s] = p_L
+            obs[s] = pending.slot_bytes[s]
+
+        self.ctl.update_batch(arms, conf_paths, conf_Ls, obs)
+
+        self.preds.extend(batch_preds)
+        if self.labels_for_accounting:
+            for s, sample in enumerate(batch):
+                if "labels" in sample:
+                    self.correct.append(
+                        int(batch_preds[s] == int(sample["labels"])))
+        self.n += B
+
+    def result(self) -> Dict[str, Any]:
+        ctl = self.ctl
+        hist = {k: np.asarray(v) for k, v in ctl.history.items()}
+        tot = ctl.totals
+        out = {
+            "n": self.n,
+            "batch_size": self.batch_size,
+            "preds": np.asarray(self.preds),
+            "cost_total": float(tot["cost"]),
+            "offload_frac": (1.0 - tot["exited"] / tot["served"]
+                             if tot["served"] else 0.0),
+            "offload_bytes": int(tot["offload_bytes"]),
+            "arms": hist["arm"],
+            "rewards": hist["reward"],
+            "exited": hist["exited"],
+            "state": ctl.snapshot(),
+        }
+        if self.correct:
+            out["accuracy"] = float(np.mean(self.correct))
+        return out
+
+
+def _serve_stream_batched(runtime: EdgeCloudRuntime, params, stream,
+                          cost: CostModel, *, batch_size: int = 32,
+                          side_info: bool = False, beta: float = 1.0,
+                          max_samples: int = 0,
+                          labels_for_accounting: bool = True,
+                          edge_mode: str = "bucketed",
+                          codec=None) -> Dict[str, Any]:
+    """Offline driver: replay a finite stream through a batched session."""
+    sess = _BatchedSession(runtime, params, cost, batch_size=batch_size,
+                           side_info=side_info, beta=beta,
+                           labels_for_accounting=labels_for_accounting,
+                           edge_mode=edge_mode, codec=codec)
+    for batch in microbatches(stream, batch_size, max_samples):
+        sess.push(batch)
+    return sess.result()
