@@ -10,19 +10,28 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    limit (``nvidia-smi``);
 2. builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time;
-3. holds each kernel against its plain PyTorch version on the card, at the
-   serving shapes and at edge shapes (long/ragged sequences, causal +
-   window, GQA, a 151936-column vocabulary with ties across tiles,
-   rms/layer norm with shared/per-row parameters), and times kernel,
-   plain version and one PyTorch library call at the serving shapes;
-4. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
+3. checks the dispatch of each ``ops.py`` wrapper (CPU tensor: plain
+   version, no launch counted; CUDA tensor: the kernel, one launch
+   counted; other devices raise);
+4. holds each kernel, through its wrapper, against its plain PyTorch
+   version on the card, at the serving shapes and at edge shapes
+   (long/ragged sequences, causal + window, GQA, keys past their length
+   set to NaN, fully masked rows, a 151936-column vocabulary with ties
+   across tiles, a head bias, rms/layer norm with shared/per-row
+   parameters), and times kernel, plain version and one PyTorch library
+   call at the serving shapes (CUDA-graph replay);
+5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
-   and fused exits, and SplitEE-S) and the sequential driver, with the
-   kernel launch counts reset before and read after, and checks the
-   served decisions against the port's CPU (plain-version) path on a
-   small float32 model and the full-width exits against the CPU path;
-5. prints one JSON line of per-kernel numbers, then the final line
-   ``{"ok": true, "device": {...}}``.
+   and fused exits, and SplitEE-S) and the sequential driver. Each run
+   has its own launch counts, reset just before it and read just after,
+   and they must equal the launches its decisions need (one edge call
+   per distinct split depth of a micro-batch, one cloud call per
+   distinct depth of its offloaded samples). It then checks the served
+   decisions against the port's CPU (plain-version) path on a small
+   float32 model and the full-width exits against the CPU path;
+6. prints one JSON line of per-kernel numbers (``launches`` from the run
+   named in MAIN_PATH, ``launches_by_path`` from every run), then the
+   final line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the final
 line. Without CUDA, or without the port beside it, it exits with 2.
@@ -56,34 +65,21 @@ FULL_FORWARD_ATOL = 1e-4
 SERVE_SAMPLES = 512
 SERVE_BATCH = 32
 SEQUENTIAL_SAMPLES = 32
+# the serve run whose launch count each kernel's JSON entry reports
+MAIN_PATH = {"flash_attention": "batched B=32",
+             "exit_confidence": "batched B=32",
+             "exit_confidence_fused": "batched B=32 fused_exit"}
 
 
 def fail(msg: str) -> None:
     raise AssertionError(msg)
 
 
-def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events), after ``warmup`` calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_ms(fn, iters: int = 50, warmup: int = 5):
     """Device time per call of ``fn``: the summed durations of every
     kernel (and copy) it puts on the card, from a torch.profiler (CUPTI)
-    trace over ``iters`` calls. Unlike `time_ms` it excludes the host's
-    launch overhead. Returns (ms, {kernel name: ms per call})."""
+    trace over ``iters`` calls, without the host's launch overhead.
+    Returns (ms, {kernel name: ms per call})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -133,31 +129,17 @@ def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def timings(fn, iters: int = 100):
-    """{"ms": device time per call (CUDA graph replay), "call_ms": time per
-    call of eager back-to-back calls (CUDA events; the host's launch
-    overhead shows when it is the longer), "kernels": the names of the
-    kernels ``fn`` launches (torch.profiler)}."""
-    _, per_kernel = device_ms(fn, iters=5, warmup=2)
-    return {"ms": graph_ms(fn), "call_ms": time_ms(fn, iters=iters),
-            "kernels": sorted(per_kernel, key=lambda k: -per_kernel[k])[:4]}
-
-
 def record(name, source, replaces, shape, err, kernel_fn, plain_fn,
            library_fn, nbytes, flops, dtype):
-    """One entry of the JSON line: times of kernel, plain version and
-    library call, the bound from this call's bytes and operations."""
-    k, pl = timings(kernel_fn), timings(plain_fn, iters=30)
-    lib = timings(library_fn) if library_fn is not None else None
+    """One entry of the JSON line: device times per call (CUDA-graph
+    replay) of kernel, plain version and library call, and the bound from
+    this call's bytes and operations."""
     bms, by = bound_ms(nbytes, flops, dtype)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": shape, "max_abs_err": err,
-            "ms": k["ms"], "plain_ms": pl["ms"], "bound_ms": bms,
-            "bound_by": by, "library_ms": None if lib is None else lib["ms"],
-            "call_ms": k["call_ms"], "plain_call_ms": pl["call_ms"],
-            "library_call_ms": None if lib is None else lib["call_ms"],
-            "device_kernels": k["kernels"],
-            "library_kernels": None if lib is None else lib["kernels"]}
+            "ms": graph_ms(kernel_fn), "plain_ms": graph_ms(plain_fn),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": None if library_fn is None else graph_ms(library_fn)}
 
 
 def bound_ms(nbytes: int, flops: float, dtype: str):
@@ -193,8 +175,56 @@ def check_pred(name, pred, want_pred, logits, dtype):
 
 # ------------------------------------------------------------ kernel phase
 
+def dispatch_checks(torch, dev):
+    """Each ops.py wrapper runs its plain version on a CPU tensor without
+    counting, and on a CUDA tensor launches its kernel and adds exactly one
+    to its own count."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_confidence, exit_confidence_fused)
+    from repro_torch.kernels.flash_attention.ops import attention
+
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 2, 8, 16), generator=gen)
+    h = torch.randn((8, 16), generator=gen)
+    w = torch.randn((16, 4), generator=gen)
+    scale = torch.ones(16)
+    calls = {
+        "flash_attention": lambda d: attention(q.to(d), q.to(d), q.to(d)),
+        "exit_confidence": lambda d: exit_confidence(h.to(d), w.to(d)),
+        "exit_confidence_fused": lambda d: exit_confidence_fused(
+            h.to(d), {"scale": scale.to(d)}, w.to(d), kind="rmsnorm"),
+    }
+    if sorted(calls) != sorted(launch_counts()):
+        fail(f"kernels {sorted(launch_counts())}, checks {sorted(calls)}")
+    for name, call in calls.items():
+        reset_launch_counts()
+        cpu_out = call("cpu")
+        if any(launch_counts().values()):
+            fail(f"{name} on a CPU tensor counted a launch: {launch_counts()}")
+        gpu_out = call(dev)
+        torch.cuda.synchronize()
+        want = {k: int(k == name) for k in calls}
+        if launch_counts() != want:
+            fail(f"{name} on a CUDA tensor: counts {launch_counts()} != {want}")
+        cpu_out = cpu_out if isinstance(cpu_out, tuple) else (cpu_out,)
+        gpu_out = gpu_out if isinstance(gpu_out, tuple) else (gpu_out,)
+        if gpu_out[0].device.type != "cuda":
+            fail(f"{name}: a CUDA input gave a {gpu_out[0].device} output")
+        check_close(f"{name}[dispatch]", gpu_out[0].cpu(), cpu_out[0],
+                    "float32")
+    try:
+        attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    except ValueError:
+        pass
+    else:
+        fail("attention on a meta tensor did not raise")
+    print(f"  {sorted(calls)}: CPU tensor -> plain version, no count; CUDA "
+          f"tensor -> kernel, one count each; other devices raise")
+
+
 def attention_checks(torch, dev):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import gqa_ref
     import torch.nn.functional as F
 
@@ -219,7 +249,7 @@ def attention_checks(torch, dev):
     out = {}
     for name, b, hq, hkv, sq, skv, d, causal, window, dt in cases:
         q, k, v = qkv(b, hq, hkv, sq, skv, d, getattr(torch, dt))
-        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        got = attention(q, k, v, causal=causal, window=window)
         want = gqa_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         err = check_close(f"flash_attention[{name}]", got, want, dt)
@@ -229,8 +259,28 @@ def attention_checks(torch, dev):
     q, k, v, _ = out["main_bf16"]
     qs = q.transpose(1, 2).contiguous().transpose(1, 2)
     check_close("flash_attention[strided]",
-                flash_attention_cuda(qs, k, v, causal=False),
+                attention(qs, k, v, causal=False),
                 gqa_ref(q, k, v, causal=False), "bfloat16")
+    # keys/values as views into a longer buffer whose tail is NaN: the
+    # kernel never reads past the key length
+    q, kb, vb = qkv(1, 2, 2, 40, 48, 32, torch.float32)
+    kb[:, :, 40:] = float("nan")
+    vb[:, :, 40:] = float("nan")
+    k, v = kb[:, :, :40], vb[:, :, :40]
+    check_close("flash_attention[nan_past_skv]",
+                attention(q, k, v, causal=False),
+                gqa_ref(q, k.contiguous(), v.contiguous(), causal=False),
+                "float32")
+    # causal queries placed before the first key (Sq > Skv) see nothing:
+    # exactly 0, as the TPU kernel gives
+    q, k, v = qkv(1, 2, 2, 10, 4, 16, torch.float32)
+    got = attention(q, k, v, causal=True)
+    if not (got[:, :, :6] == 0).all():
+        fail("flash_attention: fully masked rows are not exactly 0")
+    check_close("flash_attention[sq_gt_skv]", got[:, :, 6:],
+                gqa_ref(q, k, v, causal=True)[:, :, 6:], "float32")
+    print("  flash_attention: never reads past skv (NaN tail); fully masked "
+          "rows exactly 0")
 
     q, k, v, err = out["main_bf16"]
     b, h, s, d = q.shape
@@ -239,7 +289,7 @@ def attention_checks(torch, dev):
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:80",
         f"q/k/v ({b},{h},{s},{d}) bfloat16, bidirectional", err,
-        lambda: flash_attention_cuda(q, k, v, causal=False),
+        lambda: attention(q, k, v, causal=False),
         lambda: gqa_ref(q, k, v, causal=False),
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "bfloat16")
@@ -251,8 +301,8 @@ def _exit_logits(h, w, bias=None):
 
 
 def exit_checks(torch, dev):
-    from repro_torch.kernels.exit_confidence.kernel import (
-        exit_confidence_cuda, exit_confidence_fused_cuda)
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_confidence, exit_confidence_fused)
     from repro_torch.kernels.exit_confidence.ref import (
         exit_confidence_fused_ref, exit_confidence_ref)
     from repro_torch.models.common import apply_norm
@@ -261,20 +311,19 @@ def exit_checks(torch, dev):
     rnd = lambda *s, scale=1.0: torch.randn(s, generator=gen,  # noqa: E731
                                             device=dev) * scale
 
-    def plain_case(name, h, w, dt):
-        conf, pred = exit_confidence_cuda(h, w)
-        wc, wp = exit_confidence_ref(h, w)
+    def plain_case(name, h, w, dt, bias=None):
+        conf, pred = exit_confidence(h, w, bias)
+        wc, wp = exit_confidence_ref(h, w, bias)
         torch.cuda.synchronize()
         err = check_close(f"exit_confidence[{name}]", conf, wc, dt)
         flips = check_pred(f"exit_confidence[{name}]", pred, wp,
-                           _exit_logits(h, w), dt)
+                           _exit_logits(h, w, bias), dt)
         print(f"  exit_confidence[{name}] max|err| {err:.3e} pred flips "
               f"at near-ties {flips}")
         return err
 
     def fused_case(name, x, norm, w, hb, kind, dt):
-        conf, pred = exit_confidence_fused_cuda(
-            x, norm["scale"], norm.get("bias"), w, hb, kind=kind)
+        conf, pred = exit_confidence_fused(x, norm, w, hb, kind=kind)
         wc, wp = exit_confidence_fused_ref(x, norm, w, hb, kind=kind)
         torch.cuda.synchronize()
         from repro_torch.kernels.exit_confidence.ref import _norm_for
@@ -293,6 +342,9 @@ def exit_checks(torch, dev):
     w_main = rnd(d, v, scale=d ** -0.5).to(bf16)
     err_main = plain_case("main_bf16", h_main, w_main, "bfloat16")
     plain_case("main_f32", h_main.float(), w_main.float(), "float32")
+    # a head bias, folded into the product by the wrapper
+    plain_case("bias_f32", h_main.float(), w_main.float(), "float32",
+               bias=rnd(v))
     # every exit of the stack in one grouped launch (edge_fn_s)
     plain_case("grouped_12x32_bf16", rnd(12, b, d).to(bf16),
                rnd(12, d, v, scale=d ** -0.5).to(bf16), "bfloat16")
@@ -307,7 +359,7 @@ def exit_checks(torch, dev):
     w_t[:, cols] = 2.0
     w_t[:, 150999] = 1.0
     for dt in (f32, bf16):
-        conf, pred = exit_confidence_cuda(h_t.to(dt), w_t.to(dt))
+        conf, pred = exit_confidence(h_t.to(dt), w_t.to(dt))
         if not (pred == 300).all():
             fail(f"exit_confidence ties ({dt}): pred {pred.unique().tolist()}"
                  f" != 300")
@@ -315,11 +367,11 @@ def exit_checks(torch, dev):
                     exit_confidence_ref(h_t, w_t)[0], "float32")
     w_t2 = torch.zeros((64, big_v), device=dev)
     w_t2[:, [255, 256, 512]] = 3.0              # tie across a 256-column tile
-    if not (exit_confidence_cuda(h_t, w_t2)[1] == 255).all():
+    if not (exit_confidence(h_t, w_t2)[1] == 255).all():
         fail("exit_confidence tie across a column tile: lowest index lost")
     w_t3 = torch.zeros((64, 40), device=dev)    # small head: warp per column
     w_t3[:, [9, 17, 30]] = 1.0
-    if not (exit_confidence_cuda(h_t, w_t3)[1] == 9).all():
+    if not (exit_confidence(h_t, w_t3)[1] == 9).all():
         fail("exit_confidence tie in a small head: lowest index lost")
     print("  exit_confidence ties across tiles/splits: lowest index wins")
 
@@ -350,7 +402,7 @@ def exit_checks(torch, dev):
         "exit_confidence", src,
         "src/repro/kernels/exit_confidence/kernel.py:100",
         f"h ({b},{d}) @ w ({d},{v}) bfloat16", err_main,
-        lambda: exit_confidence_cuda(h_main, w_main),
+        lambda: exit_confidence(h_main, w_main),
         lambda: exit_confidence_ref(h_main, w_main),
         lambda: torch.softmax(h_main @ w_main, dim=-1).max(dim=-1),
         nbytes, 2.0 * b * d * v, "bfloat16")
@@ -362,9 +414,8 @@ def exit_checks(torch, dev):
         "src/repro/kernels/exit_confidence/kernel.py:186",
         f"layernorm x ({b},{d}), shared (D,) params, w ({d},{v}) bfloat16",
         errs_fused["layernorm_shared_bf16"],
-        lambda: exit_confidence_fused_cuda(x_f, norm_f["scale"],
-                                           norm_f["bias"], w_main, None,
-                                           kind="layernorm"),
+        lambda: exit_confidence_fused(x_f, norm_f, w_main,
+                                      kind="layernorm"),
         lambda: exit_confidence_fused_ref(x_f, norm_f, w_main,
                                           kind="layernorm"),
         None,       # no single PyTorch call computes norm + head + max
@@ -384,6 +435,31 @@ def calibrated_alpha(torch, params, cfg, tokens, layer: int) -> float:
 def arm_histogram(arms, num_layers):
     import numpy as np
     return np.bincount(np.asarray(arms), minlength=num_layers).tolist()
+
+
+def expected_launches(arms, exited, batch_size: int, num_layers: int,
+                      fused: bool):
+    """Kernel launches the serving drivers make for these decisions. Per
+    micro-batch: one edge call per distinct arm a (a+1 attention layers
+    and one exit launch; SplitEE-S scores every exit in that one launch)
+    and one cloud call per distinct arm among its offloaded samples
+    (L-1-a layers and the final head, never fused). The sequential driver
+    is micro-batches of one."""
+    import numpy as np
+    arms = np.asarray(arms)
+    offloaded = ~np.asarray(exited).astype(bool)
+    n = {"flash_attention": 0, "exit_confidence": 0,
+         "exit_confidence_fused": 0}
+    edge_exit = "exit_confidence_fused" if fused else "exit_confidence"
+    for i in range(0, len(arms), batch_size):
+        mb, off = arms[i:i + batch_size], offloaded[i:i + batch_size]
+        for a in np.unique(mb):
+            n["flash_attention"] += int(a) + 1
+            n[edge_exit] += 1
+        for a in np.unique(mb[off]):
+            n["flash_attention"] += num_layers - 1 - int(a)
+            n["exit_confidence"] += 1
+    return n
 
 
 def serve_phase(torch, dev):
@@ -426,25 +502,27 @@ def serve_phase(torch, dev):
                               batch_size=SERVE_BATCH, side_info=side,
                               max_samples=4 * SERVE_BATCH)
     torch.cuda.synchronize()
-    reset_launch_counts()
-    results = {}
+    results, counts_by_path = {}, {}
     for name, kw, fused in runs:
         rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
         stream = OnlineStream(data, seed=0)
         driver = (_serve_stream_sequential if name == "sequential"
                   else _serve_stream_batched)
         torch.cuda.synchronize()
+        reset_launch_counts()
         t0 = time.perf_counter()
         out = driver(rt, params, stream, cost, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        counts = launch_counts()
         results[name] = (out, dt)
+        counts_by_path[name] = counts
         hist = arm_histogram(out["arms"], cfg.num_layers)
         n_exit = int(np.sum(out["exited"]))
         print(f"  {name}: {out['n']} samples in {dt:.3f}s = "
               f"{out['n'] / dt:.1f} samples/s; exits {n_exit}, offloads "
               f"{out['n'] - n_exit}, offload bytes {out['offload_bytes']}, "
-              f"cost {out['cost_total']:.3f}, arms {hist}")
+              f"cost {out['cost_total']:.3f}, arms {hist}; launches {counts}")
         if not np.isfinite(out["rewards"]).all():
             fail(f"{name}: non-finite rewards")
         if not 0 < n_exit < out["n"]:
@@ -452,11 +530,16 @@ def serve_phase(torch, dev):
                  f"and offloads")
         if min(hist) == 0:
             fail(f"{name}: not every arm was pulled: {hist}")
-    counts = launch_counts()
-    print(f"  kernel launches in the serve runs: {counts}")
-    for kname, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {kname} was not launched on the main path")
+        want = expected_launches(out["arms"], out["exited"],
+                                 kw.get("batch_size", 1), cfg.num_layers,
+                                 fused)
+        if counts != want:
+            fail(f"{name}: kernel launches {counts}, but its decisions "
+                 f"need {want}")
+        for kname in ("flash_attention", "exit_confidence") + \
+                (("exit_confidence_fused",) if fused else ()):
+            if counts[kname] <= 0:
+                fail(f"{name}: kernel {kname} was not launched")
 
     # where the time goes: the device time of one more batched B=32 run
     # (profiled) against the wall time of the unprofiled run above
@@ -471,7 +554,7 @@ def serve_phase(torch, dev):
           f"{1 - busy / wall_ms:.1%} idle")
     for kname, ms in top:
         print(f"    {ms:9.4f} ms  {kname[:100]}")
-    return counts, params, cfg, data
+    return counts_by_path, params, cfg, data
 
 
 def agreement_phase(torch, dev, params, cfg, data):
@@ -582,28 +665,33 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
 
+    print("== dispatch and launch counts")
+    dispatch_checks(torch, dev)
+
     print("== kernels vs plain versions")
     rec_attn = attention_checks(torch, dev)
     rec_exit, rec_fused = exit_checks(torch, dev)
 
     print("== serve: elasticbert12 (full width) on the card")
-    counts, params, cfg, data = serve_phase(torch, dev)
+    counts_by_path, params, cfg, data = serve_phase(torch, dev)
 
     print("== agreement: card kernel path vs CPU plain path")
     agreement_phase(torch, dev, params, cfg, data)
 
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused):
-        rec["launches"] = counts[rec["name"]]
+        path = MAIN_PATH[rec["name"]]
+        rec["main_path"] = path
+        rec["launches"] = counts_by_path[path][rec["name"]]
+        rec["launches_by_path"] = {p: c[rec["name"]]
+                                   for p, c in counts_by_path.items()}
         kernels.append(rec)
         lib = rec["library_ms"]
-        print(f"  {rec['name']} at {rec['shape']}: device ms per call (CUDA graph): "
-              f"kernel {rec['ms']:.5f}, plain {rec['plain_ms']:.5f}, library "
-              f"{'none' if lib is None else f'{lib:.5f}'}, bound "
-              f"{rec['bound_ms']:.6f} ({rec['bound_by']}); back-to-back "
-              f"call ms: kernel {rec['call_ms']:.5f}, plain "
-              f"{rec['plain_call_ms']:.5f}; {rec['launches']} launches on "
-              f"the main path; kernels {rec['device_kernels']}")
+        print(f"  {rec['name']} at {rec['shape']}: device ms per call (CUDA "
+              f"graph): kernel {rec['ms']:.5f}, plain {rec['plain_ms']:.5f}, "
+              f"library {'none' if lib is None else f'{lib:.5f}'}, bound "
+              f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
+              f"launches in the {path} run")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,7 @@
 The port's `attention` on CPU tensors (its plain version) against the
 reference's Pallas kernel in interpret mode and its `gqa_ref` oracle, on
 the same numpy inputs. float32 at atol 1e-5. The CUDA kernel itself is
-held against the plain version on the card by chip_smoke.py and
-tests/test_torch_kernels_gpu.py.
+held against the plain version on the card by chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
