@@ -19,16 +19,25 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    set to NaN, fully masked rows, a 151936-column vocabulary with ties
    across tiles, a head bias, rms/layer norm with shared/per-row
    parameters), and times kernel, plain version and one PyTorch library
-   call at the serving shapes (CUDA-graph replay);
+   call at the serving shapes (CUDA-graph replay), the exit kernels also
+   at the rwkv6-3b LM head (32, 2560) x (2560, 65536) in bf16 and f32,
+   where conf (about 1/V) is held at a tolerance scaled to its size that
+   must reject a halved conf and one vocabulary split left out. The WKV6
+   recurrence is held against its plain version at the serving shape
+   (bf16 and f32), at dk = dv = 16, T in {1, 17, 100, 300}, dk != dv, a
+   strided view input, w = 0 and a large B*H;
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
-   and fused exits, and SplitEE-S) and the sequential driver. Each run
+   and fused exits, and SplitEE-S) and the sequential driver, then the
+   same four runs with full-width rwkv6-3b (32 layers, d 2560, vocab
+   65536, bfloat16). Each run
    has its own launch counts, reset just before it and read just after,
    and they must equal the launches its decisions need (one edge call
    per distinct split depth of a micro-batch, one cloud call per
    distinct depth of its offloaded samples). It then checks the served
    decisions against the port's CPU (plain-version) path on a small
-   float32 model and the full-width exits against the CPU path;
+   float32 model of each family and the full-width exits against the
+   CPU path (rwkv6-3b at 2 layers);
 6. prints one JSON line of per-kernel numbers (``launches`` from the run
    named in MAIN_PATH, ``launches_by_path`` from every run), then the
    final line ``{"ok": true, "device": {...}}``.
@@ -38,6 +47,7 @@ line. Without CUDA, or without the port beside it, it exits with 2.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import platform
@@ -51,6 +61,10 @@ SRC = ROOT / "src"
 
 # tolerances of kernel vs plain version, in the working dtype
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}       # atol = rtol
+# (rtol, atol) of exit conf at the 65536-class LM head, where conf is
+# about 1/V: scaled to its size, so that a conf halved or a vocabulary
+# split left out of the softmax sum fails (checked on every run)
+LM_CONF_TOL = {"float32": (1e-4, 1e-9), "bfloat16": (1e-3, 1e-7)}
 # a pred may differ from the plain version's only on rows whose top-2
 # plain logits are closer than this (near-ties the rounding can flip)
 PRED_TIE_GAP = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -61,18 +75,40 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # card vs CPU, full 12-layer forward in float32 (summation orders differ)
 FULL_FORWARD_ATOL = 1e-4
+# card vs CPU, rwkv6-3b exits (2 layers, float32): its confidences are
+# max softmax probabilities over 65536 classes, far below 1, so the
+# bound is relative
+LM_FORWARD_RTOL = 1e-4
+# WKV6 kernel vs plain version: both f32 outputs, the sums over dk and
+# the state over T are taken in different orders (rtol = atol)
+WKV6_TOL = 1e-4
 
 SERVE_SAMPLES = 512
 SERVE_BATCH = 32
 SEQUENTIAL_SAMPLES = 32
+LM = "rwkv6-3b"
 # the serve run whose launch count each kernel's JSON entry reports
 MAIN_PATH = {"flash_attention": "batched B=32",
              "exit_confidence": "batched B=32",
-             "exit_confidence_fused": "batched B=32 fused_exit"}
+             "exit_confidence_fused": "batched B=32 fused_exit",
+             "wkv6": f"{LM} batched B=32"}
+# the kernel of every layer, by model family
+LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
 
 
 def fail(msg: str) -> None:
     raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print a phase's heading, then its wall time once the card is idle."""
+    import torch
+    print(f"== {name}")
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"  [{name}: {time.perf_counter() - t0:.1f} s wall]")
 
 
 def device_ms(fn, iters: int = 50, warmup: int = 5):
@@ -159,13 +195,41 @@ def check_close(name, got, want, dtype):
     return err
 
 
-def check_pred(name, pred, want_pred, logits, dtype):
+def check_lm_conf(name, conf, want, logits, dtype):
+    """conf at an LM head against the plain version at LM_CONF_TOL; the
+    same comparison must reject the plain conf halved and the plain conf
+    with the smallest of the kernel's vocabulary splits left out of the
+    softmax sum. Returns the max relative error."""
+    import torch
+    from repro_torch.kernels.exit_confidence.kernel import _plan
+    rtol, atol = LM_CONF_TOL[dtype]
+
+    def ok(c):
+        return bool(torch.allclose(c.float(), want.float(), rtol=rtol,
+                                   atol=atol))
+    rel = ((conf.float() - want.float()).abs() / want.float()).max().item()
+    if not ok(conf) or not torch.isfinite(conf).all():
+        fail(f"{name}: kernel vs plain conf max relative err {rel:.3e} "
+             f"(rtol {rtol}, atol {atol})")
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    _, cols = _plan(1, *e.shape, e.device)
+    parts = torch.stack([e[:, i:i + cols].sum(-1)
+                         for i in range(0, e.shape[-1], cols)], -1)
+    drop = int(parts.sum(0).argmin())
+    if ok(want * 0.5) or ok(1.0 / (e.sum(-1) - parts[:, drop])):
+        fail(f"{name}: LM_CONF_TOL accepts a halved conf or one of "
+             f"{parts.shape[-1]} vocabulary splits left out")
+    return rel
+
+
+def check_pred(name, pred, want_pred, logits_fn, dtype):
     """pred equal to the plain argmax except where the plain top-2
-    logits are within PRED_TIE_GAP."""
+    logits (``logits_fn()``, computed only on a mismatch) are within
+    PRED_TIE_GAP."""
     import torch
     bad = pred.long() != want_pred.long()
     if bad.any():
-        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        top2 = torch.topk(logits_fn().float(), 2, dim=-1).values
         gap = (top2[..., 0] - top2[..., 1])[bad]
         if (gap >= PRED_TIE_GAP[dtype]).any():
             fail(f"{name}: pred differs on {int(bad.sum())} rows, top-2 gap "
@@ -183,17 +247,21 @@ def dispatch_checks(torch, dev):
     from repro_torch.kernels.exit_confidence.ops import (
         exit_confidence, exit_confidence_fused)
     from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.wkv6.ops import wkv6
 
     gen = torch.Generator().manual_seed(3)
     q = torch.randn((1, 2, 8, 16), generator=gen)
     h = torch.randn((8, 16), generator=gen)
     w = torch.randn((16, 4), generator=gen)
     scale = torch.ones(16)
+    decay = torch.rand((1, 2, 8, 16), generator=gen)
     calls = {
         "flash_attention": lambda d: attention(q.to(d), q.to(d), q.to(d)),
         "exit_confidence": lambda d: exit_confidence(h.to(d), w.to(d)),
         "exit_confidence_fused": lambda d: exit_confidence_fused(
             h.to(d), {"scale": scale.to(d)}, w.to(d), kind="rmsnorm"),
+        "wkv6": lambda d: wkv6(q.to(d), q.to(d), q.to(d), decay.to(d),
+                               q[0, :, 0].to(d)),
     }
     if sorted(calls) != sorted(launch_counts()):
         fail(f"kernels {sorted(launch_counts())}, checks {sorted(calls)}")
@@ -213,12 +281,14 @@ def dispatch_checks(torch, dev):
             fail(f"{name}: a CUDA input gave a {gpu_out[0].device} output")
         check_close(f"{name}[dispatch]", gpu_out[0].cpu(), cpu_out[0],
                     "float32")
-    try:
-        attention(q.to("meta"), q.to("meta"), q.to("meta"))
-    except ValueError:
-        pass
-    else:
-        fail("attention on a meta tensor did not raise")
+    for name, call in (("attention", calls["flash_attention"]),
+                       ("wkv6", calls["wkv6"])):
+        try:
+            call("meta")
+        except ValueError:
+            pass
+        else:
+            fail(f"{name} on a meta tensor did not raise")
     print(f"  {sorted(calls)}: CPU tensor -> plain version, no count; CUDA "
           f"tensor -> kernel, one count each; other devices raise")
 
@@ -304,37 +374,43 @@ def exit_checks(torch, dev):
     from repro_torch.kernels.exit_confidence.ops import (
         exit_confidence, exit_confidence_fused)
     from repro_torch.kernels.exit_confidence.ref import (
-        exit_confidence_fused_ref, exit_confidence_ref)
+        _norm_for, exit_confidence_fused_ref, exit_confidence_ref)
     from repro_torch.models.common import apply_norm
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rnd = lambda *s, scale=1.0: torch.randn(s, generator=gen,  # noqa: E731
                                             device=dev) * scale
 
-    def plain_case(name, h, w, dt, bias=None):
+    def held(name, conf, pred, wc, wp, logits_fn, dt, lm):
+        """conf and pred against the plain version's; ``lm``: at an LM
+        head, conf at LM_CONF_TOL."""
+        err = (conf.float() - wc.float()).abs().max().item()
+        if lm:
+            rel = check_lm_conf(name, conf, wc, logits_fn(), dt)
+            tol = f"relative {rel:.3e}, (rtol, atol) {LM_CONF_TOL[dt]}"
+        else:
+            check_close(name, conf, wc, dt)
+            tol = f"tol {TOL[dt]}"
+        flips = check_pred(name, pred, wp, logits_fn, dt)
+        print(f"  {name} max|err| {err:.3e} ({tol}), pred flips at "
+              f"near-ties {flips}")
+        return err
+
+    def plain_case(name, h, w, dt, bias=None, lm=False):
         conf, pred = exit_confidence(h, w, bias)
         wc, wp = exit_confidence_ref(h, w, bias)
         torch.cuda.synchronize()
-        err = check_close(f"exit_confidence[{name}]", conf, wc, dt)
-        flips = check_pred(f"exit_confidence[{name}]", pred, wp,
-                           _exit_logits(h, w, bias), dt)
-        print(f"  exit_confidence[{name}] max|err| {err:.3e} pred flips "
-              f"at near-ties {flips}")
-        return err
+        return held(f"exit_confidence[{name}]", conf, pred, wc, wp,
+                    lambda: _exit_logits(h, w, bias), dt, lm)
 
-    def fused_case(name, x, norm, w, hb, kind, dt):
+    def fused_case(name, x, norm, w, hb, kind, dt, lm=False):
         conf, pred = exit_confidence_fused(x, norm, w, hb, kind=kind)
         wc, wp = exit_confidence_fused_ref(x, norm, w, hb, kind=kind)
         torch.cuda.synchronize()
-        from repro_torch.kernels.exit_confidence.ref import _norm_for
-        logits = _exit_logits(apply_norm(x, _norm_for(x, norm), kind), w,
-                              None if hb is None else hb.unsqueeze(-2))
-        err = check_close(f"exit_confidence_fused[{name}]", conf, wc, dt)
-        flips = check_pred(f"exit_confidence_fused[{name}]", pred, wp,
-                           logits, dt)
-        print(f"  exit_confidence_fused[{name}] max|err| {err:.3e} pred "
-              f"flips at near-ties {flips}")
-        return err
+        return held(f"exit_confidence_fused[{name}]", conf, pred, wc, wp,
+                    lambda: _exit_logits(
+                        apply_norm(x, _norm_for(x, norm), kind), w,
+                        None if hb is None else hb.unsqueeze(-2)), dt, lm)
 
     bf16, f32 = torch.bfloat16, torch.float32
     b, d, v = 32, 768, 2
@@ -420,7 +496,110 @@ def exit_checks(torch, dev):
                                           kind="layernorm"),
         None,       # no single PyTorch call computes norm + head + max
         nbytes + 2 * d * 2, 2.0 * b * d * v + 8.0 * b * d, "bfloat16")
+
+    # the rwkv6-3b LM head, shared by all its exits: checked and timed
+    # too, as each entry's "at_lm_head"
+    d, v = 2560, 65536
+    h_lm = rnd(b, d).to(bf16)
+    w_lm = rnd(d, v, scale=d ** -0.5).to(bf16)
+    x_lm = (rnd(b, d, scale=2.0) + 0.5).to(bf16)
+    norm_lm = {"scale": (rnd(d, scale=0.1) + 1.0).to(bf16),
+               "bias": rnd(d, scale=0.1).to(bf16)}
+    err_lm = plain_case("lm_head_bf16", h_lm, w_lm, "bfloat16", lm=True)
+    err_lm_f = fused_case("layernorm_lm_head_bf16", x_lm, norm_lm, w_lm, None,
+                          "layernorm", "bfloat16", lm=True)
+    plain_case("lm_head_f32", h_lm.float(), w_lm.float(), "float32", lm=True)
+    fused_case("layernorm_lm_head_f32", x_lm.float(),
+               {k: t.float() for k, t in norm_lm.items()}, w_lm.float(), None,
+               "layernorm", "float32", lm=True)
+    nbytes = h_lm.numel() * 2 + w_lm.numel() * 2 + b * 4 + b * 4
+    rec_plain["at_lm_head"] = record(
+        "exit_confidence", src,
+        "src/repro/kernels/exit_confidence/kernel.py:100",
+        f"h ({b},{d}) @ w ({d},{v}) bfloat16", err_lm,
+        lambda: exit_confidence(h_lm, w_lm),
+        lambda: exit_confidence_ref(h_lm, w_lm),
+        lambda: torch.softmax(h_lm @ w_lm, dim=-1).max(dim=-1),
+        nbytes, 2.0 * b * d * v, "bfloat16")
+    rec_fused["at_lm_head"] = record(
+        "exit_confidence_fused", src,
+        "src/repro/kernels/exit_confidence/kernel.py:186",
+        f"layernorm x ({b},{d}), shared (D,) params, w ({d},{v}) bfloat16",
+        err_lm_f,
+        lambda: exit_confidence_fused(x_lm, norm_lm, w_lm, kind="layernorm"),
+        lambda: exit_confidence_fused_ref(x_lm, norm_lm, w_lm,
+                                          kind="layernorm"),
+        None, nbytes + 2 * d * 2, 2.0 * b * d * v + 8.0 * b * d, "bfloat16")
     return rec_plain, rec_fused
+
+
+def wkv6_checks(torch, dev):
+    """The WKV6 kernel against its plain version: y and the final state,
+    both float32, at rtol = atol = WKV6_TOL."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def inputs(b, h, t, dk, dv, dtype):
+        rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                     device=dev)
+        r, k, v = rnd(b, h, t, dk), rnd(b, h, t, dk), rnd(b, h, t, dv)
+        # the model's decay, exp(-exp(.)) in (0, 1), in float32
+        w = torch.exp(-torch.exp(rnd(b, h, t, dk).clamp(-10.0, 2.0) - 1.0))
+        u = rnd(h, dk) * 0.1
+        return (r.to(dtype), k.to(dtype), v.to(dtype), w, u.to(dtype))
+
+    def case(name, args):
+        y, s = wkv6(*args)
+        wy, ws = wkv6_ref(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for part, got, want in (("y", y, wy), ("state", s, ws)):
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                fail(f"wkv6[{name}] {part}: {got.dtype} {tuple(got.shape)},"
+                     f" want float32 {tuple(want.shape)}")
+            err = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=WKV6_TOL, atol=WKV6_TOL) \
+                    or not torch.isfinite(got).all():
+                fail(f"wkv6[{name}] {part}: kernel vs plain max |err| "
+                     f"{err:.3e} > tol {WKV6_TOL}")
+            errs.append(err)
+        print(f"  wkv6[{name}] max|err| y {errs[0]:.3e}, state {errs[1]:.3e}"
+              f" (tol {WKV6_TOL})")
+        return max(errs)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = inputs(32, 40, 64, 64, 64, bf16)      # the rwkv6-3b serving shape
+    err_main = case("main_bf16", main)
+    case("main_f32", tuple(a.float() for a in main))
+    case("smoke_dk16_f32", inputs(4, 8, 64, 16, 16, f32))
+    for t in (1, 17, 100, 300):
+        case(f"t{t}_bf16", inputs(2, 4, t, 64, 64, bf16))
+    case("dk48_dv40_f32", inputs(2, 3, 33, 48, 40, f32))
+    # (B, S, H, hd) -> (B, H, S, hd) views, as time_mix passes them
+    case("strided_bf16", tuple(a.transpose(1, 2).contiguous().transpose(1, 2)
+                               if a.ndim == 4 else a for a in main))
+    # w = 0 wipes the state every step: y_t depends on token t alone
+    r, k, v, w, u = inputs(2, 4, 40, 64, 64, f32)
+    case("w0_f32", (r, k, v, torch.zeros_like(w), u))
+    case("bh10240_bf16", inputs(256, 40, 64, 64, 64, bf16))
+
+    r, k, v, w, u = main
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    # bytes: r, k, v, u read in bf16, w in f32; y and the state written
+    # in f32. operations: 5 per (step, i, j) — the state update
+    # w*S + k*v (3) and the readout r*S summed over i (2)
+    nbytes = ((2 * dk + dv) * 2 + dk * 4) * b * h * t + h * dk * 2 \
+        + (b * h * t * dv + b * h * dk * dv) * 4
+    return record(
+        "wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6/kernel.py:57",
+        f"r/k/v ({b},{h},{t},{dk}) bfloat16, w float32, u ({h},{dk})",
+        err_main, lambda: wkv6(r, k, v, w, u), lambda: wkv6_ref(r, k, v, w, u),
+        None,       # no single PyTorch call computes this recurrence
+        nbytes, 5.0 * b * h * t * dk * dv, "float32")
 
 
 # ------------------------------------------------------------- serve phase
@@ -438,31 +617,34 @@ def arm_histogram(arms, num_layers):
 
 
 def expected_launches(arms, exited, batch_size: int, num_layers: int,
-                      fused: bool):
+                      fused: bool, layer_kernel: str):
     """Kernel launches the serving drivers make for these decisions. Per
-    micro-batch: one edge call per distinct arm a (a+1 attention layers
-    and one exit launch; SplitEE-S scores every exit in that one launch)
-    and one cloud call per distinct arm among its offloaded samples
-    (L-1-a layers and the final head, never fused). The sequential driver
-    is micro-batches of one."""
+    micro-batch: one edge call per distinct arm a (a+1 launches of the
+    family's layer kernel and one exit launch; SplitEE-S scores every
+    exit in that one launch) and one cloud call per distinct arm among
+    its offloaded samples (L-1-a layers and the final head, never
+    fused). The sequential driver is micro-batches of one."""
     import numpy as np
     arms = np.asarray(arms)
     offloaded = ~np.asarray(exited).astype(bool)
-    n = {"flash_attention": 0, "exit_confidence": 0,
-         "exit_confidence_fused": 0}
+    n = {name: 0 for name in MAIN_PATH}
     edge_exit = "exit_confidence_fused" if fused else "exit_confidence"
     for i in range(0, len(arms), batch_size):
         mb, off = arms[i:i + batch_size], offloaded[i:i + batch_size]
         for a in np.unique(mb):
-            n["flash_attention"] += int(a) + 1
+            n[layer_kernel] += int(a) + 1
             n[edge_exit] += 1
         for a in np.unique(mb[off]):
-            n["flash_attention"] += num_layers - 1 - int(a)
+            n[layer_kernel] += num_layers - 1 - int(a)
             n["exit_confidence"] += 1
     return n
 
 
-def serve_phase(torch, dev):
+def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
+    """Serve a 512-sample stream with ``arch`` at full width through the
+    four runs (batched B=32 plain / fused / SplitEE-S, sequential), each
+    with its own launch counts, held against what its decisions need.
+    Run names are ``prefix`` + the run."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import CostModel
@@ -472,28 +654,37 @@ def serve_phase(torch, dev):
     from repro_torch.serving import (EdgeCloudRuntime, _serve_stream_batched,
                                      _serve_stream_sequential)
 
-    cfg = get_config("elasticbert12")                 # as published, bf16
+    cfg = get_config(arch)                            # as published, bf16
+    layer_kernel = LAYER_KERNEL[cfg.family]
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"  elasticbert12: {cfg.num_layers} layers, d {cfg.d_model}, "
-          f"{cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.num_classes} classes, {cfg.dtype}; {n_params} parameters "
-          f"(analytic {cfg.param_count()} without the norms), init "
-          f"{time.perf_counter() - t0:.2f}s")
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    heads = (f"{cfg.ssm.num_heads or cfg.d_model // cfg.ssm.state_size} "
+             f"WKV heads of {cfg.ssm.state_size}" if cfg.family == "ssm"
+             else f"{cfg.num_heads} heads")
+    print(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {heads}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.num_classes or 'LM'} classes, {cfg.dtype}; {n_params} "
+          f"stored parameters = {n_bytes / 1e9:.3f} GB (analytic "
+          f"param_count {cfg.param_count()}, without the norms), init "
+          f"{time.perf_counter() - t0:.2f}s, device memory allocated "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB")
     data = make_dataset("imdb_like", SERVE_SAMPLES, seed=1)
     calib = make_dataset("sst2_like", 64, seed=2)["tokens"]
-    alpha = calibrated_alpha(torch, params, cfg, calib, layer=6)
+    alpha = calibrated_alpha(torch, params, cfg, calib, layer=alpha_layer)
     cost = CostModel(num_layers=cfg.num_layers, alpha=alpha, offload=3.0)
-    print(f"  alpha = median layer-6 confidence of 64 calibration samples "
-          f"= {alpha:.6f}")
+    print(f"  alpha = median layer-{alpha_layer} confidence of 64 "
+          f"calibration samples = {alpha:.6g}")
 
-    runs = [("batched B=32", dict(batch_size=SERVE_BATCH), False),
-            ("batched B=32 fused_exit", dict(batch_size=SERVE_BATCH), True),
-            ("batched B=32 side_info", dict(batch_size=SERVE_BATCH,
-                                            side_info=True), False),
-            ("sequential", dict(max_samples=SEQUENTIAL_SAMPLES), False)]
+    runs = [(prefix + "batched B=32", dict(batch_size=SERVE_BATCH), False),
+            (prefix + "batched B=32 fused_exit", dict(batch_size=SERVE_BATCH),
+             True),
+            (prefix + "batched B=32 side_info", dict(batch_size=SERVE_BATCH,
+                                                     side_info=True), False),
+            (prefix + "sequential", dict(max_samples=SEQUENTIAL_SAMPLES),
+             False)]
     # warm-up (cuBLAS handles and heuristics for each bucket shape), so
     # the timed runs below measure steady-state serving
     for fused, side in ((False, False), (True, False), (False, True)):
@@ -506,7 +697,7 @@ def serve_phase(torch, dev):
     for name, kw, fused in runs:
         rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
         stream = OnlineStream(data, seed=0)
-        driver = (_serve_stream_sequential if name == "sequential"
+        driver = (_serve_stream_sequential if name.endswith("sequential")
                   else _serve_stream_batched)
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -532,11 +723,11 @@ def serve_phase(torch, dev):
             fail(f"{name}: not every arm was pulled: {hist}")
         want = expected_launches(out["arms"], out["exited"],
                                  kw.get("batch_size", 1), cfg.num_layers,
-                                 fused)
+                                 fused, layer_kernel)
         if counts != want:
             fail(f"{name}: kernel launches {counts}, but its decisions "
                  f"need {want}")
-        for kname in ("flash_attention", "exit_confidence") + \
+        for kname in (layer_kernel, "exit_confidence") + \
                 (("exit_confidence_fused",) if fused else ()):
             if counts[kname] <= 0:
                 fail(f"{name}: kernel {kname} was not launched")
@@ -547,11 +738,11 @@ def serve_phase(torch, dev):
     busy, per_kernel = device_ms(lambda: _serve_stream_batched(
         rt, params, OnlineStream(data, seed=0), cost,
         batch_size=SERVE_BATCH), iters=1, warmup=0)
-    wall_ms = results["batched B=32"][1] * 1e3
+    wall_ms = results[prefix + "batched B=32"][1] * 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    print(f"  batched B=32: device busy {busy:.3f} ms (torch.profiler) of "
-          f"{wall_ms:.3f} ms wall = {busy / wall_ms:.1%} busy, "
-          f"{1 - busy / wall_ms:.1%} idle")
+    print(f"  {prefix}batched B=32: device busy {busy:.3f} ms "
+          f"(torch.profiler) of {wall_ms:.3f} ms wall = {busy / wall_ms:.1%} "
+          f"busy, {1 - busy / wall_ms:.1%} idle")
     for kname, ms in top:
         print(f"    {ms:9.4f} ms  {kname[:100]}")
     return counts_by_path, params, cfg, data
@@ -561,12 +752,7 @@ def agreement_phase(torch, dev, params, cfg, data):
     """The card's kernel path against the port's CPU (plain-version) path:
     full-width exits in float32, and the served decisions of a small
     float32 model exactly."""
-    import numpy as np
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.core import CostModel
-    from repro_torch.data import OnlineStream
-    from repro_torch.models.transformer import ParamTree, forward_exits, init_params
-    from repro_torch.serving import EdgeCloudRuntime, _serve_stream_batched
+    from repro_torch.models.transformer import ParamTree, forward_exits
 
     # the serve phase's weights in float32 on both sides: what differs is
     # only the kernels vs the plain versions and the summation orders
@@ -589,9 +775,55 @@ def agreement_phase(torch, dev, params, cfg, data):
     print(f"  full-width elasticbert12 forward_exits (float32 weights, 8 "
           f"samples, {cfg.num_layers} exits): card vs CPU conf max|err| {err:.3e} (tol "
           f"{FULL_FORWARD_ATOL}), pred differences {int(flips.sum())}")
+    small_serve_agreement(torch, dev, "elasticbert12", data)
 
-    small = dataclasses.replace(get_smoke_config("elasticbert12"),
-                                dtype="float32")
+
+def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 2):
+    """rwkv6-3b at full width, cut to its first ``layers`` layers of the
+    serve phase's weights, in float32: forward_exits on the card (WKV6
+    and exit kernels) against the CPU (plain versions); then the served
+    decisions of the small float32 rwkv6 model."""
+    from repro_torch.models.transformer import (ParamTree, exit_hidden,
+                                                forward_exits)
+
+    cut = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    tree = {key: (_first_rows(params[key], layers) if key == "layers"
+                  else params[key]) for key in params.keys()}
+    toks = data["tokens"][:8]
+    gpu = forward_exits(ParamTree(_tree_to(tree, dev, torch.float32)), cut,
+                        {"tokens": torch.as_tensor(toks, device=dev)})
+    cpu_p = ParamTree(_tree_to(tree, "cpu", torch.float32))
+    batch = {"tokens": torch.as_tensor(toks)}
+    cpu = forward_exits(cpu_p, cut, batch)
+    conf_g, conf_c = gpu["conf"].cpu(), cpu["conf"]
+    rel = ((conf_g - conf_c).abs() / conf_c).max().item()
+    if not rel <= LM_FORWARD_RTOL:
+        fail(f"full-width {cfg.arch_id} forward_exits: card vs CPU conf max "
+             f"relative err {rel:.3e} > {LM_FORWARD_RTOL}")
+    flips = check_pred(f"full-width {cfg.arch_id} forward_exits",
+                       gpu["pred"].cpu(), cpu["pred"],
+                       lambda: _exit_logits(exit_hidden(cpu_p, cut, batch)[0],
+                                            cpu_p["exit_w"]), "float32")
+    print(f"  full-width {cfg.arch_id} cut to {layers} layers, float32 (d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; 8 samples): card vs CPU "
+          f"conf max relative err {rel:.3e} (tol {LM_FORWARD_RTOL}), conf "
+          f"max|err| {(conf_g - conf_c).abs().max().item():.3e}, pred "
+          f"differences at near-ties {flips}")
+    small_serve_agreement(torch, dev, cfg.arch_id, data)
+
+
+def small_serve_agreement(torch, dev, arch: str, data):
+    """The small float32 model of ``arch`` served on the card and on the
+    CPU (plain exits; fused exits with SplitEE-S): identical decisions
+    and accounting."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import CostModel
+    from repro_torch.data import OnlineStream
+    from repro_torch.models.transformer import ParamTree, forward_exits, init_params
+    from repro_torch.serving import EdgeCloudRuntime, _serve_stream_batched
+
+    small = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     sp_gpu = init_params(small, seed=5, device=dev)
     sp_cpu = ParamTree(_tree_to(sp_gpu, "cpu"))
     sub = {key: val[:96] for key, val in data.items()}
@@ -611,15 +843,25 @@ def agreement_phase(torch, dev, params, cfg, data):
         a, b = outs
         for key in ("arms", "exited", "preds"):
             if not np.array_equal(a[key], b[key]):
-                fail(f"small f32 serve (fused/S={fused_s}): {key} differ "
-                     f"card vs CPU")
+                fail(f"small f32 {arch} serve (fused/S={fused_s}): {key} "
+                     f"differ card vs CPU")
         if a["offload_bytes"] != b["offload_bytes"] or \
                 abs(a["cost_total"] - b["cost_total"]) > 1e-4:
-            fail(f"small f32 serve (fused/S={fused_s}): accounting differs")
-    print(f"  small float32 model served on card and CPU (plain exits; fused "
-          f"exits with SplitEE-S; 96 samples, B=8; alpha {alpha:.5f} in a "
-          f"confidence gap of {conf[k + 1] - conf[k]:.2e}): decisions "
+            fail(f"small f32 {arch} serve (fused/S={fused_s}): accounting "
+                 f"differs")
+        if not 0 < int(np.sum(a["exited"])) < len(a["exited"]):
+            fail(f"small f32 {arch} serve: need both exits and offloads")
+    print(f"  small float32 {arch} served on card and CPU (plain exits; "
+          f"fused exits with SplitEE-S; 96 samples, B=8; alpha {alpha:.5g} "
+          f"in a confidence gap of {conf[k + 1] - conf[k]:.2e}): decisions "
           f"identical")
+
+
+def _first_rows(tree, n: int):
+    """The first ``n`` rows of every leaf: the first n layers of a
+    stacked-layer tree."""
+    return {key: _first_rows(val, n) if hasattr(val, "items") else val[:n]
+            for key, val in tree.items()}
 
 
 def _tree_to(tree, device, dtype=None):
@@ -655,31 +897,44 @@ def main() -> int:
         f"nvidia-smi failed: {smi.stderr.strip()}"
     print(card)
 
-    print("== build")
-    from repro_torch.kernels import build_all
-    t0 = time.perf_counter()
-    logs = build_all()
-    print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
-    for stem, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {stem}: {line.strip()}")
+    t_start = time.perf_counter()
+    with phase("build"):
+        from repro_torch.kernels import build_all
+        logs = build_all()
+        print(f"  built {sorted(logs)}")
+        for stem, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {stem}: {line.strip()}")
 
-    print("== dispatch and launch counts")
-    dispatch_checks(torch, dev)
+    with phase("dispatch and launch counts"):
+        dispatch_checks(torch, dev)
 
-    print("== kernels vs plain versions")
-    rec_attn = attention_checks(torch, dev)
-    rec_exit, rec_fused = exit_checks(torch, dev)
+    with phase("kernels vs plain versions"):
+        rec_attn = attention_checks(torch, dev)
+        rec_exit, rec_fused = exit_checks(torch, dev)
+        rec_wkv6 = wkv6_checks(torch, dev)
 
-    print("== serve: elasticbert12 (full width) on the card")
-    counts_by_path, params, cfg, data = serve_phase(torch, dev)
+    with phase("serve: elasticbert12 (full width) on the card"):
+        counts_by_path, params, cfg, data = serve_phase(
+            torch, dev, "elasticbert12", 6)
 
-    print("== agreement: card kernel path vs CPU plain path")
-    agreement_phase(torch, dev, params, cfg, data)
+    with phase("agreement: elasticbert12, card kernel path vs CPU plain "
+               "path"):
+        agreement_phase(torch, dev, params, cfg, data)
+    del params
+
+    with phase(f"serve: {LM} (full width) on the card"):
+        lm_counts, params, cfg, data = serve_phase(torch, dev, LM, 16,
+                                                   prefix=f"{LM} ")
+        counts_by_path.update(lm_counts)
+
+    with phase(f"agreement: {LM}, card kernel path vs CPU plain path"):
+        lm_agreement_phase(torch, dev, params, cfg, data)
+    del params
 
     kernels = []
-    for rec in (rec_attn, rec_exit, rec_fused):
+    for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6):
         path = MAIN_PATH[rec["name"]]
         rec["main_path"] = path
         rec["launches"] = counts_by_path[path][rec["name"]]
@@ -692,6 +947,14 @@ def main() -> int:
               f"library {'none' if lib is None else f'{lib:.5f}'}, bound "
               f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
               f"launches in the {path} run")
+        at = rec.get("at_lm_head")
+        if at:
+            lib = at["library_ms"]
+            print(f"    at {at['shape']}: kernel {at['ms']:.5f}, plain "
+                  f"{at['plain_ms']:.5f}, library "
+                  f"{'none' if lib is None else f'{lib:.5f}'}, bound "
+                  f"{at['bound_ms']:.6f} ({at['bound_by']})")
+    print(f"  whole smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ from typing import Dict
 from repro_torch.kernels import _build
 from repro_torch.kernels.exit_confidence import kernel as _exit_kernel
 from repro_torch.kernels.flash_attention import kernel as _attn_kernel
+from repro_torch.kernels.wkv6 import kernel as _wkv6_kernel
 
-SOURCES = (_attn_kernel.SOURCE, _exit_kernel.SOURCE)
+SOURCES = (_attn_kernel.SOURCE, _exit_kernel.SOURCE, _wkv6_kernel.SOURCE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,74 @@
+"""ctypes binding of the CUDA WKV6 recurrence kernel (csrc/wkv6.cu).
+
+The library is built on first call (`kernels._build`); nothing is built
+or loaded at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import check, count_launch, load, register_kernel
+
+NAME = "wkv6"
+SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
+MAX_DIM = 64                      # kMaxDim in the source: dk, dv <= 64
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+register_kernel(NAME)
+
+
+def _launcher():
+    fn = load(SOURCE).wkv6_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv6_cuda(r, k, v, w, u):
+    """r, k: (B, H, T, dk) and v: (B, H, T, dv), one dtype (float32 or
+    bfloat16); w: (B, H, T, dk) and u: (H, dk) float32; all on one CUDA
+    device, any strides. dk, dv <= 64.
+
+    Returns (y (B, H, T, dv) f32 whose memory is laid out (B, T, H, dv),
+    so the caller's merge of heads back into the model width is a view;
+    final state (B, H, dk, dv) f32), from a zero state. One launch."""
+    tensors = (r, k, v, w, u)
+    if not all(t.is_cuda and t.device == r.device for t in tensors):
+        raise ValueError("wkv6_cuda needs r, k, v, w, u on one CUDA device")
+    if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"r/k/v dtypes {r.dtype}/{k.dtype}/{v.dtype}: need "
+                         f"one of {list(_DTYPE_CODES)} for all three")
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise ValueError(f"w {w.dtype} / u {u.dtype}: need float32 for both")
+    if r.ndim != 4 or k.shape != r.shape or w.shape != r.shape or v.ndim != 4 \
+            or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"shapes r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}: need "
+                         f"(B, H, T, dk) for r, k, w and (B, H, T, dv) for v")
+    b, h, t, dk = r.shape
+    dv = v.shape[3]
+    if u.shape != (h, dk):
+        raise ValueError(f"u {tuple(u.shape)}: need (H, dk) = ({h}, {dk})")
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM and t >= 1 and b * h >= 1):
+        raise ValueError(f"dk={dk}, dv={dv}, T={t}, B*H={b * h}: need "
+                         f"1 <= dk, dv <= {MAX_DIM}, T >= 1, B*H >= 1")
+    y = torch.empty((b, t, h, dv), dtype=torch.float32,
+                    device=r.device).transpose(1, 2)
+    s = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    strides = []
+    for x in (r, k, v, w, y):
+        strides += list(x.stride())
+    strides += list(u.stride())
+    stride_arr = (ctypes.c_int64 * len(strides))(*strides)
+    status = _launcher()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        y.data_ptr(), s.data_ptr(), ctypes.addressof(stride_arr),
+        b, h, t, dk, dv, _DTYPE_CODES[r.dtype],
+        torch.cuda.current_stream(r.device).cuda_stream)
+    check(status, NAME)
+    count_launch(NAME)
+    return y, s

@@ -1,0 +1,41 @@
+"""Public RWKV6 WKV recurrence: dispatch by device.
+
+A CPU tensor runs the plain PyTorch version (`ref.wkv6_ref`); a CUDA
+tensor launches the hand-written kernel; any other device raises. There
+is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_inputs(r, k, v, w, u):
+    """The dtypes the kernel takes, by explicit casts: r, k, v stay in
+    their dtype when all three are float32 or all bfloat16, else all go
+    to float32; w and u go to float32. (Both paths compute in float32,
+    so the casts change no result beyond the rounding of the inputs they
+    name.)"""
+    if not (r.dtype == k.dtype == v.dtype and r.dtype in _KERNEL_DTYPES):
+        r, k, v = r.float(), k.float(), v.float()
+    return r, k, v, w.float(), u.float()
+
+
+def wkv6(r, k, v, w, u, *, chunk: int = 128):
+    """RWKV6 token-mix recurrence from a zero state; see ref.py.
+
+    r, k, w: (B, H, T, dk); v: (B, H, T, dv); u: (H, dk). Returns
+    (y (B, H, T, dv) f32, final_state (B, H, dk, dv) f32). ``chunk`` is
+    the reference's time tile; it is accepted for parity with the JAX
+    wrapper and changes nothing here (the kernel loops over T itself).
+    """
+    del chunk
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u)
+    if r.device.type == "cuda":
+        return wkv6_cuda(*_kernel_inputs(r, k, v, w, u))
+    raise ValueError(f"wkv6: no kernel for device {r.device}")

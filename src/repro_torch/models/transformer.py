@@ -1,5 +1,5 @@
-"""Multi-exit decoder stack, dense family: the model the SplitEE policy
-runs on.
+"""Multi-exit decoder stack, dense and ssm (RWKV6) families: the model
+the SplitEE policy runs on.
 
 Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names
 are the reference pytree's paths (``layers.attn.wq`` is
@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.exit_confidence.ops import exit_confidence
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as ff
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm)
 
@@ -77,7 +78,7 @@ def _stack(trees):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch_id}): not ported yet")
 
@@ -95,17 +96,34 @@ def pool_hidden(cfg: ModelConfig, x):
 
 # ---------------------------------------------------------------------- init
 
+def _ssm_heads(cfg: ModelConfig) -> int:
+    return cfg.ssm.num_heads or cfg.d_model // cfg.ssm.state_size
+
+
 def _init_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    p: Dict[str, Any] = {
-        "ln1": init_norm(d, cfg.norm, dt, dev),
-        "attn": attn.init_attention(
-            gen, d, cfg.num_heads, cfg.num_kv_heads, hd,
-            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=dt, device=dev),
-        "ln2": init_norm(d, cfg.norm, dt, dev),
-        "mlp": ff.init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, dev),
-        "exit_norm": init_norm(d, cfg.norm, dt, dev),
-    }
+    if cfg.family == "ssm":
+        heads = _ssm_heads(cfg)
+        # the reference keeps the whole init_rwkv6 dict under "tm" (its
+        # channel-mix leaves unused there) and the channel-mix part of a
+        # second draw under "cm"; both are kept, leaf for leaf
+        p: Dict[str, Any] = {
+            "ln1": init_norm(d, cfg.norm, dt, dev),
+            "tm": rk.init_rwkv6(gen, d, heads, cfg.d_ff, dt, dev),
+            "ln2": init_norm(d, cfg.norm, dt, dev),
+            "cm": rk.init_channel_mix(gen, d, cfg.d_ff, dt, dev),
+        }
+    else:
+        p = {
+            "ln1": init_norm(d, cfg.norm, dt, dev),
+            "attn": attn.init_attention(
+                gen, d, cfg.num_heads, cfg.num_kv_heads, hd,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=dt,
+                device=dev),
+            "ln2": init_norm(d, cfg.norm, dt, dev),
+            "mlp": ff.init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, dev),
+        }
+    p["exit_norm"] = init_norm(d, cfg.norm, dt, dev)
     if cfg.exits.enabled and not cfg.exits.share_head:
         p["exit_w"] = dense_init(gen, d, head_out_dim(cfg), dt, dev)
     return p
@@ -148,8 +166,21 @@ def _positions(cfg: ModelConfig, b: int, s: int, device=None):
 # ------------------------------------------------------------ full-seq layer
 
 def _layer_full(cfg: ModelConfig, lp, x, positions, *, window: int):
-    """One dense layer over the full sequence."""
+    """One layer over the full sequence. An ssm (RWKV6) layer starts its
+    token shift and recurrence from a zero state and ignores
+    ``positions`` and ``window``."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        heads = _ssm_heads(cfg)
+        st = rk.init_rwkv_state(x.shape[0], cfg.d_model, heads,
+                                device=x.device)
+        h, _ = rk.time_mix(lp["tm"], apply_norm(x, lp["ln1"], cfg.norm),
+                           (st["tm_last"], st["wkv"]), num_heads=heads,
+                           chunk=cfg.ssm.chunk_size)
+        x = x + h
+        h, _ = rk.channel_mix(lp["cm"], apply_norm(x, lp["ln2"], cfg.norm),
+                              st["cm_last"])
+        return x + h
     h = attn.attn_prefill(
         lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), positions,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -168,14 +199,10 @@ def _exit_w(params, lp):
 
 # ------------------------------------------------- streaming exit observables
 
-def forward_exits(params, cfg: ModelConfig, batch: Mapping[str, Any]):
-    """Full forward collecting per-exit (confidence, prediction).
-
-    Returns dict with conf (L, B) f32, pred (L, B) i32 — layer i's exit
-    observables at row i-1 — and the final hidden (B, S, D). Pooling
-    precedes the exit norm (the norm is per token, so they commute), and
-    one grouped confidence call covers every exit.
-    """
+def exit_hidden(params, cfg: ModelConfig, batch: Mapping[str, Any]):
+    """Full forward: the normed pooled rows every exit head reads, (L, B,
+    D) with layer i at row i-1, and the final hidden (B, S, D). Pooling
+    precedes the exit norm (the norm is per token, so they commute)."""
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, device=x.device)
@@ -189,6 +216,18 @@ def forward_exits(params, cfg: ModelConfig, batch: Mapping[str, Any]):
     pooled_n = apply_norm(torch.stack(pooled),
                           {k: v.unsqueeze(1) for k, v in exit_norm.items()},
                           cfg.norm)                        # (L, B, D)
+    return pooled_n, x
+
+
+def forward_exits(params, cfg: ModelConfig, batch: Mapping[str, Any]):
+    """Full forward collecting per-exit (confidence, prediction).
+
+    Returns dict with conf (L, B) f32, pred (L, B) i32 — layer i's exit
+    observables at row i-1 — and the final hidden (B, S, D). One grouped
+    confidence call covers every exit.
+    """
+    pooled_n, x = exit_hidden(params, cfg, batch)
+    b = x.shape[0]
     if cfg.exits.share_head or not cfg.exits.enabled:
         conf, pred = exit_confidence(pooled_n.reshape(-1, cfg.d_model),
                                      params["exit_w"])

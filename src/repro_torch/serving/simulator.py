@@ -10,8 +10,9 @@ The offload payload between them is the (B, S, D) activation after the
 split layer; its byte size is metered per sample and is what the paper's
 `o` abstracts. ``edge_fn_s`` (SplitEE-S) also returns the confidences of
 every exit below the split. The layer loop is a Python loop over the
-stacked layer parameters; attention and the exit heads run the port's
-CUDA kernels on a CUDA device and their plain versions on the CPU.
+stacked layer parameters; attention (dense family), the WKV6 recurrence
+(ssm family) and the exit heads run the port's CUDA kernels on a CUDA
+device and their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ class EdgeCloudRuntime:
     fused_exit: bool = False
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r}: not ported yet")
         self.device = resolve_device(self.device)

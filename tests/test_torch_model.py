@@ -111,6 +111,6 @@ def test_forward_exits_matches_reference(bridged):
 def test_other_families_not_ported():
     from repro_torch.configs.base import SSMConfig
     cfg = dataclasses.replace(t_get_smoke_config("elasticbert12"),
-                              family="ssm", ssm=SSMConfig())
+                              family="hybrid", ssm=SSMConfig(kind="mamba2"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttf.init_params(cfg, device="cpu")
