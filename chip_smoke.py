@@ -9,38 +9,48 @@ toolkit. It imports only the port (``src/repro_torch``) and:
 1. prints the Python/torch/CUDA versions and the card's name and power
    limit (``nvidia-smi``);
 2. builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   (one ``nvcc`` per source, in parallel) and prints the build time;
+   (one ``nvcc`` per source, in parallel), prints each kernel's registers,
+   shared memory and spills (``-Xptxas -v``), and counts the HMMA/HGMMA
+   instructions of every kernel in the SASS (``cuobjdump -sass``): each
+   tensor-core variant must have some;
 3. checks the dispatch of each ``ops.py`` wrapper (CPU tensor: plain
    version, no launch counted; CUDA tensor: the kernel, one launch
    counted; other devices raise);
-4. holds each kernel, through its wrapper, against its plain PyTorch
-   version on the card, at the serving shapes and at edge shapes
-   (long/ragged sequences, causal + window, GQA, keys past their length
-   set to NaN, fully masked rows, a 151936-column vocabulary with ties
-   across tiles, a head bias, rms/layer norm with shared/per-row
-   parameters), and times kernel, plain version and one PyTorch library
-   call at the serving shapes (CUDA-graph replay), the exit kernels also
-   at the rwkv6-3b LM head (32, 2560) x (2560, 65536) in bf16 and f32,
-   where conf (about 1/V) is held at a tolerance scaled to its size that
-   must reject a halved conf and one vocabulary split left out. The WKV6
-   recurrence is held against its plain version at the serving shape
-   (bf16 and f32), at dk = dv = 16, T in {1, 17, 100, 300}, dk != dv, a
-   strided view input, w = 0 and a large B*H;
+4. holds each kernel variant, through its wrapper, against its plain
+   PyTorch version on the card, and checks through the per-variant launch
+   counts that each call took the variant it should. Attention: the
+   tensor-core variant (bf16, d 64 and 128) and the CUDA-core one (f32,
+   d 16/32/48) at the serving shape and at long/ragged sequences, causal
+   + window, GQA, suffix queries, strided q, keys past their length set
+   to NaN and fully masked rows. Exit confidence: small-head (V = 2 and
+   40, grouped), tensor-core (the rwkv6-3b LM head (32, 2560) x (2560,
+   65536), the SplitEE-S shape (1024, 2560) x (2560, 65536), V = 151936,
+   a head bias, plain and fused with rms/layer norm and shared/per-row
+   parameters) and CUDA-core (f32) variants, conf at an LM head held at a
+   tolerance scaled to its size that must reject a halved conf and one
+   vocabulary split left out, and exact ties (the lowest index wins)
+   within a thread's column pair, across a quad, n8 tiles, warps, column
+   tiles and vocabulary splits. It times kernel, plain version and one
+   PyTorch library call (CUDA-graph replay) at every main-path shape. The
+   WKV6 recurrence is held against its plain version at the serving
+   shape (bf16 and f32), at dk = dv = 16, T in {1, 17, 100, 300}, dk !=
+   dv, a strided view input, w = 0 and a large B*H;
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
    and fused exits, and SplitEE-S) and the sequential driver, then the
    same four runs with full-width rwkv6-3b (32 layers, d 2560, vocab
-   65536, bfloat16). Each run
-   has its own launch counts, reset just before it and read just after,
-   and they must equal the launches its decisions need (one edge call
-   per distinct split depth of a micro-batch, one cloud call per
-   distinct depth of its offloaded samples). It then checks the served
-   decisions against the port's CPU (plain-version) path on a small
-   float32 model of each family and the full-width exits against the
-   CPU path (rwkv6-3b at 2 layers);
+   65536, bfloat16). Each run has its own launch counts, per kernel and
+   per variant, reset just before it and read just after: the kernel
+   counts must equal the launches its decisions need (one edge call per
+   distinct split depth of a micro-batch, one cloud call per distinct
+   depth of its offloaded samples), and every launch must have taken the
+   variant SERVE_VARIANTS names. It then checks the served decisions
+   against the port's CPU (plain-version) path on a small float32 model
+   of each family and the full-width exits against the CPU path
+   (rwkv6-3b at 2 layers);
 6. prints one JSON line of per-kernel numbers (``launches`` from the run
-   named in MAIN_PATH, ``launches_by_path`` from every run), then the
-   final line ``{"ok": true, "device": {...}}``.
+   named in MAIN_PATH, ``launches_by_path`` and ``launches_by_variant``
+   from every run), then the final line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the final
 line. Without CUDA, or without the port beside it, it exits with 2.
@@ -94,6 +104,15 @@ MAIN_PATH = {"flash_attention": "batched B=32",
              "wkv6": f"{LM} batched B=32"}
 # the kernel of every layer, by model family
 LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
+# the variant every launch of a kernel must take in a bf16 serve run, by
+# model family: attention at d 64 and the LM head on the tensor cores, the
+# 2-class heads on the small-head variant
+SERVE_VARIANTS = {
+    "dense": {"flash_attention": "tensor_core",
+              "exit_confidence": "small_head",
+              "exit_confidence_fused": "small_head"},
+    "ssm": {"exit_confidence": "tensor_core",
+            "exit_confidence_fused": "tensor_core"}}
 
 
 def fail(msg: str) -> None:
@@ -166,16 +185,19 @@ def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
 
 
 def record(name, source, replaces, shape, err, kernel_fn, plain_fn,
-           library_fn, nbytes, flops, dtype):
+           library_fn, nbytes, flops, dtype, variant, calls=20, replays=20):
     """One entry of the JSON line: device times per call (CUDA-graph
-    replay) of kernel, plain version and library call, and the bound from
-    this call's bytes and operations."""
+    replay of ``calls`` calls, ``replays`` times) of kernel (through
+    ``variant``), plain version and library call, and the bound from this
+    call's bytes and operations."""
     bms, by = bound_ms(nbytes, flops, dtype)
+    ms = lambda fn: graph_ms(fn, calls, replays)  # noqa: E731
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "shape": shape, "max_abs_err": err,
-            "ms": graph_ms(kernel_fn), "plain_ms": graph_ms(plain_fn),
+            "replaces": replaces, "shape": shape, "variant": variant,
+            "max_abs_err": err,
+            "ms": ms(kernel_fn), "plain_ms": ms(plain_fn),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": None if library_fn is None else graph_ms(library_fn)}
+            "library_ms": None if library_fn is None else ms(library_fn)}
 
 
 def bound_ms(nbytes: int, flops: float, dtype: str):
@@ -195,13 +217,15 @@ def check_close(name, got, want, dtype):
     return err
 
 
-def check_lm_conf(name, conf, want, logits, dtype):
+def check_lm_conf(name, conf, want, logits, dtype, d):
     """conf at an LM head against the plain version at LM_CONF_TOL; the
     same comparison must reject the plain conf halved and the plain conf
-    with the smallest of the kernel's vocabulary splits left out of the
-    softmax sum. Returns the max relative error."""
+    with the smallest of the kernel's vocabulary splits (those of the
+    variant that ran, at feature width ``d``) left out of the softmax sum.
+    Returns the max relative error."""
     import torch
-    from repro_torch.kernels.exit_confidence.kernel import _plan
+    from repro_torch.kernels.exit_confidence.kernel import (exit_variant,
+                                                            plan, tile_shape)
     rtol, atol = LM_CONF_TOL[dtype]
 
     def ok(c):
@@ -212,7 +236,10 @@ def check_lm_conf(name, conf, want, logits, dtype):
         fail(f"{name}: kernel vs plain conf max relative err {rel:.3e} "
              f"(rtol {rtol}, atol {atol})")
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    _, cols = _plan(1, *e.shape, e.device)
+    b, v = e.shape
+    sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+    variant = exit_variant(getattr(torch, dtype), d, v, True)
+    cols = plan(1, b, v, sms, *tile_shape(variant, b)).cols_per_split
     parts = torch.stack([e[:, i:i + cols].sum(-1)
                          for i in range(0, e.shape[-1], cols)], -1)
     drop = int(parts.sum(0).argmin())
@@ -235,6 +262,47 @@ def check_pred(name, pred, want_pred, logits_fn, dtype):
             fail(f"{name}: pred differs on {int(bad.sum())} rows, top-2 gap "
                  f"up to {gap.max().item():.3e}")
     return int(bad.sum())
+
+
+def via(kernel: str, variant: str, fn):
+    """``fn()``, which must launch ``kernel`` once, through ``variant``."""
+    from repro_torch.kernels import variant_launch_counts
+    before = variant_launch_counts()
+    out = fn()
+    moved = {k: n - before[k] for k, n in variant_launch_counts().items()
+             if n != before[k]}
+    if moved != {f"{kernel}/{variant}": 1}:
+        fail(f"{kernel}: expected one launch through its {variant} variant, "
+             f"counted {moved}")
+    return out
+
+
+def _exit_variant(h, w):
+    from repro_torch.kernels._build import rows_aligned
+    from repro_torch.kernels.exit_confidence.kernel import exit_variant
+    return exit_variant(h.dtype, h.shape[-1], w.shape[-1],
+                        rows_aligned(h) and w.data_ptr() % 16 == 0)
+
+
+def sass_tensor_core_counts():
+    """{kernel function: count of HMMA/HGMMA instructions} in the built
+    libraries, from ``cuobjdump -sass`` of the toolkit that built them."""
+    from repro_torch.kernels import SOURCES
+    from repro_torch.kernels._build import lib_path, nvcc_path
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for src in SOURCES:
+        sass = subprocess.run([str(tool), "-sass", str(lib_path(Path(src)))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] += 1
+    return counts
 
 
 # ------------------------------------------------------------ kernel phase
@@ -305,52 +373,80 @@ def attention_checks(torch, dev):
                                       device=dev).to(dtype)
         return mk(hq, sq), mk(hkv, skv), mk(hkv, skv)
 
+    def run(name, variant, q, k, v, causal, window=0):
+        """The kernel through ``variant`` against the plain version."""
+        got = via("flash_attention", variant,
+                  lambda: attention(q, k, v, causal=causal, window=window))
+        want = gqa_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                       causal=causal, window=window)
+        torch.cuda.synchronize()
+        return got, want
+
+    tc, cc = "tensor_core", "cuda_core"
     cases = [
-        # name, b, hq, hkv, sq, skv, d, causal, window, dtype
-        ("main_bf16", 32, 12, 12, 64, 64, 64, False, 0, "bfloat16"),
-        ("main_f32", 32, 12, 12, 64, 64, 64, False, 0, "float32"),
-        ("s512_bf16", 2, 12, 12, 512, 512, 64, False, 0, "bfloat16"),
-        ("ragged_s200_bf16", 3, 12, 12, 200, 200, 64, False, 0, "bfloat16"),
-        ("ragged_s200_f32", 3, 12, 12, 200, 200, 64, False, 0, "float32"),
-        ("causal_window_bf16", 2, 8, 8, 300, 300, 64, True, 64, "bfloat16"),
-        ("gqa_causal_d128_f32", 2, 8, 2, 130, 130, 128, True, 0, "float32"),
-        ("suffix_q_f32", 2, 4, 4, 7, 90, 32, True, 0, "float32"),
+        # name, variant, b, hq, hkv, sq, skv, d, causal, window, dtype
+        ("main_bf16", tc, 32, 12, 12, 64, 64, 64, False, 0, "bfloat16"),
+        ("main_f32", cc, 32, 12, 12, 64, 64, 64, False, 0, "float32"),
+        ("s512_bf16", tc, 2, 12, 12, 512, 512, 64, False, 0, "bfloat16"),
+        ("ragged_s200_bf16", tc, 3, 12, 12, 200, 200, 64, False, 0,
+         "bfloat16"),
+        ("ragged_s200_f32", cc, 3, 12, 12, 200, 200, 64, False, 0, "float32"),
+        ("causal_window_bf16", tc, 2, 8, 8, 300, 300, 64, True, 64,
+         "bfloat16"),
+        ("causal_window_d128_bf16", tc, 2, 8, 8, 300, 300, 128, True, 100,
+         "bfloat16"),
+        ("gqa_causal_d128_f32", cc, 2, 8, 2, 130, 130, 128, True, 0,
+         "float32"),
+        ("gqa_causal_d128_bf16", tc, 2, 8, 2, 130, 130, 128, True, 0,
+         "bfloat16"),
+        ("gqa_suffix_q_bf16", tc, 2, 8, 2, 7, 90, 64, True, 0, "bfloat16"),
+        ("suffix_q_f32", cc, 2, 4, 4, 7, 90, 32, True, 0, "float32"),
+        ("d16_bf16", cc, 2, 4, 4, 70, 70, 16, False, 0, "bfloat16"),
+        ("d48_causal_bf16", cc, 2, 4, 2, 70, 70, 48, True, 0, "bfloat16"),
     ]
     out = {}
-    for name, b, hq, hkv, sq, skv, d, causal, window, dt in cases:
+    for name, variant, b, hq, hkv, sq, skv, d, causal, window, dt in cases:
         q, k, v = qkv(b, hq, hkv, sq, skv, d, getattr(torch, dt))
-        got = attention(q, k, v, causal=causal, window=window)
-        want = gqa_ref(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
+        got, want = run(name, variant, q, k, v, causal, window)
         err = check_close(f"flash_attention[{name}]", got, want, dt)
-        print(f"  flash_attention[{name}] max|err| {err:.3e} (tol {TOL[dt]})")
+        print(f"  flash_attention[{name}] ({variant}) max|err| {err:.3e} "
+              f"(tol {TOL[dt]})")
         out[name] = (q, k, v, err)
-    # a strided (B, S, H, d) -> (B, H, S, d) view, as attn_prefill passes
-    q, k, v, _ = out["main_bf16"]
-    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
-    check_close("flash_attention[strided]",
-                attention(qs, k, v, causal=False),
-                gqa_ref(q, k, v, causal=False), "bfloat16")
-    # keys/values as views into a longer buffer whose tail is NaN: the
-    # kernel never reads past the key length
-    q, kb, vb = qkv(1, 2, 2, 40, 48, 32, torch.float32)
-    kb[:, :, 40:] = float("nan")
-    vb[:, :, 40:] = float("nan")
-    k, v = kb[:, :, :40], vb[:, :, :40]
-    check_close("flash_attention[nan_past_skv]",
-                attention(q, k, v, causal=False),
-                gqa_ref(q, k.contiguous(), v.contiguous(), causal=False),
-                "float32")
-    # causal queries placed before the first key (Sq > Skv) see nothing:
-    # exactly 0, as the TPU kernel gives
-    q, k, v = qkv(1, 2, 2, 10, 4, 16, torch.float32)
-    got = attention(q, k, v, causal=True)
-    if not (got[:, :, :6] == 0).all():
-        fail("flash_attention: fully masked rows are not exactly 0")
-    check_close("flash_attention[sq_gt_skv]", got[:, :, 6:],
-                gqa_ref(q, k, v, causal=True)[:, :, 6:], "float32")
-    print("  flash_attention: never reads past skv (NaN tail); fully masked "
-          "rows exactly 0")
+    for name, variant, dt in (("main_bf16", tc, "bfloat16"),
+                              ("gqa_causal_d128_bf16", tc, "bfloat16"),
+                              ("main_f32", cc, "float32")):
+        # a strided (B, S, H, d) -> (B, H, S, d) view, as attn_prefill
+        # passes
+        q, k, v, _ = out[name]
+        causal = "causal" in name
+        qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+        check_close(f"flash_attention[strided {name}]",
+                    *run(name, variant, qs, k, v, causal), dt)
+    for d, variant, dt in ((32, cc, torch.float32), (64, tc, torch.bfloat16),
+                           (128, tc, torch.bfloat16)):
+        # keys/values as views into a longer buffer whose tail is NaN: the
+        # kernel never reads past the key length (100 keys: a full and a
+        # ragged 64-key tile)
+        q, kb, vb = qkv(1, 2, 2, 70, 120, d, dt)
+        kb[:, :, 100:] = float("nan")
+        vb[:, :, 100:] = float("nan")
+        name = f"nan_past_skv_d{d}"
+        check_close(f"flash_attention[{name}]",
+                    *run(name, variant, q, kb[:, :, :100], vb[:, :, :100],
+                         False), str(dt).split(".")[1])
+    for d, variant, dt in ((16, cc, torch.float32), (64, tc, torch.bfloat16),
+                           (128, tc, torch.bfloat16)):
+        # causal queries placed before the first key (Sq > Skv) see
+        # nothing: exactly 0, as the TPU kernel gives
+        q, k, v = qkv(1, 2, 2, 10, 4, d, dt)
+        got, want = run(f"sq_gt_skv_d{d}", variant, q, k, v, True)
+        if not (got[:, :, :6] == 0).all():
+            fail(f"flash_attention ({variant}, d {d}): fully masked rows "
+                 f"are not exactly 0")
+        check_close(f"flash_attention[sq_gt_skv_d{d}]", got[:, :, 6:],
+                    want[:, :, 6:], str(dt).split(".")[1])
+    print("  flash_attention, both variants: strided q; never reads past "
+          "skv (NaN tail); fully masked rows exactly 0")
 
     q, k, v, err = out["main_bf16"]
     b, h, s, d = q.shape
@@ -359,10 +455,12 @@ def attention_checks(torch, dev):
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:80",
         f"q/k/v ({b},{h},{s},{d}) bfloat16, bidirectional", err,
-        lambda: attention(q, k, v, causal=False),
+        lambda: via("flash_attention", tc,
+                    lambda: attention(q, k, v, causal=False)),
         lambda: gqa_ref(q, k, v, causal=False),
         lambda: F.scaled_dot_product_attention(q, k, v),
-        4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "bfloat16")
+        4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "bfloat16",
+        variant=tc)
 
 
 def _exit_logits(h, w, bias=None):
@@ -381,12 +479,12 @@ def exit_checks(torch, dev):
     rnd = lambda *s, scale=1.0: torch.randn(s, generator=gen,  # noqa: E731
                                             device=dev) * scale
 
-    def held(name, conf, pred, wc, wp, logits_fn, dt, lm):
+    def held(name, conf, pred, wc, wp, logits_fn, dt, lm, d):
         """conf and pred against the plain version's; ``lm``: at an LM
         head, conf at LM_CONF_TOL."""
         err = (conf.float() - wc.float()).abs().max().item()
         if lm:
-            rel = check_lm_conf(name, conf, wc, logits_fn(), dt)
+            rel = check_lm_conf(name, conf, wc, logits_fn(), dt, d)
             tol = f"relative {rel:.3e}, (rtol, atol) {LM_CONF_TOL[dt]}"
         else:
             check_close(name, conf, wc, dt)
@@ -397,20 +495,24 @@ def exit_checks(torch, dev):
         return err
 
     def plain_case(name, h, w, dt, bias=None, lm=False):
-        conf, pred = exit_confidence(h, w, bias)
+        conf, pred = via("exit_confidence", _exit_variant(h, w),
+                         lambda: exit_confidence(h, w, bias))
         wc, wp = exit_confidence_ref(h, w, bias)
         torch.cuda.synchronize()
         return held(f"exit_confidence[{name}]", conf, pred, wc, wp,
-                    lambda: _exit_logits(h, w, bias), dt, lm)
+                    lambda: _exit_logits(h, w, bias), dt, lm, h.shape[-1])
 
     def fused_case(name, x, norm, w, hb, kind, dt, lm=False):
-        conf, pred = exit_confidence_fused(x, norm, w, hb, kind=kind)
+        conf, pred = via("exit_confidence_fused", _exit_variant(x, w),
+                         lambda: exit_confidence_fused(x, norm, w, hb,
+                                                       kind=kind))
         wc, wp = exit_confidence_fused_ref(x, norm, w, hb, kind=kind)
         torch.cuda.synchronize()
         return held(f"exit_confidence_fused[{name}]", conf, pred, wc, wp,
                     lambda: _exit_logits(
                         apply_norm(x, _norm_for(x, norm), kind), w,
-                        None if hb is None else hb.unsqueeze(-2)), dt, lm)
+                        None if hb is None else hb.unsqueeze(-2)), dt, lm,
+                    x.shape[-1])
 
     bf16, f32 = torch.bfloat16, torch.float32
     b, d, v = 32, 768, 2
@@ -418,12 +520,10 @@ def exit_checks(torch, dev):
     w_main = rnd(d, v, scale=d ** -0.5).to(bf16)
     err_main = plain_case("main_bf16", h_main, w_main, "bfloat16")
     plain_case("main_f32", h_main.float(), w_main.float(), "float32")
-    # a head bias, folded into the product by the wrapper
+    # a head bias, added to the logits by the kernel
     plain_case("bias_f32", h_main.float(), w_main.float(), "float32",
                bias=rnd(v))
-    # every exit of the stack in one grouped launch (edge_fn_s)
-    plain_case("grouped_12x32_bf16", rnd(12, b, d).to(bf16),
-               rnd(12, d, v, scale=d ** -0.5).to(bf16), "bfloat16")
+    plain_case("bias_bf16", h_main, w_main, "bfloat16", bias=rnd(v))
     big_v = 151936
     plain_case("v151936_bf16", rnd(b, d).to(bf16),
                rnd(d, big_v, scale=d ** -0.5).to(bf16), "bfloat16")
@@ -445,11 +545,46 @@ def exit_checks(torch, dev):
     w_t2[:, [255, 256, 512]] = 3.0              # tie across a 256-column tile
     if not (exit_confidence(h_t, w_t2)[1] == 255).all():
         fail("exit_confidence tie across a column tile: lowest index lost")
-    w_t3 = torch.zeros((64, 40), device=dev)    # small head: warp per column
+    w_t3 = torch.zeros((64, 40), device=dev)    # small head: warp per row
     w_t3[:, [9, 17, 30]] = 1.0
-    if not (exit_confidence(h_t, w_t3)[1] == 9).all():
-        fail("exit_confidence tie in a small head: lowest index lost")
+    for dt in (f32, bf16):
+        pred = via("exit_confidence", "small_head",
+                   lambda: exit_confidence(h_t.to(dt), w_t3.to(dt)))[1]
+        if not (pred == 9).all():
+            fail(f"exit_confidence tie in a small head ({dt}): lowest index "
+                 f"lost")
     print("  exit_confidence ties across tiles/splits: lowest index wins")
+
+    # bf16 exact ties on the tensor-core variant, whose threads hold
+    # columns 2t, 2t+1 of each n8 tile: the two columns of one thread,
+    # threads of a quad, n8 tiles, warps (mma.sync at M = 32: 32 columns
+    # each; wgmma at M = 1024: a thread's n8 tiles span all 128), column
+    # tiles and vocabulary splits; plain and fused (rms of a ones row is 1
+    # in bf16, so the logits stay exact)
+    tie_sets = {"one thread": [4, 5], "quad": [1, 6], "n8 tiles": [7, 8],
+                "warps": [10, 40, 70, 100], "column tiles": [100, 228],
+                "splits": [300, 40000, 65535]}
+    for m in (b, 32 * b):
+        h_tie = torch.ones((m, 64), device=dev, dtype=bf16)
+        ones = {"scale": torch.ones(64, device=dev, dtype=bf16)}
+        for what, tie in tie_sets.items():
+            w_tie = torch.zeros((64, 65536), device=dev, dtype=bf16)
+            w_tie[:, tie] = 2.0
+            want = exit_confidence_ref(h_tie, w_tie)[0]
+            for kname, call in (
+                    ("exit_confidence",
+                     lambda: exit_confidence(h_tie, w_tie)),
+                    ("exit_confidence_fused",
+                     lambda: exit_confidence_fused(h_tie, ones, w_tie,
+                                                   kind="rmsnorm"))):
+                conf, pred = via(kname, "tensor_core", call)
+                if not (pred == min(tie)).all():
+                    fail(f"{kname} tie across {what} at M={m}: pred "
+                         f"{pred.unique().tolist()} != {min(tie)}")
+                check_close(f"{kname}[tie across {what}, M={m}]", conf, want,
+                            "float32")
+    print(f"  exit_confidence(+fused) tensor_core, M = {b} and {32 * b}: "
+          f"ties across {', '.join(tie_sets)}: lowest index wins")
 
     errs_fused = {}
     for kind in ("rmsnorm", "layernorm"):
@@ -481,7 +616,19 @@ def exit_checks(torch, dev):
         lambda: exit_confidence(h_main, w_main),
         lambda: exit_confidence_ref(h_main, w_main),
         lambda: torch.softmax(h_main @ w_main, dim=-1).max(dim=-1),
-        nbytes, 2.0 * b * d * v, "bfloat16")
+        nbytes, 2.0 * b * d * v, "bfloat16", "small_head")
+    # SplitEE-S on per-layer heads: every exit of the stack in one launch
+    h_g = rnd(12, b, d).to(bf16)
+    w_g = rnd(12, d, v, scale=d ** -0.5).to(bf16)
+    err_g = plain_case("grouped_12x32_bf16", h_g, w_g, "bfloat16")
+    rec_plain["at_grouped"] = record(
+        "exit_confidence", src,
+        "src/repro/kernels/exit_confidence/kernel.py:100",
+        f"h (12,{b},{d}) @ w (12,{d},{v}) bfloat16", err_g,
+        lambda: exit_confidence(h_g, w_g),
+        lambda: exit_confidence_ref(h_g, w_g),
+        lambda: torch.softmax(h_g @ w_g, dim=-1).max(dim=-1),
+        12 * nbytes, 12 * 2.0 * b * d * v, "bfloat16", "small_head")
     x_f = (rnd(b, d, scale=2.0) + 0.5).to(bf16)
     norm_f = {"scale": (rnd(d, scale=0.1) + 1.0).to(bf16),
               "bias": rnd(d, scale=0.1).to(bf16)}
@@ -495,7 +642,8 @@ def exit_checks(torch, dev):
         lambda: exit_confidence_fused_ref(x_f, norm_f, w_main,
                                           kind="layernorm"),
         None,       # no single PyTorch call computes norm + head + max
-        nbytes + 2 * d * 2, 2.0 * b * d * v + 8.0 * b * d, "bfloat16")
+        nbytes + 2 * d * 2, 2.0 * b * d * v + 8.0 * b * d, "bfloat16",
+        "small_head")
 
     # the rwkv6-3b LM head, shared by all its exits: checked and timed
     # too, as each entry's "at_lm_head"
@@ -509,6 +657,14 @@ def exit_checks(torch, dev):
     err_lm_f = fused_case("layernorm_lm_head_bf16", x_lm, norm_lm, w_lm, None,
                           "layernorm", "bfloat16", lm=True)
     plain_case("lm_head_f32", h_lm.float(), w_lm.float(), "float32", lm=True)
+    # a head bias, taken natively by the tensor-core epilogue, plain and
+    # fused (with per-row norm parameters, as SplitEE-S passes them)
+    bias_lm = rnd(v)
+    plain_case("lm_head_bias_bf16", h_lm, w_lm, "bfloat16", bias=bias_lm,
+               lm=True)
+    fused_case("rmsnorm_per_row_lm_head_bias_bf16", x_lm,
+               {"scale": (rnd(b, d, scale=0.1) + 1.0).to(bf16)}, w_lm,
+               bias_lm, "rmsnorm", "bfloat16", lm=True)
     fused_case("layernorm_lm_head_f32", x_lm.float(),
                {k: t.float() for k, t in norm_lm.items()}, w_lm.float(), None,
                "layernorm", "float32", lm=True)
@@ -520,7 +676,7 @@ def exit_checks(torch, dev):
         lambda: exit_confidence(h_lm, w_lm),
         lambda: exit_confidence_ref(h_lm, w_lm),
         lambda: torch.softmax(h_lm @ w_lm, dim=-1).max(dim=-1),
-        nbytes, 2.0 * b * d * v, "bfloat16")
+        nbytes, 2.0 * b * d * v, "bfloat16", "tensor_core")
     rec_fused["at_lm_head"] = record(
         "exit_confidence_fused", src,
         "src/repro/kernels/exit_confidence/kernel.py:186",
@@ -529,7 +685,41 @@ def exit_checks(torch, dev):
         lambda: exit_confidence_fused(x_lm, norm_lm, w_lm, kind="layernorm"),
         lambda: exit_confidence_fused_ref(x_lm, norm_lm, w_lm,
                                           kind="layernorm"),
-        None, nbytes + 2 * d * 2, 2.0 * b * d * v + 8.0 * b * d, "bfloat16")
+        None, nbytes + 2 * d * 2, 2.0 * b * d * v + 8.0 * b * d, "bfloat16",
+        "tensor_core")
+
+    # the SplitEE-S edge pass at rwkv6-3b: every one of the 32 exits of a
+    # 32-row micro-batch on the shared head in one launch, M = 1024 rows;
+    # the fused form with per-row norm parameters (repeat_interleave)
+    m = 32 * b
+    h_s = rnd(m, d).to(bf16)
+    x_s = (rnd(m, d, scale=2.0) + 0.5).to(bf16)
+    norm_s = {"scale": (rnd(m, d, scale=0.1) + 1.0).to(bf16),
+              "bias": rnd(m, d, scale=0.1).to(bf16)}
+    err_s = plain_case("splitee_s_lm_head_bf16", h_s, w_lm, "bfloat16",
+                       lm=True)
+    err_s_f = fused_case("layernorm_per_row_splitee_s_lm_head_bf16", x_s,
+                         norm_s, w_lm, None, "layernorm", "bfloat16", lm=True)
+    nbytes = h_s.numel() * 2 + w_lm.numel() * 2 + m * 4 + m * 4
+    few = dict(variant="tensor_core", calls=5, replays=5)
+    rec_plain["at_splitee_s"] = record(
+        "exit_confidence", src,
+        "src/repro/kernels/exit_confidence/kernel.py:100",
+        f"h ({m},{d}) @ w ({d},{v}) bfloat16", err_s,
+        lambda: exit_confidence(h_s, w_lm),
+        lambda: exit_confidence_ref(h_s, w_lm),
+        lambda: torch.softmax(h_s @ w_lm, dim=-1).max(dim=-1),
+        nbytes, 2.0 * m * d * v, "bfloat16", **few)
+    rec_fused["at_splitee_s"] = record(
+        "exit_confidence_fused", src,
+        "src/repro/kernels/exit_confidence/kernel.py:186",
+        f"layernorm x ({m},{d}), per-row (M,D) params, w ({d},{v}) "
+        f"bfloat16", err_s_f,
+        lambda: exit_confidence_fused(x_s, norm_s, w_lm, kind="layernorm"),
+        lambda: exit_confidence_fused_ref(x_s, norm_s, w_lm,
+                                          kind="layernorm"),
+        None, nbytes + 2 * m * d * 2, 2.0 * m * d * v + 8.0 * m * d,
+        "bfloat16", **few)
     return rec_plain, rec_fused
 
 
@@ -599,7 +789,7 @@ def wkv6_checks(torch, dev):
         f"r/k/v ({b},{h},{t},{dk}) bfloat16, w float32, u ({h},{dk})",
         err_main, lambda: wkv6(r, k, v, w, u), lambda: wkv6_ref(r, k, v, w, u),
         None,       # no single PyTorch call computes this recurrence
-        nbytes, 5.0 * b * h * t * dk * dv, "float32")
+        nbytes, 5.0 * b * h * t * dk * dv, "float32", None)   # one variant
 
 
 # ------------------------------------------------------------- serve phase
@@ -649,7 +839,8 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
     from repro_torch.configs import get_config
     from repro_torch.core import CostModel
     from repro_torch.data import OnlineStream, make_dataset
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_launch_counts)
     from repro_torch.models.transformer import init_params
     from repro_torch.serving import (EdgeCloudRuntime, _serve_stream_batched,
                                      _serve_stream_sequential)
@@ -693,7 +884,7 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
                               batch_size=SERVE_BATCH, side_info=side,
                               max_samples=4 * SERVE_BATCH)
     torch.cuda.synchronize()
-    results, counts_by_path = {}, {}
+    results, counts_by_path, variants_by_path = {}, {}, {}
     for name, kw, fused in runs:
         rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
         stream = OnlineStream(data, seed=0)
@@ -706,14 +897,17 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
+        variants = {k: n for k, n in variant_launch_counts().items() if n}
         results[name] = (out, dt)
         counts_by_path[name] = counts
+        variants_by_path[name] = variants
         hist = arm_histogram(out["arms"], cfg.num_layers)
         n_exit = int(np.sum(out["exited"]))
         print(f"  {name}: {out['n']} samples in {dt:.3f}s = "
               f"{out['n'] / dt:.1f} samples/s; exits {n_exit}, offloads "
               f"{out['n'] - n_exit}, offload bytes {out['offload_bytes']}, "
-              f"cost {out['cost_total']:.3f}, arms {hist}; launches {counts}")
+              f"cost {out['cost_total']:.3f}, arms {hist}; launches {counts};"
+              f" by variant {variants}")
         if not np.isfinite(out["rewards"]).all():
             fail(f"{name}: non-finite rewards")
         if not 0 < n_exit < out["n"]:
@@ -731,6 +925,10 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
                 (("exit_confidence_fused",) if fused else ()):
             if counts[kname] <= 0:
                 fail(f"{name}: kernel {kname} was not launched")
+        for kname, variant in SERVE_VARIANTS[cfg.family].items():
+            if variants.get(f"{kname}/{variant}", 0) != counts[kname]:
+                fail(f"{name}: {counts[kname]} launches of {kname}, but not "
+                     f"all through its {variant} variant: {variants}")
 
     # where the time goes: the device time of one more batched B=32 run
     # (profiled) against the wall time of the unprofiled run above
@@ -745,7 +943,7 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
           f"busy, {1 - busy / wall_ms:.1%} idle")
     for kname, ms in top:
         print(f"    {ms:9.4f} ms  {kname[:100]}")
-    return counts_by_path, params, cfg, data
+    return counts_by_path, variants_by_path, params, cfg, data
 
 
 def agreement_phase(torch, dev, params, cfg, data):
@@ -904,8 +1102,20 @@ def main() -> int:
         print(f"  built {sorted(logs)}")
         for stem, log in logs.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry" in line or "registers" in line \
+                        or "spill" in line:
                     print(f"  {stem}: {line.strip()}")
+
+    with phase("tensor cores in the SASS"):
+        hmma = sass_tensor_core_counts()
+        tc_fns = {fn: n for fn, n in hmma.items()
+                  if "_tc_kernel" in fn or "_wgmma_kernel" in fn}
+        for fn, n in sorted(hmma.items()):
+            print(f"  {n:5d} HMMA/HGMMA  {fn}")
+        # exit: mma.sync (M <= 32) and wgmma (M > 32); attention: d 64, 128
+        if len(tc_fns) != 4 or min(tc_fns.values()) == 0:
+            fail(f"tensor-core kernels without HMMA/HGMMA in their SASS: "
+                 f"{tc_fns}")
 
     with phase("dispatch and launch counts"):
         dispatch_checks(torch, dev)
@@ -916,7 +1126,7 @@ def main() -> int:
         rec_wkv6 = wkv6_checks(torch, dev)
 
     with phase("serve: elasticbert12 (full width) on the card"):
-        counts_by_path, params, cfg, data = serve_phase(
+        counts_by_path, variants_by_path, params, cfg, data = serve_phase(
             torch, dev, "elasticbert12", 6)
 
     with phase("agreement: elasticbert12, card kernel path vs CPU plain "
@@ -925,9 +1135,10 @@ def main() -> int:
     del params
 
     with phase(f"serve: {LM} (full width) on the card"):
-        lm_counts, params, cfg, data = serve_phase(torch, dev, LM, 16,
-                                                   prefix=f"{LM} ")
+        lm_counts, lm_variants, params, cfg, data = serve_phase(
+            torch, dev, LM, 16, prefix=f"{LM} ")
         counts_by_path.update(lm_counts)
+        variants_by_path.update(lm_variants)
 
     with phase(f"agreement: {LM}, card kernel path vs CPU plain path"):
         lm_agreement_phase(torch, dev, params, cfg, data)
@@ -940,17 +1151,24 @@ def main() -> int:
         rec["launches"] = counts_by_path[path][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]
                                    for p, c in counts_by_path.items()}
+        rec["launches_by_variant"] = {
+            p: {k.split("/")[1]: n for k, n in c.items()
+                if k.split("/")[0] == rec["name"]}
+            for p, c in variants_by_path.items()}
         kernels.append(rec)
         lib = rec["library_ms"]
-        print(f"  {rec['name']} at {rec['shape']}: device ms per call (CUDA "
-              f"graph): kernel {rec['ms']:.5f}, plain {rec['plain_ms']:.5f}, "
+        print(f"  {rec['name']} at {rec['shape']} "
+              f"({rec['variant'] or 'one variant'}): device "
+              f"ms per call (CUDA graph): kernel {rec['ms']:.5f}, plain "
+              f"{rec['plain_ms']:.5f}, "
               f"library {'none' if lib is None else f'{lib:.5f}'}, bound "
               f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
               f"launches in the {path} run")
-        at = rec.get("at_lm_head")
-        if at:
+        for at in filter(None, (rec.get("at_grouped"), rec.get("at_lm_head"),
+                                rec.get("at_splitee_s"))):
             lib = at["library_ms"]
-            print(f"    at {at['shape']}: kernel {at['ms']:.5f}, plain "
+            print(f"    at {at['shape']} ({at['variant']}): kernel "
+                  f"{at['ms']:.5f}, plain "
                   f"{at['plain_ms']:.5f}, library "
                   f"{'none' if lib is None else f'{lib:.5f}'}, bound "
                   f"{at['bound_ms']:.6f} ({at['bound_by']})")

@@ -2,8 +2,9 @@
 
 Each kernel lives in ``<name>/`` with ``ref.py`` (plain version),
 ``kernel.py`` (ctypes binding), ``ops.py`` (dispatch by device) and
-``csrc/*.cu``. Every wrapper counts the launches it makes on a CUDA
-tensor; `launch_counts` reads all counts in one place.
+``csrc/*.cu``; ``include/`` holds the device helpers the sources share.
+Every wrapper counts the launches it makes on a CUDA tensor, per kernel
+(`launch_counts`) and per variant of the kernel (`variant_launch_counts`).
 """
 from __future__ import annotations
 
@@ -23,9 +24,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(_build.LAUNCHES)
 
 
+def variant_launch_counts() -> Dict[str, int]:
+    """{"<kernel>/<variant>": launches since the last reset}, for every
+    variant of every kernel that has variants."""
+    return dict(_build.VARIANT_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
-    for name in _build.LAUNCHES:
-        _build.LAUNCHES[name] = 0
+    """Set every kernel's and every variant's count to 0."""
+    for counts in (_build.LAUNCHES, _build.VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def build_all() -> Dict[str, str]:

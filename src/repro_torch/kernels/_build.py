@@ -2,11 +2,13 @@
 
 Each ``csrc/*.cu`` file exposes ``extern "C"`` launchers and is compiled
 on first use with plain ``nvcc`` into a shared library, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go
-under ``build/torch_kernels/`` at the repository root, one directory per
-source content hash, so an edited source rebuilds and an unchanged one
-is reused. Nothing here runs at import time: importing the kernel
-modules on a machine without ``nvcc`` is fine, building is not.
+``ctypes`` (no PyTorch headers, so a build takes seconds). The sources
+share the device helpers in ``include/*.cuh``. Libraries go under
+``build/torch_kernels/`` at the repository root, one directory per
+content hash of the source and the shared headers, so an edited source
+or header rebuilds and an unchanged one is reused. Nothing here runs at
+import time: importing the kernel modules on a machine without ``nvcc``
+is fine, building is not.
 """
 from __future__ import annotations
 
@@ -21,24 +23,31 @@ from typing import Dict, Iterable
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "torch_kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "-I", str(INCLUDE_DIR))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
-# launches of each kernel's wrapper on a CUDA tensor; read through
-# repro_torch.kernels.launch_counts()
+# launches of each kernel's wrapper on a CUDA tensor, and of each of its
+# variants ("<kernel>/<variant>"); read through
+# repro_torch.kernels.launch_counts() and variant_launch_counts()
 LAUNCHES: Dict[str, int] = {}
+VARIANT_LAUNCHES: Dict[str, int] = {}
 
 
-def register_kernel(name: str) -> None:
+def register_kernel(name: str, variants: Iterable[str] = ()) -> None:
     LAUNCHES.setdefault(name, 0)
+    for variant in variants:
+        VARIANT_LAUNCHES.setdefault(f"{name}/{variant}", 0)
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, variant: str | None = None) -> None:
     LAUNCHES[name] += 1
+    if variant is not None:
+        VARIANT_LAUNCHES[f"{name}/{variant}"] += 1
 
 
 def nvcc_path() -> str:
@@ -53,8 +62,10 @@ def nvcc_path() -> str:
 
 
 def lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(Path(src).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    blob = Path(src).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        blob += header.read_bytes()
+    digest = hashlib.sha256(blob).hexdigest()[:16]
     return BUILD_ROOT / f"{Path(src).stem}-{digest}" / f"lib{Path(src).stem}.so"
 
 
@@ -100,6 +111,16 @@ def load(src: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(src)))
             _LIBS[key] = lib
     return lib
+
+
+def rows_aligned(*tensors) -> bool:
+    """Every row (the contiguous last axis) of every tensor starts on 16
+    bytes, as 16-byte loads and ``cp.async`` need: the data pointer and
+    each stride of an axis longer than 1."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        (st * t.element_size()) % 16 == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+        for t in tensors)
 
 
 def check(status: int, what: str) -> None:

@@ -20,16 +20,6 @@ from repro_torch.kernels.exit_confidence.ref import (
 NORM_KINDS = ("rmsnorm", "layernorm")
 
 
-def _fold_bias(h, w, bias):
-    """Fold an exit-head bias into the product by augmenting h with a ones
-    column and w with the bias row, so the plain kernel needs no bias
-    input."""
-    ones = torch.ones(h.shape[:-1] + (1,), dtype=h.dtype, device=h.device)
-    h = torch.cat([h, ones], dim=-1)
-    w = torch.cat([w, bias.to(w.dtype).unsqueeze(-2)], dim=-2)
-    return h, w
-
-
 def _unknown_device(op: str, t: torch.Tensor):
     return ValueError(f"{op}: no kernel for device {t.device}")
 
@@ -38,14 +28,13 @@ def exit_confidence(h, w, bias=None):
     """Confidence + argmax of the exit head: h @ w [+ bias].
 
     Returns ``(conf f32, pred i32)`` of shape (B,) — (G, B) when grouped —
-    where conf is the max softmax probability (the paper's C_i).
+    where conf is the max softmax probability (the paper's C_i). The
+    bias (V,) — (G, V) when grouped — is added to the logits in f32.
     """
     if h.device.type == "cpu":
         return exit_confidence_ref(h, w, bias)
     if h.device.type == "cuda":
-        if bias is not None:
-            h, w = _fold_bias(h, w, bias)
-        return exit_confidence_cuda(h, w)
+        return exit_confidence_cuda(h, w, bias)
     raise _unknown_device("exit_confidence", h)
 
 

@@ -1,7 +1,9 @@
 """ctypes binding of the CUDA block-attention kernel (csrc/flash_attention.cu).
 
-The library is built on first call (`kernels._build`); nothing is built
-or loaded at import time.
+Each call runs one of two variants, chosen by `attention_variant` from the
+dtype, the head dim and the 16-byte alignment of the rows alone. The
+library is built on first call (`kernels._build`); nothing is built or
+loaded at import time.
 """
 from __future__ import annotations
 
@@ -10,14 +12,27 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import check, count_launch, load, register_kernel
+from repro_torch.kernels._build import (check, count_launch, load,
+                                        register_kernel, rows_aligned)
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 128
+VARIANTS = ("tensor_core", "cuda_core")
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+_VARIANT_CODES = {"cuda_core": 0, "tensor_core": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-register_kernel(NAME)
+register_kernel(NAME, VARIANTS)
+
+
+def attention_variant(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """tensor_core for bf16 at head dim 64 or 128 with 16-byte aligned
+    q/k/v rows, else cuda_core. A pure function: it never depends on a
+    build or a launch."""
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS and aligned:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _launcher():
@@ -25,7 +40,7 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p])
+                                               ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -60,13 +75,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         scale = d ** -0.5
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    variant = attention_variant(q.dtype, d, rows_aligned(q, k, v, out))
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     status = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
         b, hq, hkv, sq, skv, d, int(bool(causal)), int(window), float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    check(status, NAME)
-    count_launch(NAME)
+        _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(status, f"{NAME}/{variant}")
+    count_launch(NAME, variant)
     return out

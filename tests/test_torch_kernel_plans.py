@@ -1,0 +1,150 @@
+"""Host-side planning of the CUDA kernels, on the CPU: how the exit-head
+kernel cuts rows and the vocabulary over blocks, and which variant each
+kernel takes for a dtype, width and alignment. The kernels themselves run
+only on the card (chip_smoke.py); these are the pure functions that pick
+their launches.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels._build import rows_aligned
+from repro_torch.kernels.exit_confidence import kernel as exit_kernel
+from repro_torch.kernels.exit_confidence.kernel import (exit_variant, plan,
+                                                        tile_shape)
+from repro_torch.kernels.flash_attention.kernel import attention_variant
+
+H100_SMS = 132
+GRID_Y_Z = 65535
+VARIANTS = exit_kernel.VARIANTS
+
+
+PLAN_CASES = [(variant, g, m, v)
+              for variant in VARIANTS for g in (1, 12) for m in (1, 32, 1024)
+              for v in (2, 40, 64, 65, 65536, 151936)
+              if variant != "small_head" or v <= exit_kernel.SMALL_VOCAB]
+
+
+@pytest.mark.parametrize("variant,g,m,v", PLAN_CASES)
+def test_every_column_and_row_lands_in_exactly_one_block(variant, g, m, v):
+    pl = plan(g, m, v, H100_SMS, *tile_shape(variant, m))
+    cols = pl.cols_per_split
+    col_tile = tile_shape(variant, m)[1]
+    assert cols % col_tile == 0
+    # splits [i*cols, (i+1)*cols) clipped to V: each column in exactly one
+    owner = torch.zeros(v, dtype=torch.int64)
+    for i in range(pl.splits):
+        owner[i * cols:min(v, (i + 1) * cols)] += 1
+    assert (owner == 1).all()
+    assert (pl.splits - 1) * cols < v         # no empty split
+    # row tiles of rows_per_tile over M: each row in exactly one tile
+    tiles = -(-m // pl.rows_per_tile)
+    rows = torch.zeros(m, dtype=torch.int64)
+    for t in range(tiles):
+        rows[t * pl.rows_per_tile:(t + 1) * pl.rows_per_tile] += 1
+    assert (rows == 1).all()
+    # the grid: (row tiles, splits, G), y and z within CUDA's limits
+    assert 1 <= pl.splits <= GRID_Y_Z and g <= GRID_Y_Z
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+def test_splits_cover_the_sms_without_exceeding_the_columns(sms):
+    """The vocabulary is split until the grid fills the SMs' block slots,
+    never into more splits than column tiles."""
+    for m in (32, 1024):
+        rows, cols, per_sm = tile_shape("tensor_core", m)
+        pl = plan(1, m, 65536, sms, rows, cols, per_sm)
+        row_tiles = -(-m // rows)
+        assert pl.splits <= 65536 // cols
+        assert pl.splits * row_tiles <= max(sms * per_sm, row_tiles)
+    # a V of one column tile, or a grid full from row tiles: no split
+    assert plan(1, 32, 100, sms, 32, 128, 2).splits == 1
+    assert plan(12, 100000, 65536, sms, 8, 256, 2).splits == 1
+
+
+def test_splits_stay_under_the_grid_limit():
+    pl = plan(1, 1, 10 ** 8, 10 ** 6, 32, 128, 2)
+    assert pl.splits <= GRID_Y_Z
+    assert pl.splits * pl.cols_per_split >= 10 ** 8
+
+
+def test_tensor_core_tiles_follow_the_row_count():
+    assert tile_shape("tensor_core", 1)[:2] == (32, 128)
+    assert tile_shape("tensor_core", 32)[:2] == (32, 128)
+    assert tile_shape("tensor_core", 33)[:2] == (128, 128)
+    assert tile_shape("tensor_core", 1024)[:2] == (128, 128)
+    assert tile_shape("cuda_core", 32)[:2] == (8, 256)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,d,v,aligned,want", [
+    (BF16, 768, 2, True, "small_head"),          # ElasticBERT exits
+    (F32, 768, 2, True, "small_head"),
+    (BF16, 768, 64, True, "small_head"),
+    (BF16, 768, 65, True, "cuda_core"),          # V % 8
+    (BF16, 2560, 65536, True, "tensor_core"),    # the rwkv6-3b LM head
+    (BF16, 2560, 151936, True, "tensor_core"),
+    (BF16, 64, 40, True, "small_head"),
+    (BF16, 2560, 65536, False, "cuda_core"),     # unaligned rows
+    (BF16, 768, 2, False, "cuda_core"),
+    (BF16, 769, 2, True, "cuda_core"),           # D % 8 (a folded bias)
+    (BF16, 2564, 65536, True, "cuda_core"),
+    (F32, 2560, 65536, True, "cuda_core"),       # f32 keeps the f32 walk
+    (F32, 770, 2, True, "cuda_core"),            # D % 4
+    (BF16, 4100, 2, True, "cuda_core"),          # D % 8
+    (BF16, 4096, 2, True, "small_head"),         # any D: the row streams
+    (F32, 1028, 2, True, "small_head"),
+    (BF16, 4096, 1024, True, "tensor_core"),
+    (F32, 2560, 64, True, "small_head"),
+])
+def test_exit_variant(dtype, d, v, aligned, want):
+    assert exit_variant(dtype, d, v, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (BF16, 64, True, "tensor_core"),             # ElasticBERT-12
+    (BF16, 128, True, "tensor_core"),
+    (BF16, 64, False, "cuda_core"),
+    (BF16, 128, False, "cuda_core"),
+    (BF16, 16, True, "cuda_core"),
+    (BF16, 32, True, "cuda_core"),
+    (BF16, 48, True, "cuda_core"),
+    (BF16, 96, True, "cuda_core"),
+    (F32, 64, True, "cuda_core"),
+    (F32, 128, True, "cuda_core"),
+])
+def test_attention_variant(dtype, d, aligned, want):
+    assert attention_variant(dtype, d, aligned) == want
+
+
+def test_row_alignment_reads_pointer_and_strides():
+    """A misaligned row stride or data pointer makes rows unaligned; a
+    stride of a length-1 axis does not count."""
+    buf = torch.zeros(4 * 80 + 8, dtype=BF16)
+    assert rows_aligned(buf[:320].view(4, 80))
+    assert not rows_aligned(buf[1:321].view(4, 80))          # pointer + 2 B
+    assert not rows_aligned(buf[:4 * 81].view(4, 81)[:, :80])  # stride 81
+    assert rows_aligned(buf[:81].view(1, 81)[:, :80])         # one row
+    x = torch.zeros(2, 64, 12, 64, dtype=BF16)                # (B, S, H, d)
+    assert rows_aligned(x.transpose(1, 2))                    # as attn passes
+    assert not rows_aligned(torch.zeros(3, 5, 2, dtype=F32)[:, :, :1])
+    assert rows_aligned(torch.zeros(2, 8, dtype=BF16), torch.zeros(2, 8,
+                                                                 dtype=BF16))
+    assert not rows_aligned(torch.zeros(2, 8, dtype=BF16),
+                            torch.zeros(2, 9, dtype=BF16))
+
+
+@pytest.mark.parametrize("offset,row", [(1, 80), (0, 84), (8, 80)])
+def test_unaligned_rows_choose_the_cuda_core_variants(offset, row):
+    """Rows that start off 16 bytes (a pointer 2 bytes in, a row stride of
+    84 elements) take the cuda_core variants; an 8-element offset keeps
+    them aligned."""
+    buf = torch.zeros(8192, dtype=BF16)
+    h = buf[offset:offset + 4 * row].view(4, row)[:, :80]
+    q = buf[offset:offset + 64 * row].view(1, 1, 64, row)[..., :64]
+    ok = offset % 8 == 0 and row % 8 == 0
+    assert rows_aligned(h) is ok and rows_aligned(q) is ok
+    want = ("tensor_core", "tensor_core") if ok else ("cuda_core", "cuda_core")
+    assert (exit_variant(BF16, 80, 65536, rows_aligned(h)),
+            attention_variant(BF16, 64, rows_aligned(q))) == want
