@@ -34,7 +34,12 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    PyTorch library call (CUDA-graph replay) at every main-path shape. The
    WKV6 recurrence is held against its plain version at the serving
    shape (bf16 and f32), at dk = dv = 16, T in {1, 17, 100, 300}, dk !=
-   dv, a strided view input, w = 0 and a large B*H;
+   dv, a strided view input, w = 0 and a large B*H (the `vec16` variant),
+   and on inputs one element off 16 bytes or at a feature stride of 2
+   (the `scalar` variant); each WKV6 instantiation's blocks per SM,
+   registers and spills are printed (a spill fails), the WKV6 SASS must
+   hold no tensor-core instruction, and the kernel is timed at B = 32 and
+   at a depth bucket of B = 4;
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
    and fused exits, and SplitEE-S) and the sequential driver, then the
@@ -106,12 +111,13 @@ MAIN_PATH = {"flash_attention": "batched B=32",
 LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
 # the variant every launch of a kernel must take in a bf16 serve run, by
 # model family: attention at d 64 and the LM head on the tensor cores, the
-# 2-class heads on the small-head variant
+# 2-class heads on the small-head variant, WKV6 on 16-byte cp.async rows
 SERVE_VARIANTS = {
     "dense": {"flash_attention": "tensor_core",
               "exit_confidence": "small_head",
               "exit_confidence_fused": "small_head"},
-    "ssm": {"exit_confidence": "tensor_core",
+    "ssm": {"wkv6": "vec16",
+            "exit_confidence": "tensor_core",
             "exit_confidence_fused": "tensor_core"}}
 
 
@@ -725,11 +731,31 @@ def exit_checks(torch, dev):
 
 def wkv6_checks(torch, dev):
     """The WKV6 kernel against its plain version: y and the final state,
-    both float32, at rtol = atol = WKV6_TOL."""
+    both float32, at rtol = atol = WKV6_TOL, each case through the
+    variant it must take (`vec16` on 16-byte rows, `scalar` otherwise).
+    Prints each instantiation's residency; times the serving shape at
+    B = 32 and at the small depth bucket B = 4."""
+    from repro_torch.kernels.wkv6.kernel import VARIANTS, occupancy
     from repro_torch.kernels.wkv6.ops import wkv6
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
     gen = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    for dtype in (bf16, f32):
+        for dk in (32, 64):                      # the two instantiations
+            for variant in VARIANTS:
+                occ = occupancy(dtype, dk, variant)
+                print(f"  wkv6 {str(dtype).split('.')[1]} dk<={dk} {variant}:"
+                      f" {occ['blocks_per_sm']} blocks/SM of 128 threads, "
+                      f"{occ['registers']} registers, {occ['shared_bytes']} "
+                      f"B shared, {occ['local_bytes']} B local (spill)")
+                if occ["local_bytes"]:
+                    fail(f"wkv6 {dtype} dk {dk} {variant} spills")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = occupancy(bf16, 64, "vec16")["blocks_per_sm"] * sms
+    print(f"  wkv6 bf16 dk 64 vec16: {resident} blocks resident at once on "
+          f"{sms} SMs, of the 1280 of the serving shape")
 
     def inputs(b, h, t, dk, dv, dtype):
         rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
@@ -740,8 +766,8 @@ def wkv6_checks(torch, dev):
         u = rnd(h, dk) * 0.1
         return (r.to(dtype), k.to(dtype), v.to(dtype), w, u.to(dtype))
 
-    def case(name, args):
-        y, s = wkv6(*args)
+    def case(name, args, variant="vec16"):
+        y, s = via("wkv6", variant, lambda: wkv6(*args))
         wy, ws = wkv6_ref(*args)
         torch.cuda.synchronize()
         errs = []
@@ -755,11 +781,26 @@ def wkv6_checks(torch, dev):
                 fail(f"wkv6[{name}] {part}: kernel vs plain max |err| "
                      f"{err:.3e} > tol {WKV6_TOL}")
             errs.append(err)
-        print(f"  wkv6[{name}] max|err| y {errs[0]:.3e}, state {errs[1]:.3e}"
-              f" (tol {WKV6_TOL})")
+        print(f"  wkv6[{name}] ({variant}) max|err| y {errs[0]:.3e}, state "
+              f"{errs[1]:.3e} (tol {WKV6_TOL})")
         return max(errs)
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    def relaid(args, layout):
+        """The same values in another layout: one element into a buffer,
+        or every other element of rows twice as long."""
+        out = []
+        for a in args:
+            if a.ndim != 4:
+                out.append(a)
+            elif layout == "offset1":
+                buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+                out.append(buf[1:].view(a.shape).copy_(a))
+            else:
+                buf = torch.empty((*a.shape[:3], 2 * a.shape[3]),
+                                  dtype=a.dtype, device=dev)
+                out.append(buf[..., ::2].copy_(a))
+        return tuple(out)
+
     main = inputs(32, 40, 64, 64, 64, bf16)      # the rwkv6-3b serving shape
     err_main = case("main_bf16", main)
     case("main_f32", tuple(a.float() for a in main))
@@ -774,22 +815,35 @@ def wkv6_checks(torch, dev):
     r, k, v, w, u = inputs(2, 4, 40, 64, 64, f32)
     case("w0_f32", (r, k, v, torch.zeros_like(w), u))
     case("bh10240_bf16", inputs(256, 40, 64, 64, 64, bf16))
+    # the element path: rows off 16 bytes, and a feature stride of 2
+    small = inputs(4, 40, 37, 64, 64, bf16)
+    case("offset1_bf16", relaid(small, "offset1"), "scalar")
+    case("feature_stride2_f32", relaid(tuple(a.float() for a in small),
+                                       "stride2"), "scalar")
 
-    r, k, v, w, u = main
-    b, h, t, dk = r.shape
-    dv = v.shape[-1]
-    # bytes: r, k, v, u read in bf16, w in f32; y and the state written
-    # in f32. operations: 5 per (step, i, j) — the state update
-    # w*S + k*v (3) and the readout r*S summed over i (2)
-    nbytes = ((2 * dk + dv) * 2 + dk * 4) * b * h * t + h * dk * 2 \
-        + (b * h * t * dv + b * h * dk * dv) * 4
-    return record(
-        "wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
-        "src/repro/kernels/wkv6/kernel.py:57",
-        f"r/k/v ({b},{h},{t},{dk}) bfloat16, w float32, u ({h},{dk})",
-        err_main, lambda: wkv6(r, k, v, w, u), lambda: wkv6_ref(r, k, v, w, u),
-        None,       # no single PyTorch call computes this recurrence
-        nbytes, 5.0 * b * h * t * dk * dv, "float32", None)   # one variant
+    def timed(args, shape_note):
+        r, k, v, w, u = args
+        b, h, t, dk = r.shape
+        dv = v.shape[-1]
+        # bytes: r, k, v, u read in bf16, w in f32; y and the state written
+        # in f32. operations: 5 per (step, i, j) — the state update
+        # w*S + k*v (3) and the readout r*S summed over i (2)
+        nbytes = ((2 * dk + dv) * 2 + dk * 4) * b * h * t + h * dk * 2 \
+            + (b * h * t * dv + b * h * dk * dv) * 4
+        return record(
+            "wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+            "src/repro/kernels/wkv6/kernel.py:57",
+            f"r/k/v ({b},{h},{t},{dk}) bfloat16, w float32, u ({h},{dk})"
+            f"{shape_note}", err_main,
+            lambda: via("wkv6", "vec16", lambda: wkv6(r, k, v, w, u)),
+            lambda: wkv6_ref(r, k, v, w, u),
+            None,       # no single PyTorch call computes this recurrence
+            nbytes, 5.0 * b * h * t * dk * dv, "float32", "vec16")
+
+    rec = timed(main, "")
+    rec["at_b4"] = timed(tuple(a[:4] if a.ndim == 4 else a for a in main),
+                         " (a depth bucket of 4)")
+    return rec
 
 
 # ------------------------------------------------------------- serve phase
@@ -1116,6 +1170,11 @@ def main() -> int:
         if len(tc_fns) != 4 or min(tc_fns.values()) == 0:
             fail(f"tensor-core kernels without HMMA/HGMMA in their SASS: "
                  f"{tc_fns}")
+        # the WKV6 recurrence stays on the CUDA cores (exact rank-1 steps)
+        wkv6_tc = {fn: n for fn, n in hmma.items() if "wkv6" in fn and n}
+        if wkv6_tc or not any("wkv6" in fn for fn in hmma):
+            fail(f"WKV6 kernels missing or with tensor-core instructions: "
+                 f"{wkv6_tc}")
 
     with phase("dispatch and launch counts"):
         dispatch_checks(torch, dev)
@@ -1165,7 +1224,7 @@ def main() -> int:
               f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
               f"launches in the {path} run")
         for at in filter(None, (rec.get("at_grouped"), rec.get("at_lm_head"),
-                                rec.get("at_splitee_s"))):
+                                rec.get("at_splitee_s"), rec.get("at_b4"))):
             lib = at["library_ms"]
             print(f"    at {at['shape']} ({at['variant']}): kernel "
                   f"{at['ms']:.5f}, plain "

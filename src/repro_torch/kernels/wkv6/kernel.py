@@ -1,7 +1,10 @@
 """ctypes binding of the CUDA WKV6 recurrence kernel (csrc/wkv6.cu).
 
-The library is built on first call (`kernels._build`); nothing is built
-or loaded at import time.
+Each call runs one of two variants, chosen by `wkv6_variant` from the
+layout of r, k, v and w alone: ``vec16`` stages whole rows with 16-byte
+``cp.async`` copies, ``scalar`` element by element. The library is built
+on first call (`kernels._build`); nothing is built or loaded at import
+time.
 """
 from __future__ import annotations
 
@@ -10,22 +13,53 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import check, count_launch, load, register_kernel
+from repro_torch.kernels._build import (check, count_launch, load,
+                                        register_kernel, rows_aligned)
 
 NAME = "wkv6"
 SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
 MAX_DIM = 64                      # kMaxDim in the source: dk, dv <= 64
+VARIANTS = ("vec16", "scalar")
+_VARIANT_CODES = {"scalar": 0, "vec16": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-register_kernel(NAME)
+register_kernel(NAME, VARIANTS)
 
 
-def _launcher():
-    fn = load(SOURCE).wkv6_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def wkv6_variant(r, k, v, w) -> str:
+    """vec16 when every row of r, k, v and w can be copied in 16-byte
+    pieces: unit feature stride, rows starting on 16 bytes
+    (`rows_aligned`) and a multiple of 16 bytes long; else scalar. A pure
+    function of the tensors' layout: it never depends on a build or a
+    launch."""
+    xs = (r, k, v, w)
+    if all(x.stride(-1) == 1 and x.shape[-1] * x.element_size() % 16 == 0
+           for x in xs) and rows_aligned(*xs):
+        return "vec16"
+    return "scalar"
+
+
+def _lib():
+    lib = load(SOURCE)
+    if lib.wkv6_launch.argtypes is None:
+        lib.wkv6_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                                    + [ctypes.c_void_p])
+        lib.wkv6_launch.restype = ctypes.c_int
+        lib.wkv6_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.wkv6_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def occupancy(dtype: torch.dtype, dk: int, variant: str) -> dict:
+    """What the CUDA runtime reports for the instantiation a call with
+    r/k/v in ``dtype``, this dk and ``variant`` launches: resident blocks
+    per SM at its 128 threads, registers per thread, static shared memory
+    per block and local (spill) bytes per thread."""
+    out = (ctypes.c_int * 4)()
+    check(_lib().wkv6_occupancy(_DTYPE_CODES[dtype], dk, _VARIANT_CODES[variant],
+                                ctypes.addressof(out)), f"{NAME} occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "shared_bytes",
+                     "local_bytes"), out))
 
 
 def wkv6_cuda(r, k, v, w, u):
@@ -35,7 +69,8 @@ def wkv6_cuda(r, k, v, w, u):
 
     Returns (y (B, H, T, dv) f32 whose memory is laid out (B, T, H, dv),
     so the caller's merge of heads back into the model width is a view;
-    final state (B, H, dk, dv) f32), from a zero state. One launch."""
+    final state (B, H, dk, dv) f32), from a zero state. One launch of the
+    variant `wkv6_variant` picks."""
     tensors = (r, k, v, w, u)
     if not all(t.is_cuda and t.device == r.device for t in tensors):
         raise ValueError("wkv6_cuda needs r, k, v, w, u on one CUDA device")
@@ -59,16 +94,17 @@ def wkv6_cuda(r, k, v, w, u):
     y = torch.empty((b, t, h, dv), dtype=torch.float32,
                     device=r.device).transpose(1, 2)
     s = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    variant = wkv6_variant(r, k, v, w)
     strides = []
     for x in (r, k, v, w, y):
         strides += list(x.stride())
     strides += list(u.stride())
     stride_arr = (ctypes.c_int64 * len(strides))(*strides)
-    status = _launcher()(
+    status = _lib().wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         y.data_ptr(), s.data_ptr(), ctypes.addressof(stride_arr),
-        b, h, t, dk, dv, _DTYPE_CODES[r.dtype],
+        b, h, t, dk, dv, _DTYPE_CODES[r.dtype], _VARIANT_CODES[variant],
         torch.cuda.current_stream(r.device).cuda_stream)
-    check(status, NAME)
-    count_launch(NAME)
+    check(status, f"{NAME}/{variant}")
+    count_launch(NAME, variant)
     return y, s

@@ -1,8 +1,8 @@
 """Host-side planning of the CUDA kernels, on the CPU: how the exit-head
 kernel cuts rows and the vocabulary over blocks, and which variant each
-kernel takes for a dtype, width and alignment. The kernels themselves run
-only on the card (chip_smoke.py); these are the pure functions that pick
-their launches.
+kernel takes for a dtype, width, alignment and layout. The kernels
+themselves run only on the card (chip_smoke.py); these are the pure
+functions that pick their launches.
 """
 import pytest
 import torch
@@ -12,6 +12,7 @@ from repro_torch.kernels.exit_confidence import kernel as exit_kernel
 from repro_torch.kernels.exit_confidence.kernel import (exit_variant, plan,
                                                         tile_shape)
 from repro_torch.kernels.flash_attention.kernel import attention_variant
+from repro_torch.kernels.wkv6.kernel import wkv6_variant
 
 H100_SMS = 132
 GRID_Y_Z = 65535
@@ -148,3 +149,50 @@ def test_unaligned_rows_choose_the_cuda_core_variants(offset, row):
     want = ("tensor_core", "tensor_core") if ok else ("cuda_core", "cuda_core")
     assert (exit_variant(BF16, 80, 65536, rows_aligned(h)),
             attention_variant(BF16, 64, rows_aligned(q))) == want
+
+
+def _wkv6_inputs(layout, dtype, b=2, h=3, t=5, d=64):
+    """r, k, v in ``dtype`` and w in float32, (B, H, T, d), in one of the
+    layouts the WKV6 kernel is handed."""
+    def one(dt):
+        if layout == "serving":       # (B, S, H, hd) -> (B, H, S, hd) view
+            return torch.zeros((b, t, h, d), dtype=dt).transpose(1, 2)
+        if layout == "contiguous":
+            return torch.zeros((b, h, t, d), dtype=dt)
+        if layout == "offset1":       # one element into its buffer
+            n = b * h * t * d
+            return torch.zeros(n + 1, dtype=dt)[1:].view(b, h, t, d)
+        if layout == "feature_stride2":
+            return torch.zeros((b, h, t, 2 * d), dtype=dt)[..., ::2]
+        raise ValueError(layout)
+    return one(dtype), one(dtype), one(dtype), one(F32)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("layout,want", [
+    ("serving", "vec16"),             # the rwkv6-3b time_mix views
+    ("contiguous", "vec16"),
+    ("offset1", "scalar"),            # rows off 16 bytes
+    ("feature_stride2", "scalar"),    # rows_aligned holds, stride(-1) != 1
+])
+def test_wkv6_variant(layout, want, dtype):
+    """The same answer for float32 and bfloat16 r/k/v: the serving layout
+    takes the cp.async rows, anything else the element path."""
+    r, k, v, w = _wkv6_inputs(layout, dtype)
+    assert wkv6_variant(r, k, v, w) == want
+
+
+def test_wkv6_variant_needs_every_input_and_whole_16_byte_rows():
+    r, k, v, w = _wkv6_inputs("serving", BF16)
+    assert rows_aligned(*_wkv6_inputs("feature_stride2", BF16))
+    off = _wkv6_inputs("offset1", BF16)
+    for i in range(4):                # one unaligned input is enough
+        args = [r, k, v, w]
+        args[i] = off[i]
+        assert wkv6_variant(*args) == "scalar"
+    # row lengths: 48 bf16 = 96 bytes and 40 f32 = 160 bytes are whole
+    # 16-byte pieces; 36 bf16 = 72 bytes and 2 f32 = 8 bytes are not
+    assert wkv6_variant(*_wkv6_inputs("contiguous", BF16, d=48)) == "vec16"
+    assert wkv6_variant(*_wkv6_inputs("contiguous", F32, d=40)) == "vec16"
+    assert wkv6_variant(*_wkv6_inputs("contiguous", BF16, d=36)) == "scalar"
+    assert wkv6_variant(*_wkv6_inputs("contiguous", F32, d=2)) == "scalar"

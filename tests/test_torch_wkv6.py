@@ -64,6 +64,34 @@ def test_matches_reference(b, h, t, dk, dv, chunk):
     assert launch_counts()["wkv6"] == 0      # CPU tensors: plain version
 
 
+def _wkv6_hoisted_bonus(r, k, v, w, u):
+    """The CUDA kernel's form of the recurrence, in plain torch: the bonus
+    leaves the sum over i as one scalar per step,
+        a_t = sum_i r_t[i] u[i] k_t[i],
+        y_t[j] = sum_i r_t[i] S_{t-1}[i,j] + a_t v_t[j],
+    and the state update is S <- w_t * S + k_t v_t^T."""
+    b, h, t, dk = r.shape
+    s = torch.zeros((b, h, dk, v.shape[-1]))
+    ys = []
+    for i in range(t):
+        rt, kt, vt, wt = r[:, :, i], k[:, :, i], v[:, :, i], w[:, :, i]
+        a = (rt * u * kt).sum(-1, keepdim=True)             # (B, H, 1)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt, s) + a * vt)
+        s = wt[..., None] * s + kt[..., None] * vt[..., None, :]
+    return torch.stack(ys, dim=2), s
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv,chunk", CASES)
+def test_hoisted_bonus_form_matches_reference(b, h, t, dk, dv, chunk):
+    """The kernel's algebra (bonus hoisted out of the per-column sum)
+    against the reference's oracle, on the same numpy inputs."""
+    arrs = _inputs(t * 7 + dk, b, h, t, dk, dv)
+    y_ref, s_ref = j_wkv6_ref(*(jnp.asarray(a) for a in arrs))
+    y, s = _wkv6_hoisted_bonus(*(torch.from_numpy(a) for a in arrs))
+    _close(y_ref, y)
+    _close(s_ref, s)
+
+
 def test_initial_state_composes():
     """Two halves, the second from the first's final state, equal the
     whole sequence, and each half matches the reference's oracle."""
