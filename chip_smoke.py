@@ -24,7 +24,8 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    + window, GQA, suffix queries, strided q, keys past their length set
    to NaN and fully masked rows. Exit confidence: small-head (V = 2 and
    40, grouped), tensor-core (the rwkv6-3b LM head (32, 2560) x (2560,
-   65536), the SplitEE-S shape (1024, 2560) x (2560, 65536), V = 151936,
+   65536), the SplitEE-S shape (1024, 2560) x (2560, 65536), the scan
+   edge of a 17-row tail (544, 2560) x (2560, 65536), V = 151936,
    a head bias, plain and fused with rms/layer norm and shared/per-row
    parameters) and CUDA-core (f32) variants, conf at an LM head held at a
    tolerance scaled to its size that must reject a halved conf and one
@@ -42,20 +43,34 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    at a depth bucket of B = 4;
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
-   and fused exits, and SplitEE-S) and the sequential driver, then the
-   same four runs with full-width rwkv6-3b (32 layers, d 2560, vocab
-   65536, bfloat16). Each run has its own launch counts, per kernel and
-   per variant, reset just before it and read just after: the kernel
-   counts must equal the launches its decisions need (one edge call per
-   distinct split depth of a micro-batch, one cloud call per distinct
-   depth of its offloaded samples), and every launch must have taken the
-   variant SERVE_VARIANTS names. It then checks the served decisions
-   against the port's CPU (plain-version) path on a small float32 model
-   of each family and the full-width exits against the CPU path
-   (rwkv6-3b at 2 layers);
+   and fused exits, and SplitEE-S) and the sequential driver, then
+   through `serve()`: the scan edge phase (plain, fused, SplitEE-S),
+   "auto", int8 offloads (bucketed), int4 with sparsity 0.5 (scan), the
+   sequential path with int8, a 17-sample tail micro-batch, and an
+   `Engine` with the fifo scheduler fed in ragged chunks (its decisions
+   must equal the one-shot scan run's; its p50/p99 latency is printed);
+   then the same runs with full-width rwkv6-3b (32 layers, d 2560, vocab
+   65536, bfloat16). Each run has its own launch counts, per kernel, per
+   variant and per tensor-core tile, reset just before it and read just
+   after: they must equal the launches its decisions need
+   (`expected_launches`: bucketed, one edge call per distinct split depth
+   of a micro-batch; scan, one masked forward through all L layers;
+   "auto", scan for a micro-batch of >= 2 distinct arms; one cloud call
+   per distinct depth of its offloaded samples), and every launch must
+   have taken the variant SERVE_VARIANTS names. A codec run's offload
+   bytes must be its offloads times the codec's wire bytes per row. It
+   prints samples/s and device busy time (torch.profiler) of scan against
+   bucketed at B=32, and how many decisions differ between them. It then
+   checks the card against the port's CPU (plain-version) path: full-width
+   `forward_exits` and `forward_exits_masked` in float32 (ElasticBERT-12
+   at all 12 layers, rwkv6-3b cut to 8; rwkv6-3b at all 32 layers against
+   a float64 CPU reading, WITNESS_FACTOR), the offload codec bitwise in
+   every mode, and the served decisions of a small float32 model of each
+   family (bucketed, scan, auto, int8);
 6. prints one JSON line of per-kernel numbers (``launches`` from the run
-   named in MAIN_PATH, ``launches_by_path`` and ``launches_by_variant``
-   from every run), then the final line ``{"ok": true, "device": {...}}``.
+   named in MAIN_PATH, ``launches_by_path``, ``launches_by_variant`` and,
+   for the exit kernels, ``launches_by_tile`` from every run), then the
+   final line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the final
 line. Without CUDA, or without the port beside it, it exits with 2.
@@ -66,6 +81,7 @@ import contextlib
 import dataclasses
 import json
 import platform
+import re
 import subprocess
 import sys
 import time
@@ -90,10 +106,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # card vs CPU, full 12-layer forward in float32 (summation orders differ)
 FULL_FORWARD_ATOL = 1e-4
-# card vs CPU, rwkv6-3b exits (2 layers, float32): its confidences are
+# card vs CPU, rwkv6-3b exits (cut to 8 layers, float32): its confidences are
 # max softmax probabilities over 65536 classes, far below 1, so the
 # bound is relative
 LM_FORWARD_RTOL = 1e-4
+# card vs CPU, rwkv6-3b at all its layers in float32, where the error has
+# grown past LM_FORWARD_RTOL: the card's distance from a float64 CPU
+# reading may be at most this many times the CPU float32's (two float32
+# paths that round independently)
+WITNESS_FACTOR = 2.0
 # WKV6 kernel vs plain version: both f32 outputs, the sums over dk and
 # the state over T are taken in different orders (rtol = atol)
 WKV6_TOL = 1e-4
@@ -107,6 +128,9 @@ MAIN_PATH = {"flash_attention": "batched B=32",
              "exit_confidence": "batched B=32",
              "exit_confidence_fused": "batched B=32 fused_exit",
              "wkv6": f"{LM} batched B=32"}
+# the __global__ functions of the port's CUDA sources, in profiler names
+PORT_KERNEL = re.compile(r"(exit_confidence\w*|exit_norm_rows_kernel|"
+                         r"wkv6_kernel|flash_attention\w*)")
 # the kernel of every layer, by model family
 LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
 # the variant every launch of a kernel must take in a bf16 serve run, by
@@ -270,16 +294,24 @@ def check_pred(name, pred, want_pred, logits_fn, dtype):
     return int(bad.sum())
 
 
-def via(kernel: str, variant: str, fn):
-    """``fn()``, which must launch ``kernel`` once, through ``variant``."""
-    from repro_torch.kernels import variant_launch_counts
-    before = variant_launch_counts()
+def via(kernel: str, variant: str, fn, tile: str | None = None):
+    """``fn()``, which must launch ``kernel`` once, through ``variant``
+    (and, given ``tile``, through that tile of the variant)."""
+    from repro_torch.kernels import tile_launch_counts, variant_launch_counts
+    before, tiles_before = variant_launch_counts(), tile_launch_counts()
     out = fn()
     moved = {k: n - before[k] for k, n in variant_launch_counts().items()
              if n != before[k]}
     if moved != {f"{kernel}/{variant}": 1}:
         fail(f"{kernel}: expected one launch through its {variant} variant, "
              f"counted {moved}")
+    if tile is not None:
+        moved = {k: n - tiles_before[k]
+                 for k, n in tile_launch_counts().items()
+                 if n != tiles_before[k]}
+        if moved != {f"{kernel}/{variant}/{tile}": 1}:
+            fail(f"{kernel}: expected one launch through the {tile} tile of "
+                 f"{variant}, counted {moved}")
     return out
 
 
@@ -500,18 +532,18 @@ def exit_checks(torch, dev):
               f"near-ties {flips}")
         return err
 
-    def plain_case(name, h, w, dt, bias=None, lm=False):
+    def plain_case(name, h, w, dt, bias=None, lm=False, tile=None):
         conf, pred = via("exit_confidence", _exit_variant(h, w),
-                         lambda: exit_confidence(h, w, bias))
+                         lambda: exit_confidence(h, w, bias), tile)
         wc, wp = exit_confidence_ref(h, w, bias)
         torch.cuda.synchronize()
         return held(f"exit_confidence[{name}]", conf, pred, wc, wp,
                     lambda: _exit_logits(h, w, bias), dt, lm, h.shape[-1])
 
-    def fused_case(name, x, norm, w, hb, kind, dt, lm=False):
+    def fused_case(name, x, norm, w, hb, kind, dt, lm=False, tile=None):
         conf, pred = via("exit_confidence_fused", _exit_variant(x, w),
                          lambda: exit_confidence_fused(x, norm, w, hb,
-                                                       kind=kind))
+                                                       kind=kind), tile)
         wc, wp = exit_confidence_fused_ref(x, norm, w, hb, kind=kind)
         torch.cuda.synchronize()
         return held(f"exit_confidence_fused[{name}]", conf, pred, wc, wp,
@@ -659,9 +691,10 @@ def exit_checks(torch, dev):
     x_lm = (rnd(b, d, scale=2.0) + 0.5).to(bf16)
     norm_lm = {"scale": (rnd(d, scale=0.1) + 1.0).to(bf16),
                "bias": rnd(d, scale=0.1).to(bf16)}
-    err_lm = plain_case("lm_head_bf16", h_lm, w_lm, "bfloat16", lm=True)
+    err_lm = plain_case("lm_head_bf16", h_lm, w_lm, "bfloat16", lm=True,
+                        tile="mma_sync")
     err_lm_f = fused_case("layernorm_lm_head_bf16", x_lm, norm_lm, w_lm, None,
-                          "layernorm", "bfloat16", lm=True)
+                          "layernorm", "bfloat16", lm=True, tile="mma_sync")
     plain_case("lm_head_f32", h_lm.float(), w_lm.float(), "float32", lm=True)
     # a head bias, taken natively by the tensor-core epilogue, plain and
     # fused (with per-row norm parameters, as SplitEE-S passes them)
@@ -703,9 +736,10 @@ def exit_checks(torch, dev):
     norm_s = {"scale": (rnd(m, d, scale=0.1) + 1.0).to(bf16),
               "bias": rnd(m, d, scale=0.1).to(bf16)}
     err_s = plain_case("splitee_s_lm_head_bf16", h_s, w_lm, "bfloat16",
-                       lm=True)
+                       lm=True, tile="wgmma")
     err_s_f = fused_case("layernorm_per_row_splitee_s_lm_head_bf16", x_s,
-                         norm_s, w_lm, None, "layernorm", "bfloat16", lm=True)
+                         norm_s, w_lm, None, "layernorm", "bfloat16", lm=True,
+                         tile="wgmma")
     nbytes = h_s.numel() * 2 + w_lm.numel() * 2 + m * 4 + m * 4
     few = dict(variant="tensor_core", calls=5, replays=5)
     rec_plain["at_splitee_s"] = record(
@@ -723,6 +757,39 @@ def exit_checks(torch, dev):
         f"bfloat16", err_s_f,
         lambda: exit_confidence_fused(x_s, norm_s, w_lm, kind="layernorm"),
         lambda: exit_confidence_fused_ref(x_s, norm_s, w_lm,
+                                          kind="layernorm"),
+        None, nbytes + 2 * m * d * 2, 2.0 * m * d * v + 8.0 * m * d,
+        "bfloat16", **few)
+
+    # the scan edge of a 17-row tail micro-batch at rwkv6-3b: 32 exits x
+    # 17 rows = 544, not a multiple of the 128-row wgmma tile; plain, and
+    # fused with per-row layernorm parameters
+    m = 32 * 17
+    h_t = rnd(m, d).to(bf16)
+    x_t = (rnd(m, d, scale=2.0) + 0.5).to(bf16)
+    norm_t = {"scale": (rnd(m, d, scale=0.1) + 1.0).to(bf16),
+              "bias": rnd(m, d, scale=0.1).to(bf16)}
+    err_t = plain_case("scan_tail_lm_head_bf16", h_t, w_lm, "bfloat16",
+                       lm=True, tile="wgmma")
+    err_t_f = fused_case("layernorm_per_row_scan_tail_lm_head_bf16", x_t,
+                         norm_t, w_lm, None, "layernorm", "bfloat16", lm=True,
+                         tile="wgmma")
+    nbytes = h_t.numel() * 2 + w_lm.numel() * 2 + m * 4 + m * 4
+    rec_plain["at_scan_tail"] = record(
+        "exit_confidence", src,
+        "src/repro/kernels/exit_confidence/kernel.py:100",
+        f"h ({m},{d}) @ w ({d},{v}) bfloat16", err_t,
+        lambda: exit_confidence(h_t, w_lm),
+        lambda: exit_confidence_ref(h_t, w_lm),
+        lambda: torch.softmax(h_t @ w_lm, dim=-1).max(dim=-1),
+        nbytes, 2.0 * m * d * v, "bfloat16", **few)
+    rec_fused["at_scan_tail"] = record(
+        "exit_confidence_fused", src,
+        "src/repro/kernels/exit_confidence/kernel.py:186",
+        f"layernorm x ({m},{d}), per-row (M,D) params, w ({d},{v}) "
+        f"bfloat16", err_t_f,
+        lambda: exit_confidence_fused(x_t, norm_t, w_lm, kind="layernorm"),
+        lambda: exit_confidence_fused_ref(x_t, norm_t, w_lm,
                                           kind="layernorm"),
         None, nbytes + 2 * m * d * 2, 2.0 * m * d * v + 8.0 * m * d,
         "bfloat16", **few)
@@ -861,46 +928,143 @@ def arm_histogram(arms, num_layers):
 
 
 def expected_launches(arms, exited, batch_size: int, num_layers: int,
-                      fused: bool, layer_kernel: str):
-    """Kernel launches the serving drivers make for these decisions. Per
-    micro-batch: one edge call per distinct arm a (a+1 launches of the
-    family's layer kernel and one exit launch; SplitEE-S scores every
-    exit in that one launch) and one cloud call per distinct arm among
-    its offloaded samples (L-1-a layers and the final head, never
-    fused). The sequential driver is micro-batches of one."""
+                      fused: bool, layer_kernel: str, *,
+                      edge_mode: str = "bucketed", side_info: bool = False,
+                      lm_head: bool = False):
+    """Kernel launches the serving drivers make for these decisions.
+
+    Per micro-batch, the edge: bucketed, one edge call per distinct arm a
+    (a+1 launches of the family's layer kernel and one exit launch;
+    SplitEE-S scores every exit in that one launch); scan, one masked
+    forward (L layer-kernel launches and one exit launch over every
+    exit); "auto" takes the scan for a micro-batch with >= 2 distinct
+    arms, else the bucketed edge. The cloud: one call per distinct arm
+    among the offloaded samples (L-1-a layers and the final head, never
+    fused). The sequential driver is micro-batches of one.
+
+    Returns (launches by kernel, launches by "<kernel>/tensor_core/<tile>"
+    at a shared LM head (``lm_head``; else empty), {rows: launches} of
+    the wgmma edge exits): the LM head scores L x rows exits of a
+    SplitEE-S or scan edge call, pow2-padded bucket rows otherwise."""
     import numpy as np
+    from repro_torch.kernels.exit_confidence.kernel import tc_tile
     arms = np.asarray(arms)
     offloaded = ~np.asarray(exited).astype(bool)
     n = {name: 0 for name in MAIN_PATH}
+    tiles, wgmma_rows = {}, {}
     edge_exit = "exit_confidence_fused" if fused else "exit_confidence"
+
+    def pow2(k):
+        return 1 << (k - 1).bit_length()
+
+    def exit_launch(kernel, rows, edge):
+        n[kernel] += 1
+        if lm_head:
+            key = f"{kernel}/tensor_core/{tc_tile(rows)}"
+            tiles[key] = tiles.get(key, 0) + 1
+            if edge and tc_tile(rows) == "wgmma":
+                wgmma_rows[rows] = wgmma_rows.get(rows, 0) + 1
+
     for i in range(0, len(arms), batch_size):
         mb, off = arms[i:i + batch_size], offloaded[i:i + batch_size]
-        for a in np.unique(mb):
-            n[layer_kernel] += int(a) + 1
-            n[edge_exit] += 1
+        scan = edge_mode == "scan" or (edge_mode == "auto"
+                                       and len(np.unique(mb)) >= 2)
+        if scan:
+            n[layer_kernel] += num_layers
+            exit_launch(edge_exit, num_layers * len(mb), True)
+        else:
+            for a in np.unique(mb):
+                cap = pow2(int(np.sum(mb == a)))
+                n[layer_kernel] += int(a) + 1
+                exit_launch(edge_exit, num_layers * cap if side_info else cap,
+                            True)
         for a in np.unique(mb[off]):
             n[layer_kernel] += num_layers - 1 - int(a)
-            n["exit_confidence"] += 1
-    return n
+            exit_launch("exit_confidence", pow2(int(np.sum(mb[off] == a))),
+                        False)
+    return n, tiles, wgmma_rows
 
 
-def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
-    """Serve a 512-sample stream with ``arch`` at full width through the
-    four runs (batched B=32 plain / fused / SplitEE-S, sequential), each
-    with its own launch counts, held against what its decisions need.
-    Run names are ``prefix`` + the run."""
-    import numpy as np
+class Runs:
+    """Per-run launch counts of the serve phases (per kernel, variant and
+    tile), each reset just before its run and read just after."""
+
+    def __init__(self):
+        self.counts, self.variants, self.tiles = {}, {}, {}
+
+    def run(self, torch, name, fn, cfg, *, batch_size, fused=False,
+            edge_mode="bucketed", side_info=False, full=True):
+        """``fn()`` serves; its launches must be what its decisions need
+        (`expected_launches`), every launch through the variant
+        SERVE_VARIANTS names and, at the LM head, the tile its rows take.
+        ``full``: a run of the whole stream, which must also pull every
+        arm and both exit and offload. Returns (report, wall seconds,
+        {rows: wgmma edge launches})."""
+        import numpy as np
+        from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                         tile_launch_counts,
+                                         variant_launch_counts)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        variants = {k: n for k, n in variant_launch_counts().items() if n}
+        tiles = {k: n for k, n in tile_launch_counts().items() if n}
+        self.counts[name], self.variants[name] = counts, variants
+        self.tiles[name] = tiles
+        hist = arm_histogram(out["arms"], cfg.num_layers)
+        n_exit = int(np.sum(out["exited"]))
+        print(f"  {name}: {out['n']} samples in {dt:.3f}s = "
+              f"{out['n'] / dt:.1f} samples/s; exits {n_exit}, offloads "
+              f"{out['n'] - n_exit}, offload bytes {out['offload_bytes']}, "
+              f"cost {out['cost_total']:.3f}, arms {hist}; launches {counts};"
+              f" by variant {variants}; by tile {tiles}")
+        if not np.isfinite(out["rewards"]).all():
+            fail(f"{name}: non-finite rewards")
+        if full and not 0 < n_exit < out["n"]:
+            fail(f"{name}: exits {n_exit} of {out['n']}: need both exits "
+                 f"and offloads")
+        if full and min(hist) == 0:
+            fail(f"{name}: not every arm was pulled: {hist}")
+        layer_kernel = LAYER_KERNEL[cfg.family]
+        lm_head = SERVE_VARIANTS[cfg.family]["exit_confidence"] == \
+            "tensor_core"
+        want, want_tiles, rows = expected_launches(
+            out["arms"], out["exited"], batch_size, cfg.num_layers, fused,
+            layer_kernel, edge_mode=edge_mode, side_info=side_info,
+            lm_head=lm_head)
+        if counts != want:
+            fail(f"{name}: kernel launches {counts}, but its decisions "
+                 f"need {want}")
+        if tiles != want_tiles:
+            fail(f"{name}: tensor-core exit launches by tile {tiles}, but "
+                 f"its decisions need {want_tiles}")
+        for kname in (layer_kernel, "exit_confidence") + \
+                (("exit_confidence_fused",) if fused else ()):
+            if counts[kname] <= 0:
+                fail(f"{name}: kernel {kname} was not launched")
+        for kname, variant in SERVE_VARIANTS[cfg.family].items():
+            if variants.get(f"{kname}/{variant}", 0) != counts[kname]:
+                fail(f"{name}: {counts[kname]} launches of {kname}, but not "
+                     f"all through its {variant} variant: {variants}")
+        if rows:
+            print(f"    wgmma edge exit launches by rows: "
+                  f"{dict(sorted(rows.items()))}")
+        return out, dt, rows
+
+
+def serve_setup(torch, dev, arch: str, alpha_layer: int):
+    """Full-width ``arch`` (bf16, weights from seed 0), the 512-sample
+    stream and the cost model with alpha calibrated through the kernels."""
     from repro_torch.configs import get_config
     from repro_torch.core import CostModel
-    from repro_torch.data import OnlineStream, make_dataset
-    from repro_torch.kernels import (launch_counts, reset_launch_counts,
-                                     variant_launch_counts)
+    from repro_torch.data import make_dataset
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving import (EdgeCloudRuntime, _serve_stream_batched,
-                                     _serve_stream_sequential)
 
     cfg = get_config(arch)                            # as published, bf16
-    layer_kernel = LAYER_KERNEL[cfg.family]
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -922,14 +1086,20 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
     cost = CostModel(num_layers=cfg.num_layers, alpha=alpha, offload=3.0)
     print(f"  alpha = median layer-{alpha_layer} confidence of 64 "
           f"calibration samples = {alpha:.6g}")
+    return params, cfg, data, cost
 
-    runs = [(prefix + "batched B=32", dict(batch_size=SERVE_BATCH), False),
-            (prefix + "batched B=32 fused_exit", dict(batch_size=SERVE_BATCH),
-             True),
-            (prefix + "batched B=32 side_info", dict(batch_size=SERVE_BATCH,
-                                                     side_info=True), False),
-            (prefix + "sequential", dict(max_samples=SEQUENTIAL_SAMPLES),
-             False)]
+
+def serve_phase(torch, dev, runs: Runs, params, cfg, data, cost,
+                prefix: str = ""):
+    """Serve the 512-sample stream at full width through the four runs of
+    the drivers (batched B=32 plain / fused / SplitEE-S, sequential),
+    each with its own launch counts. Run names are ``prefix`` + the run.
+    Returns the bucketed B=32 run's report and wall time, its device busy
+    time and the report, with a confidence trace, of the profiled run."""
+    from repro_torch.data import OnlineStream
+    from repro_torch.serving import (EdgeCloudRuntime, _serve_stream_batched,
+                                     _serve_stream_sequential)
+
     # warm-up (cuBLAS handles and heuristics for each bucket shape), so
     # the timed runs below measure steady-state serving
     for fused, side in ((False, False), (True, False), (False, True)):
@@ -938,142 +1108,449 @@ def serve_phase(torch, dev, arch: str, alpha_layer: int, prefix: str = ""):
                               batch_size=SERVE_BATCH, side_info=side,
                               max_samples=4 * SERVE_BATCH)
     torch.cuda.synchronize()
-    results, counts_by_path, variants_by_path = {}, {}, {}
-    for name, kw, fused in runs:
+    out = {}
+    for name, side, fused in (("batched B=32", False, False),
+                              ("batched B=32 fused_exit", False, True),
+                              ("batched B=32 side_info", True, False)):
         rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
-        stream = OnlineStream(data, seed=0)
-        driver = (_serve_stream_sequential if name.endswith("sequential")
-                  else _serve_stream_batched)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = driver(rt, params, stream, cost, **kw)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = launch_counts()
-        variants = {k: n for k, n in variant_launch_counts().items() if n}
-        results[name] = (out, dt)
-        counts_by_path[name] = counts
-        variants_by_path[name] = variants
-        hist = arm_histogram(out["arms"], cfg.num_layers)
-        n_exit = int(np.sum(out["exited"]))
-        print(f"  {name}: {out['n']} samples in {dt:.3f}s = "
-              f"{out['n'] / dt:.1f} samples/s; exits {n_exit}, offloads "
-              f"{out['n'] - n_exit}, offload bytes {out['offload_bytes']}, "
-              f"cost {out['cost_total']:.3f}, arms {hist}; launches {counts};"
-              f" by variant {variants}")
-        if not np.isfinite(out["rewards"]).all():
-            fail(f"{name}: non-finite rewards")
-        if not 0 < n_exit < out["n"]:
-            fail(f"{name}: exits {n_exit} of {out['n']}: need both exits "
-                 f"and offloads")
-        if min(hist) == 0:
-            fail(f"{name}: not every arm was pulled: {hist}")
-        want = expected_launches(out["arms"], out["exited"],
-                                 kw.get("batch_size", 1), cfg.num_layers,
-                                 fused, layer_kernel)
-        if counts != want:
-            fail(f"{name}: kernel launches {counts}, but its decisions "
-                 f"need {want}")
-        for kname in (layer_kernel, "exit_confidence") + \
-                (("exit_confidence_fused",) if fused else ()):
-            if counts[kname] <= 0:
-                fail(f"{name}: kernel {kname} was not launched")
-        for kname, variant in SERVE_VARIANTS[cfg.family].items():
-            if variants.get(f"{kname}/{variant}", 0) != counts[kname]:
-                fail(f"{name}: {counts[kname]} launches of {kname}, but not "
-                     f"all through its {variant} variant: {variants}")
+        out[name] = runs.run(
+            torch, prefix + name, lambda: _serve_stream_batched(
+                rt, params, OnlineStream(data, seed=0), cost,
+                batch_size=SERVE_BATCH, side_info=side),
+            cfg, batch_size=SERVE_BATCH, fused=fused, side_info=side)
+    rt = EdgeCloudRuntime(cfg, device=dev)
+    runs.run(torch, prefix + "sequential", lambda: _serve_stream_sequential(
+        rt, params, OnlineStream(data, seed=0), cost,
+        max_samples=SEQUENTIAL_SAMPLES), cfg, batch_size=1)
 
     # where the time goes: the device time of one more batched B=32 run
-    # (profiled) against the wall time of the unprofiled run above
-    rt = EdgeCloudRuntime(cfg, device=dev)
-    busy, per_kernel = device_ms(lambda: _serve_stream_batched(
+    # (profiled) against the wall time of the unprofiled run above; this
+    # run, untimed, records the confidence trace decision_difference reads
+    traced = []
+    busy, per_kernel = device_ms(lambda: traced.append(_serve_stream_batched(
         rt, params, OnlineStream(data, seed=0), cost,
-        batch_size=SERVE_BATCH), iters=1, warmup=0)
-    wall_ms = results[prefix + "batched B=32"][1] * 1e3
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    print(f"  {prefix}batched B=32: device busy {busy:.3f} ms "
-          f"(torch.profiler) of {wall_ms:.3f} ms wall = {busy / wall_ms:.1%} "
-          f"busy, {1 - busy / wall_ms:.1%} idle")
-    for kname, ms in top:
+        batch_size=SERVE_BATCH, record_trace=True)), iters=1, warmup=0)
+    report, wall, _ = out["batched B=32"]
+    print_busy(f"{prefix}batched B=32", busy, wall * 1e3, per_kernel)
+    return report, wall, busy, traced[0]
+
+
+def print_busy(name, busy, wall_ms, per_kernel):
+    """Device busy against wall time, the 8 largest device entries, and
+    the profiler total of each of the port's own kernels in the run."""
+    print(f"  {name}: device busy {busy:.3f} ms (torch.profiler) of "
+          f"{wall_ms:.3f} ms wall = {busy / wall_ms:.1%} busy, "
+          f"{1 - busy / wall_ms:.1%} idle")
+    for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {ms:9.4f} ms  {kname[:100]}")
-    return counts_by_path, variants_by_path, params, cfg, data
+    port = {}
+    for kname, ms in per_kernel.items():
+        m = PORT_KERNEL.search(kname)
+        if m:
+            port[m.group(1)] = port.get(m.group(1), 0.0) + ms
+    print("    port kernels (profiler total in the run): " + ", ".join(
+        f"{k} {ms:.4f} ms" for k, ms in sorted(port.items())))
+
+
+def front_end_phase(torch, dev, runs: Runs, params, cfg, data, cost,
+                    bucketed, prefix: str = ""):
+    """The port's front door at full width: `serve()` with the scan and
+    auto edge phases, the offload codec (bucketed, scan, sequential), a
+    17-sample tail micro-batch, and an `Engine` with the fifo scheduler
+    fed in ragged chunks, each with its own launch counts. The Engine's
+    decisions must equal the one-shot scan run's; prints scan against
+    bucketed samples/s, device busy time and decisions."""
+    import numpy as np
+    from repro_torch.data import OnlineStream
+    from repro_torch.serving import (EdgeCloudRuntime, Engine, ServingConfig,
+                                     serve)
+    from repro_torch.serving.api import _codec_from_config
+
+    B = SERVE_BATCH
+    scan = ServingConfig(batch_size=B, edge_mode="scan")
+    for fused, side in ((False, False), (True, False), (False, True)):
+        serve(EdgeCloudRuntime(cfg, device=dev, fused_exit=fused), params,
+              OnlineStream(data, seed=0), cost, scan,
+              side_info=side, max_samples=4 * B)          # warm-up
+    runs_cfg = [
+        # name, config, fused, full stream
+        ("scan B=32", scan, False, True),
+        ("scan B=32 fused_exit", scan, True, True),
+        ("scan B=32 side_info", dataclasses.replace(scan, side_info=True),
+         False, True),
+        ("auto B=32", ServingConfig(batch_size=B, edge_mode="auto"), False,
+         True),
+        ("int8 B=32", ServingConfig(batch_size=B, offload_quant="int8"),
+         False, True),
+        ("int4 sparsity 0.5 scan B=32",
+         ServingConfig(batch_size=B, edge_mode="scan", offload_quant="int4",
+                       offload_sparsity=0.5), False, True),
+        ("sequential int8", ServingConfig(offload_quant="int8",
+                                          max_samples=SEQUENTIAL_SAMPLES),
+         False, True),
+        # one ragged micro-batch of 17 rows
+        ("scan B=32 tail 17", dataclasses.replace(scan, max_samples=17),
+         False, False),
+    ]
+    out = {}
+    s_len = data["tokens"].shape[1]
+    for name, config, fused, full in runs_cfg:
+        rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
+        rep, dt, _ = out[name] = runs.run(
+            torch, prefix + name,
+            lambda: serve(rt, params, OnlineStream(data, seed=0), cost,
+                          config),
+            cfg, batch_size=config.batch_size, fused=fused,
+            edge_mode=config.edge_mode, side_info=config.side_info,
+            full=full)
+        if rep.path != ("sequential" if config.batch_size == 1
+                        else "batched"):
+            fail(f"{name}: served by the {rep.path} path")
+        codec = _codec_from_config(config)
+        if codec is not None:
+            offloads = int(rep.n - np.sum(rep.exited))
+            want = offloads * codec.row_bytes(s_len, cfg.d_model, 2)
+            if rep.offload_bytes != want:
+                fail(f"{name}: offload bytes {rep.offload_bytes} != "
+                     f"{offloads} offloads x {codec.row_bytes(s_len, cfg.d_model, 2)}"
+                     f" wire bytes")
+            print(f"    {offloads} offloads x "
+                  f"{codec.row_bytes(s_len, cfg.d_model, 2)} wire bytes "
+                  f"(ratio {codec.cost_ratio(s_len, cfg.d_model, 2):.4f} "
+                  f"of bf16) = offload bytes")
+
+    # an Engine with the fifo scheduler, fed in ragged chunks
+    engine_cfg = ServingConfig(batch_size=B, edge_mode="scan",
+                               scheduler="fifo")
+    samples = list(OnlineStream(data, seed=0))
+    rt = EdgeCloudRuntime(cfg, device=dev)
+
+    def engine():
+        eng = Engine(rt, params, cost, engine_cfg)
+        i, chunks = 0, (5, 1, 7, 3, 16, 2, 30, 20, 12, 64, 33)
+        while i < len(samples):
+            for c in chunks:
+                eng.submit(samples[i:i + c])
+                i += c
+        return eng.close()
+
+    rep, _, _ = runs.run(torch, prefix + "engine fifo scan B=32", engine, cfg,
+                         batch_size=B, edge_mode="scan")
+    ref = out["scan B=32"][0]
+    for key in ("arms", "exited", "preds"):
+        if not np.array_equal(rep[key], ref[key]):
+            fail(f"engine fifo: {key} differ from one-shot serve() scan")
+    lat = rep["scheduler"]["latency_ms"]
+    print(f"    engine == one-shot serve() scan (arms, exits, preds); "
+          f"scheduler latency ms p50 {lat['p50']:.3f}, p99 {lat['p99']:.3f},"
+          f" mean {lat['mean']:.3f}, max {lat['max']:.3f} over "
+          f"{lat['count']} requests, {rep['scheduler']['batches']} batches")
+
+    # scan against bucketed at B=32: samples/s, device busy, decisions
+    # (the profiled runs, untimed, record the confidence traces)
+    rt = EdgeCloudRuntime(cfg, device=dev)
+    traced = []
+    busy, per_kernel = device_ms(lambda: traced.append(serve(
+        rt, params, OnlineStream(data, seed=0), cost,
+        dataclasses.replace(scan, record_trace=True))), iters=1, warmup=0)
+    rep, wall, _ = out["scan B=32"]
+    print_busy(f"{prefix}scan B=32", busy, wall * 1e3, per_kernel)
+    b_rep, b_wall, b_busy, b_traced = bucketed
+    print(f"  {prefix}B=32 scan vs bucketed: {rep['n'] / wall:.1f} vs "
+          f"{b_rep['n'] / b_wall:.1f} samples/s, device busy {busy:.3f} vs "
+          f"{b_busy:.3f} ms")
+    decision_difference(prefix, b_traced, traced[0], cost.alpha)
+
+
+def decision_difference(prefix, a, b, alpha):
+    """How many served decisions (arm or exit) differ between bucketed
+    ``a`` and scan ``b`` (both with a confidence trace), and the first
+    differing sample's confidence at its arm relative to alpha."""
+    import numpy as np
+    diff = np.nonzero((np.asarray(a["arms"]) != np.asarray(b["arms"]))
+                      | (np.asarray(a["exited"]) != np.asarray(b["exited"])))[0]
+    msg = f"  {prefix}decisions differing scan vs bucketed: {len(diff)} of " \
+          f"{a['n']}"
+    if len(diff):
+        s = int(diff[0])
+        ca = float(a["trace"]["conf_path"][s][-1])
+        cb = float(b["trace"]["conf_path"][s][-1])
+        msg += (f"; first at sample {s} (arms {int(a['arms'][s])} / "
+                f"{int(b['arms'][s])}): conf (conf - alpha) / alpha "
+                f"{(ca - alpha) / alpha:+.3%} bucketed, "
+                f"{(cb - alpha) / alpha:+.3%} scan")
+    print(msg)
 
 
 def agreement_phase(torch, dev, params, cfg, data):
     """The card's kernel path against the port's CPU (plain-version) path:
-    full-width exits in float32, and the served decisions of a small
-    float32 model exactly."""
-    from repro_torch.models.transformer import ParamTree, forward_exits
+    full-width exits in float32 (`forward_exits`, and `forward_exits_masked`
+    over a depth vector that holds every arm), and the served decisions of
+    a small float32 model exactly."""
+    from repro_torch.models.transformer import (ParamTree, forward_exits,
+                                                forward_exits_masked)
 
     # the serve phase's weights in float32 on both sides: what differs is
     # only the kernels vs the plain versions and the summation orders
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    toks = data["tokens"][:8]
-    gpu = forward_exits(ParamTree(_tree_to(params, dev, torch.float32)),
-                        cfg32, {"tokens": torch.as_tensor(toks, device=dev)})
-    cpu = forward_exits(ParamTree(_tree_to(params, "cpu", torch.float32)),
-                        cfg32, {"tokens": torch.as_tensor(toks)})
-    conf_g, conf_c = gpu["conf"].cpu(), cpu["conf"]
-    err = (conf_g - conf_c).abs().max().item()
-    if err > FULL_FORWARD_ATOL:
-        fail(f"full-width forward_exits: card vs CPU conf max|err| {err:.3e}"
-             f" > {FULL_FORWARD_ATOL}")
-    # two classes: a near-tie of the logits is a confidence near 0.5
-    flips = gpu["pred"].cpu() != cpu["pred"]
-    if (flips & (conf_c > 0.5 + 1e-3)).any():
-        fail("full-width forward_exits: pred differs card vs CPU away from "
-             "a tie")
-    print(f"  full-width elasticbert12 forward_exits (float32 weights, 8 "
-          f"samples, {cfg.num_layers} exits): card vs CPU conf max|err| {err:.3e} (tol "
-          f"{FULL_FORWARD_ATOL}), pred differences {int(flips.sum())}")
+    n = cfg.num_layers                       # a sample at every arm
+    toks = data["tokens"][:n]
+    p_gpu = ParamTree(_tree_to(params, dev, torch.float32))
+    p_cpu = ParamTree(_tree_to(params, "cpu", torch.float32))
+    depths = torch.arange(n)
+    for what, call in (
+            ("forward_exits", lambda p, d: forward_exits(
+                p, cfg32, {"tokens": torch.as_tensor(toks, device=d)})),
+            ("forward_exits_masked", lambda p, d: forward_exits_masked(
+                p, cfg32, {"tokens": torch.as_tensor(toks, device=d)},
+                depths.to(d), window=0))):
+        gpu, cpu = call(p_gpu, dev), call(p_cpu, "cpu")
+        conf_g, conf_c = gpu["conf"].cpu(), cpu["conf"]
+        err = (conf_g - conf_c).abs().max().item()
+        if err > FULL_FORWARD_ATOL:
+            fail(f"full-width {what}: card vs CPU conf max|err| {err:.3e} > "
+                 f"{FULL_FORWARD_ATOL}")
+        # two classes: a near-tie of the logits is a confidence near 0.5
+        flips = gpu["pred"].cpu() != cpu["pred"]
+        if (flips & (conf_c > 0.5 + 1e-3)).any():
+            fail(f"full-width {what}: pred differs card vs CPU away from a "
+                 f"tie")
+        depth_note = f", depths 0..{n - 1}" if "masked" in what else ""
+        print(f"  full-width elasticbert12 {what} (float32 weights, {n} "
+              f"samples{depth_note}, {cfg.num_layers} exits): card vs CPU "
+              f"conf max|err| {err:.3e} (tol {FULL_FORWARD_ATOL}), pred "
+              f"differences {int(flips.sum())}")
     small_serve_agreement(torch, dev, "elasticbert12", data)
 
 
-def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 2):
-    """rwkv6-3b at full width, cut to its first ``layers`` layers of the
-    serve phase's weights, in float32: forward_exits on the card (WKV6
-    and exit kernels) against the CPU (plain versions); then the served
-    decisions of the small float32 rwkv6 model."""
-    from repro_torch.models.transformer import (ParamTree, exit_hidden,
-                                                forward_exits)
+def lm_depths(torch, layers: int, rows: int = 8):
+    """``rows`` exit depths spread over 0..layers-1, both ends included."""
+    return torch.linspace(0, layers - 1, rows).round().long()
 
+
+def lm_exit_runs(torch, tree, cut, toks, depths, device, dtype):
+    """`forward_exits` and `forward_exits_masked` (at ``depths``) of the
+    parameter tree ``tree`` cast to ``dtype`` on ``device``; returns
+    ``{what: {"conf", "pred"} on the CPU}``."""
+    from repro_torch.models.transformer import (ParamTree, forward_exits,
+                                                forward_exits_masked)
+    p = ParamTree(_tree_to(tree, device, dtype))
+    batch = {"tokens": torch.as_tensor(toks).to(device)}
+    out = {}
+    for what, call in (
+            ("forward_exits", lambda: forward_exits(p, cut, batch)),
+            ("forward_exits_masked", lambda: forward_exits_masked(
+                p, cut, batch, depths.to(device), window=0))):
+        got = call()
+        out[what] = {k: got[k].cpu() for k in ("conf", "pred")}
+    del p
+    return out
+
+
+def lm_cut(params, cfg, layers: int):
+    """The first ``layers`` layers of ``params`` and the config cut to them
+    in float32."""
     cut = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
     tree = {key: (_first_rows(params[key], layers) if key == "layers"
                   else params[key]) for key in params.keys()}
+    return cut, tree
+
+
+@contextlib.contextmanager
+def float64_kept(torch):
+    """``Tensor.float()`` returns float64 tensors unchanged. The plain
+    versions cast to float32 on purpose (the reference's dtype steps);
+    inside this context every step of the CPU path runs in float64."""
+    orig = torch.Tensor.float
+
+    def keep(self, *a, **k):
+        return self if self.dtype == torch.float64 else orig(self, *a, **k)
+
+    torch.Tensor.float = keep
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def lm_depth_witness(torch, dev, params, cfg, data, layers: int,
+                     strict: bool = True) -> bool:
+    """`forward_exits` and `forward_exits_masked` of the first ``layers``
+    layers (8 samples, depths spread over 0..layers-1) three ways: the
+    card in float32, the CPU in float32 and the CPU in float64. The card
+    must sit at most WITNESS_FACTOR times as far from float64 as the
+    CPU's float32 does; a card farther off is a port fault. Prints every
+    pair's max relative conf error; returns whether the card held (with
+    ``strict``, fails instead)."""
+    t0 = time.perf_counter()
+    cut, tree = lm_cut(params, cfg, layers)
     toks = data["tokens"][:8]
-    gpu = forward_exits(ParamTree(_tree_to(tree, dev, torch.float32)), cut,
-                        {"tokens": torch.as_tensor(toks, device=dev)})
+    depths = lm_depths(torch, layers)
+    card = lm_exit_runs(torch, tree, cut, toks, depths, dev, torch.float32)
+    cpu32 = lm_exit_runs(torch, tree, cut, toks, depths, "cpu",
+                         torch.float32)
+    with float64_kept(torch):
+        cpu64 = lm_exit_runs(torch, tree, cut, toks, depths, "cpu",
+                             torch.float64)
+    held = True
+    for what in card:
+        if cpu64[what]["conf"].dtype != torch.float64:
+            fail(f"{what}: the float64 reading came back "
+                 f"{cpu64[what]['conf'].dtype}")
+        rel = {}
+        for name, a, b in (("card f32 vs CPU f32", card, cpu32),
+                           ("card f32 vs CPU f64", card, cpu64),
+                           ("CPU f32 vs CPU f64", cpu32, cpu64)):
+            ca, cb = a[what]["conf"].double(), b[what]["conf"].double()
+            rel[name] = ((ca - cb).abs() / cb).max().item()
+            rel[name + " pred"] = int((a[what]["pred"].long()
+                                       != b[what]["pred"].long()).sum())
+        ratio = rel["card f32 vs CPU f64"] / rel["CPU f32 vs CPU f64"]
+        held = held and ratio <= WITNESS_FACTOR
+        print(f"  full-width {cfg.arch_id} {what}, {layers} layers"
+              f"{', depths ' + str(depths.tolist()) if 'masked' in what else ''}"
+              f": conf max relative err " + ", ".join(
+                  f"{n} {rel[n]:.3e} (pred differences {rel[n + ' pred']})"
+                  for n in ("card f32 vs CPU f32", "card f32 vs CPU f64",
+                            "CPU f32 vs CPU f64"))
+              + f"; card's distance from f64 / CPU f32's {ratio:.3f} "
+              f"(bound {WITNESS_FACTOR})")
+        if strict and not ratio <= WITNESS_FACTOR:
+            fail(f"full-width {cfg.arch_id} {what} at {layers} layers: the "
+                 f"card's float32 is {ratio:.3f}x as far from float64 as the "
+                 f"CPU's float32 (bound {WITNESS_FACTOR})")
+    print(f"  [{cfg.arch_id} {layers}-layer float64 witness: "
+          f"{time.perf_counter() - t0:.1f} s wall]", flush=True)
+    return held
+
+
+def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8):
+    """rwkv6-3b at full width, cut to its first ``layers`` layers of the
+    serve phase's weights, in float32: `forward_exits` and
+    `forward_exits_masked` (depths spread over 0..layers-1) on the card
+    (WKV6 and exit kernels) against the CPU (plain versions); then the
+    served decisions of the small float32 rwkv6 model. All 32 layers are
+    held by `lm_depth_witness`, against a float64 CPU reading."""
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.transformer import (ParamTree, exit_hidden,
+                                                _layer_full, _positions,
+                                                embed_inputs, layer_params,
+                                                pool_hidden)
+
+    t0 = time.perf_counter()
+    cut, tree = lm_cut(params, cfg, layers)
+    toks = data["tokens"][:8]
+    depths = lm_depths(torch, layers)
+    gpu = lm_exit_runs(torch, tree, cut, toks, depths, dev, torch.float32)
+    cpu = lm_exit_runs(torch, tree, cut, toks, depths, "cpu", torch.float32)
     cpu_p = ParamTree(_tree_to(tree, "cpu", torch.float32))
     batch = {"tokens": torch.as_tensor(toks)}
-    cpu = forward_exits(cpu_p, cut, batch)
-    conf_g, conf_c = gpu["conf"].cpu(), cpu["conf"]
-    rel = ((conf_g - conf_c).abs() / conf_c).max().item()
-    if not rel <= LM_FORWARD_RTOL:
-        fail(f"full-width {cfg.arch_id} forward_exits: card vs CPU conf max "
-             f"relative err {rel:.3e} > {LM_FORWARD_RTOL}")
-    flips = check_pred(f"full-width {cfg.arch_id} forward_exits",
-                       gpu["pred"].cpu(), cpu["pred"],
-                       lambda: _exit_logits(exit_hidden(cpu_p, cut, batch)[0],
-                                            cpu_p["exit_w"]), "float32")
-    print(f"  full-width {cfg.arch_id} cut to {layers} layers, float32 (d "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}; 8 samples): card vs CPU "
-          f"conf max relative err {rel:.3e} (tol {LM_FORWARD_RTOL}), conf "
-          f"max|err| {(conf_g - conf_c).abs().max().item():.3e}, pred "
-          f"differences at near-ties {flips}")
+
+    def masked_logits():
+        """The CPU's logits of every masked exit row (for check_pred)."""
+        x = embed_inputs(cpu_p, cut, batch)
+        pos = _positions(cut, *x.shape[:2])
+        rows = []
+        for i in range(layers):
+            lp = layer_params(cpu_p["layers"], i)
+            x = torch.where(i <= depths.reshape(-1, 1, 1),
+                            _layer_full(cut, lp, x, pos, window=0), x)
+            rows.append(apply_norm(pool_hidden(cut, x), lp["exit_norm"],
+                                   cut.norm))
+        return _exit_logits(torch.stack(rows), cpu_p["exit_w"])
+
+    logits_fns = {
+        "forward_exits": lambda: _exit_logits(
+            exit_hidden(cpu_p, cut, batch)[0], cpu_p["exit_w"]),
+        "forward_exits_masked": masked_logits}
+    for what, logits_fn in logits_fns.items():
+        conf_g, conf_c = gpu[what]["conf"], cpu[what]["conf"]
+        rel = ((conf_g - conf_c).abs() / conf_c).max().item()
+        if not rel <= LM_FORWARD_RTOL:
+            fail(f"full-width {cfg.arch_id} {what}: card vs CPU conf max "
+                 f"relative err {rel:.3e} > {LM_FORWARD_RTOL}")
+        flips = check_pred(f"full-width {cfg.arch_id} {what}",
+                           gpu[what]["pred"], cpu[what]["pred"], logits_fn,
+                           "float32")
+        print(f"  full-width {cfg.arch_id} {what} cut to {layers} layers, "
+              f"float32 (d {cfg.d_model}, vocab {cfg.vocab_size}; 8 samples"
+              f"{', depths ' + str(depths.tolist()) if 'masked' in what else ''}"
+              f"): card vs CPU conf max relative err {rel:.3e} (tol "
+              f"{LM_FORWARD_RTOL}), conf max|err| "
+              f"{(conf_g - conf_c).abs().max().item():.3e}, pred differences "
+              f"at near-ties {flips}")
+    print(f"  [{cfg.arch_id} {layers}-layer float32 agreement: "
+          f"{time.perf_counter() - t0:.1f} s wall]")
+    del cpu_p
+    lm_depth_witness(torch, dev, params, cfg, data, cfg.num_layers)
     small_serve_agreement(torch, dev, cfg.arch_id, data)
+
+
+def codec_agreement(torch, dev):
+    """The offload codec's decode(encode(rows)) and its payload on the card
+    bitwise equal to the CPU's, for every mode, on bf16 and f32 rows
+    (rows with exact zeros of both signs and, in bf16, many equal
+    magnitudes: the stable top-k order)."""
+    from repro_torch.serving.offload_codec import OffloadCodec
+
+    gen = torch.Generator().manual_seed(11)
+    modes = [("none", 0.5), ("int8", 0.0), ("int8", 0.25), ("int4", 0.0),
+             ("int4", 0.5)]
+    checked = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for k, s_len, d in ((3, 64, 768), (2, 64, 2560), (2, 7, 33)):
+            rows = (torch.randn((k, s_len, d), generator=gen) * 3).to(dt)
+            rows[0, 0, :8] = 0.0
+            rows[0, 1, :8] = -0.0
+            for quant, sparsity in modes:
+                codec = OffloadCodec(quant=quant, sparsity=sparsity)
+                enc_c, enc_g = codec.encode(rows), codec.encode(rows.to(dev))
+                for part in ("data", "scale", "zero", "index"):
+                    a, b = getattr(enc_c, part), getattr(enc_g, part)
+                    if (a is None) != (b is None) or (a is not None and not (
+                            a.dtype == b.dtype
+                            and torch.equal(_bits(a), _bits(b.cpu())))):
+                        fail(f"codec {quant}/{sparsity} {dt} ({k},{s_len},"
+                             f"{d}): encoded {part} differs card vs CPU")
+                dec_c, dec_g = codec.decode(enc_c), codec.decode(enc_g)
+                if enc_g.row_bytes != codec.row_bytes(s_len, d,
+                                                      rows.element_size()) \
+                        or not torch.equal(_bits(dec_c), _bits(dec_g.cpu())):
+                    fail(f"codec {quant}/{sparsity} {dt} ({k},{s_len},{d}): "
+                         f"decode differs card vs CPU, or wire bytes")
+                res = torch.randn(rows.shape, generator=gen) * 0.01
+                fb_c = codec.encode_with_feedback(rows, res)
+                fb_g = codec.encode_with_feedback(rows.to(dev), res.to(dev))
+                for x, y in zip(fb_c[1:], fb_g[1:]):
+                    if not torch.equal(_bits(x), _bits(y.cpu())):
+                        fail(f"codec {quant}/{sparsity} {dt}: error feedback "
+                             f"differs card vs CPU")
+                checked += 1
+    print(f"  offload codec: {checked} (mode, dtype, shape) cases, encoded "
+          f"payload, decode and error-feedback residual bitwise equal card "
+          f"vs CPU; wire bytes = row_bytes")
+
+
+def _bits(t):
+    """A tensor's bits as integers (bf16/f32 compared bit for bit, so
+    -0.0 and 0.0 differ)."""
+    import torch
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return t.contiguous().view(ints[t.dtype]) if t.dtype in ints else t
 
 
 def small_serve_agreement(torch, dev, arch: str, data):
     """The small float32 model of ``arch`` served on the card and on the
-    CPU (plain exits; fused exits with SplitEE-S): identical decisions
-    and accounting."""
+    CPU (plain exits; fused exits with SplitEE-S; through `serve()` the
+    scan and auto edge phases and int8 offloads): identical decisions and
+    accounting."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import CostModel
     from repro_torch.data import OnlineStream
     from repro_torch.models.transformer import ParamTree, forward_exits, init_params
-    from repro_torch.serving import EdgeCloudRuntime, _serve_stream_batched
+    from repro_torch.serving import (EdgeCloudRuntime, ServingConfig,
+                                     _serve_stream_batched, serve)
 
     small = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     sp_gpu = init_params(small, seed=5, device=dev)
@@ -1085,28 +1562,35 @@ def small_serve_agreement(torch, dev, arch: str, data):
     k = lo + int(np.argmax(np.diff(conf[lo:hi])))
     alpha = float(conf[k] + conf[k + 1]) / 2
     cost = CostModel(num_layers=small.num_layers, alpha=alpha, offload=3.0)
-    for fused_s in (False, True):      # plain exits; fused exits + SplitEE-S
-        outs = []
-        for p, d in ((sp_gpu, dev), (sp_cpu, "cpu")):
-            rt = EdgeCloudRuntime(small, device=d, fused_exit=fused_s)
-            outs.append(_serve_stream_batched(
-                rt, p, OnlineStream(sub, seed=0), cost, batch_size=8,
-                side_info=fused_s))
-        a, b = outs
+    runs = [
+        ("plain exits", False, lambda rt, p: _serve_stream_batched(
+            rt, p, OnlineStream(sub, seed=0), cost, batch_size=8)),
+        ("fused exits + SplitEE-S", True, lambda rt, p: _serve_stream_batched(
+            rt, p, OnlineStream(sub, seed=0), cost, batch_size=8,
+            side_info=True))]
+    for mode in ("scan", "auto"):
+        runs.append((f"serve() {mode}", False, lambda rt, p, m=mode: serve(
+            rt, p, OnlineStream(sub, seed=0), cost,
+            ServingConfig(batch_size=8, edge_mode=m))))
+    runs.append(("serve() int8", False, lambda rt, p: serve(
+        rt, p, OnlineStream(sub, seed=0), cost,
+        ServingConfig(batch_size=8, offload_quant="int8"))))
+    for name, fused, call in runs:
+        a, b = (call(EdgeCloudRuntime(small, device=d, fused_exit=fused), p)
+                for p, d in ((sp_gpu, dev), (sp_cpu, "cpu")))
         for key in ("arms", "exited", "preds"):
             if not np.array_equal(a[key], b[key]):
-                fail(f"small f32 {arch} serve (fused/S={fused_s}): {key} "
-                     f"differ card vs CPU")
+                fail(f"small f32 {arch} serve ({name}): {key} differ card vs "
+                     f"CPU")
         if a["offload_bytes"] != b["offload_bytes"] or \
                 abs(a["cost_total"] - b["cost_total"]) > 1e-4:
-            fail(f"small f32 {arch} serve (fused/S={fused_s}): accounting "
-                 f"differs")
+            fail(f"small f32 {arch} serve ({name}): accounting differs")
         if not 0 < int(np.sum(a["exited"])) < len(a["exited"]):
-            fail(f"small f32 {arch} serve: need both exits and offloads")
-    print(f"  small float32 {arch} served on card and CPU (plain exits; "
-          f"fused exits with SplitEE-S; 96 samples, B=8; alpha {alpha:.5g} "
-          f"in a confidence gap of {conf[k + 1] - conf[k]:.2e}): decisions "
-          f"identical")
+            fail(f"small f32 {arch} serve ({name}): need both exits and "
+                 f"offloads")
+    print(f"  small float32 {arch} served on card and CPU ({', '.join(r[0] for r in runs)}; "
+          f"96 samples, B=8; alpha {alpha:.5g} in a confidence gap of "
+          f"{conf[k + 1] - conf[k]:.2e}): decisions identical")
 
 
 def _first_rows(tree, n: int):
@@ -1184,36 +1668,43 @@ def main() -> int:
         rec_exit, rec_fused = exit_checks(torch, dev)
         rec_wkv6 = wkv6_checks(torch, dev)
 
-    with phase("serve: elasticbert12 (full width) on the card"):
-        counts_by_path, variants_by_path, params, cfg, data = serve_phase(
-            torch, dev, "elasticbert12", 6)
+    runs = Runs()
+    for arch, alpha_layer, prefix, agree in (
+            ("elasticbert12", 6, "", agreement_phase),
+            (LM, 16, f"{LM} ", lm_agreement_phase)):
+        with phase(f"serve: {arch} (full width) on the card"):
+            params, cfg, data, cost = serve_setup(torch, dev, arch,
+                                                  alpha_layer)
+            bucketed = serve_phase(torch, dev, runs, params, cfg, data, cost,
+                                   prefix)
+        with phase(f"serve(): {arch} scan, auto, offload codec, Engine"):
+            front_end_phase(torch, dev, runs, params, cfg, data, cost,
+                            bucketed, prefix)
+        with phase(f"agreement: {arch}, card kernel path vs CPU plain "
+                   f"path"):
+            agree(torch, dev, params, cfg, data)
+        del params
+        torch.cuda.empty_cache()
 
-    with phase("agreement: elasticbert12, card kernel path vs CPU plain "
-               "path"):
-        agreement_phase(torch, dev, params, cfg, data)
-    del params
-
-    with phase(f"serve: {LM} (full width) on the card"):
-        lm_counts, lm_variants, params, cfg, data = serve_phase(
-            torch, dev, LM, 16, prefix=f"{LM} ")
-        counts_by_path.update(lm_counts)
-        variants_by_path.update(lm_variants)
-
-    with phase(f"agreement: {LM}, card kernel path vs CPU plain path"):
-        lm_agreement_phase(torch, dev, params, cfg, data)
-    del params
+    with phase("agreement: offload codec, card vs CPU"):
+        codec_agreement(torch, dev)
 
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6):
         path = MAIN_PATH[rec["name"]]
         rec["main_path"] = path
-        rec["launches"] = counts_by_path[path][rec["name"]]
+        rec["launches"] = runs.counts[path][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]
-                                   for p, c in counts_by_path.items()}
+                                   for p, c in runs.counts.items()}
         rec["launches_by_variant"] = {
             p: {k.split("/")[1]: n for k, n in c.items()
                 if k.split("/")[0] == rec["name"]}
-            for p, c in variants_by_path.items()}
+            for p, c in runs.variants.items()}
+        if rec["name"].startswith("exit_confidence"):
+            rec["launches_by_tile"] = {
+                p: {k.split("/")[2]: n for k, n in c.items()
+                    if k.split("/")[0] == rec["name"]}
+                for p, c in runs.tiles.items()}
         kernels.append(rec)
         lib = rec["library_ms"]
         print(f"  {rec['name']} at {rec['shape']} "
@@ -1224,7 +1715,8 @@ def main() -> int:
               f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
               f"launches in the {path} run")
         for at in filter(None, (rec.get("at_grouped"), rec.get("at_lm_head"),
-                                rec.get("at_splitee_s"), rec.get("at_b4"))):
+                                rec.get("at_splitee_s"),
+                                rec.get("at_scan_tail"), rec.get("at_b4"))):
             lib = at["library_ms"]
             print(f"    at {at['shape']} ({at['variant']}): kernel "
                   f"{at['ms']:.5f}, plain "

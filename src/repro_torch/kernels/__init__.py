@@ -4,7 +4,8 @@ Each kernel lives in ``<name>/`` with ``ref.py`` (plain version),
 ``kernel.py`` (ctypes binding), ``ops.py`` (dispatch by device) and
 ``csrc/*.cu``; ``include/`` holds the device helpers the sources share.
 Every wrapper counts the launches it makes on a CUDA tensor, per kernel
-(`launch_counts`) and per variant of the kernel (`variant_launch_counts`).
+(`launch_counts`), per variant of the kernel (`variant_launch_counts`)
+and, for a variant with several tiles, per tile (`tile_launch_counts`).
 """
 from __future__ import annotations
 
@@ -30,9 +31,18 @@ def variant_launch_counts() -> Dict[str, int]:
     return dict(_build.VARIANT_LAUNCHES)
 
 
+def tile_launch_counts() -> Dict[str, int]:
+    """{"<kernel>/<variant>/<tile>": launches since the last reset}, for
+    every tile of every variant that chooses among several (the exit
+    kernels' `tensor_core` variant: ``mma_sync`` for M <= 32 rows,
+    ``wgmma`` above)."""
+    return dict(_build.TILE_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's and every variant's count to 0."""
-    for counts in (_build.LAUNCHES, _build.VARIANT_LAUNCHES):
+    """Set every kernel's, variant's and tile's count to 0."""
+    for counts in (_build.LAUNCHES, _build.VARIANT_LAUNCHES,
+                   _build.TILE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 

@@ -31,23 +31,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
-# launches of each kernel's wrapper on a CUDA tensor, and of each of its
-# variants ("<kernel>/<variant>"); read through
-# repro_torch.kernels.launch_counts() and variant_launch_counts()
+# launches of each kernel's wrapper on a CUDA tensor, of each of its
+# variants ("<kernel>/<variant>") and of each tile of a variant that has
+# several ("<kernel>/<variant>/<tile>"); read through
+# repro_torch.kernels.launch_counts(), variant_launch_counts() and
+# tile_launch_counts()
 LAUNCHES: Dict[str, int] = {}
 VARIANT_LAUNCHES: Dict[str, int] = {}
+TILE_LAUNCHES: Dict[str, int] = {}
 
 
-def register_kernel(name: str, variants: Iterable[str] = ()) -> None:
+def register_kernel(name: str, variants: Iterable[str] = (),
+                    tiles: Dict[str, Iterable[str]] | None = None) -> None:
+    """Register a kernel, its variants, and ``tiles``: {variant: its
+    tiles} for the variants that choose among several."""
     LAUNCHES.setdefault(name, 0)
     for variant in variants:
         VARIANT_LAUNCHES.setdefault(f"{name}/{variant}", 0)
+    for variant, names in (tiles or {}).items():
+        for tile in names:
+            TILE_LAUNCHES.setdefault(f"{name}/{variant}/{tile}", 0)
 
 
-def count_launch(name: str, variant: str | None = None) -> None:
+def count_launch(name: str, variant: str | None = None,
+                 tile: str | None = None) -> None:
     LAUNCHES[name] += 1
     if variant is not None:
         VARIANT_LAUNCHES[f"{name}/{variant}"] += 1
+    if tile is not None:
+        TILE_LAUNCHES[f"{name}/{variant}/{tile}"] += 1
 
 
 def nvcc_path() -> str:

@@ -34,6 +34,9 @@ CUDA_CORE_COLS = 256      # kThreads: one column per thread
 TC_COLS = 128             # both tensor-core tiles' columns (kWgBN)
 TC_SMALL_ROWS = 32        # kTcSmallRows: M up to this, the 32-row mma.sync tile
 TC_ROWS = 128             # kWgBM: the wgmma tile of M > 32
+# the tensor_core variant's two tiles: mma.sync for M <= TC_SMALL_ROWS
+# rows (per group), wgmma above
+TC_TILES = ("mma_sync", "wgmma")
 
 
 class Plan(NamedTuple):
@@ -45,8 +48,8 @@ class Plan(NamedTuple):
     rows_per_tile: int
 
 
-register_kernel(NAME, VARIANTS)
-register_kernel(NAME_FUSED, VARIANTS)
+register_kernel(NAME, VARIANTS, {"tensor_core": TC_TILES})
+register_kernel(NAME_FUSED, VARIANTS, {"tensor_core": TC_TILES})
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -75,13 +78,20 @@ def exit_variant(dtype: torch.dtype, d: int, v: int, aligned: bool) -> str:
     return "cuda_core"
 
 
+def tc_tile(b: int) -> str:
+    """The tensor_core variant's tile at B rows per group: the 32-row
+    mma.sync tile up to TC_SMALL_ROWS, the 128-row wgmma tile above."""
+    return "mma_sync" if b <= TC_SMALL_ROWS else "wgmma"
+
+
 def tile_shape(variant: str, b: int) -> tuple:
     """(rows per tile, columns per tile, blocks that fit one SM) of a
     variant at B rows, as the source launches it."""
     if variant == "tensor_core":
         # 2 blocks an SM: splits of 2 column tiles at the LM head, so each
         # holds enough of the softmax mass that losing one shows
-        return (TC_SMALL_ROWS if b <= TC_SMALL_ROWS else TC_ROWS), TC_COLS, 2
+        rows = TC_SMALL_ROWS if tc_tile(b) == "mma_sync" else TC_ROWS
+        return rows, TC_COLS, 2
     if variant == "small_head":
         return 4, SMALL_VOCAB, 0           # a warp per row; V is never split
     return CUDA_CORE_ROWS, CUDA_CORE_COLS, 2
@@ -148,6 +158,10 @@ def _launch_shape(h3, w3, variant):
     return pl, conf, pred, parts
 
 
+def _tile(variant: str, b: int):
+    return tc_tile(b) if variant == "tensor_core" else None
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -170,7 +184,7 @@ def exit_confidence_cuda(h, w, hbias=None):
         _VARIANT_CODES[variant],
         torch.cuda.current_stream(h3.device).cuda_stream)
     check(status, f"{NAME}/{variant}")
-    count_launch(NAME, variant)
+    count_launch(NAME, variant, _tile(variant, b))
     return (conf[0], pred[0]) if squeeze else (conf, pred)
 
 
@@ -220,5 +234,5 @@ def exit_confidence_fused_cuda(x, gamma, nbias, w, hbias, *, kind: str):
         _VARIANT_CODES[variant],
         torch.cuda.current_stream(x3.device).cuda_stream)
     check(status, f"{NAME_FUSED}/{variant}")
-    count_launch(NAME_FUSED, variant)
+    count_launch(NAME_FUSED, variant, _tile(variant, b))
     return (conf[0], pred[0]) if squeeze else (conf, pred)

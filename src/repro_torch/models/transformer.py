@@ -16,7 +16,8 @@ from torch import nn
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.exit_confidence.ops import exit_confidence
+from repro_torch.kernels.exit_confidence.ops import (exit_confidence,
+                                                     exit_confidence_fused)
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as ff
 from repro_torch.models import rwkv6 as rk
@@ -236,3 +237,69 @@ def forward_exits(params, cfg: ModelConfig, batch: Mapping[str, Any]):
     return {"conf": conf.reshape(cfg.num_layers, b),
             "pred": pred.reshape(cfg.num_layers, b),
             "hidden": x}
+
+
+def grouped_exits(params, cfg: ModelConfig, pooled, *, fused: bool = False):
+    """conf (L, B) f32 and pred (L, B) i32 of every exit from the RAW
+    pooled rows ``pooled`` (L, B, D) (layer i's at row i-1), in one
+    confidence launch. A shared head scores the (L·B, D) rows at once (the
+    fused form takes each layer's exit-norm parameters repeated per row);
+    per-layer heads are the grouped (L, B, D) @ (L, D, C) form."""
+    l, b, d = pooled.shape
+    norm_p = params["layers"]["exit_norm"]                 # (L, D) entries
+    share = cfg.exits.share_head or not cfg.exits.enabled
+    if fused:
+        if share:
+            rows_p = {k: v.repeat_interleave(b, dim=0)
+                      for k, v in norm_p.items()}
+            conf, pred = exit_confidence_fused(
+                pooled.reshape(l * b, d), rows_p, params["exit_w"],
+                kind=cfg.norm)
+        else:
+            conf, pred = exit_confidence_fused(
+                pooled, dict(norm_p.items()), params["layers"]["exit_w"],
+                kind=cfg.norm)
+    else:
+        normed = apply_norm(pooled,
+                            {k: v.unsqueeze(1) for k, v in norm_p.items()},
+                            cfg.norm)
+        if share:
+            conf, pred = exit_confidence(normed.reshape(l * b, d),
+                                         params["exit_w"])
+        else:
+            conf, pred = exit_confidence(normed, params["layers"]["exit_w"])
+    return conf.reshape(l, b), pred.reshape(l, b)
+
+
+def forward_exits_masked(params, cfg: ModelConfig, batch: Mapping[str, Any],
+                         depths, *, window=None, fused_exit: bool = False):
+    """Depth-masked forward: one launch sequence for every depth mix.
+
+    ``depths`` is a (B,) integer tensor of 0-indexed split layers, one per
+    sample. Every row runs through all L layers and is frozen once its own
+    split layer has run (``torch.where(i <= depths)``), so the final
+    hidden is each sample's activation at its own depth: the offload
+    payload. Every layer's exit rows are pooled from the (frozen) carry
+    and scored after the loop by one grouped confidence launch; rows past
+    a sample's depth are unused by serving. ``window`` overrides the
+    attention window (serving passes 0); None derives it from the
+    sequence length.
+
+    Returns dict with conf (L, B) f32, pred (L, B) i32 and hidden (B, S,
+    D) at per-sample depth.
+    """
+    x = embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = _positions(cfg, b, s, device=x.device)
+    if window is None:
+        window = cfg.effective_window(s)
+    live = depths.to(x.device).reshape(b, 1, 1)
+    pooled = []
+    for i in range(cfg.num_layers):
+        x_new = _layer_full(cfg, layer_params(params["layers"], i), x,
+                            positions, window=window)
+        x = torch.where(i <= live, x_new, x)
+        pooled.append(pool_hidden(cfg, x))
+    conf, pred = grouped_exits(params, cfg, torch.stack(pooled),
+                               fused=fused_exit)
+    return {"conf": conf, "pred": pred, "hidden": x}

@@ -9,15 +9,18 @@ The stream is served in micro-batches of B samples:
      one `edge_fn`/`edge_fn_s` call, its rows padded to a power of two
      by repeating the last row (the reference pads so XLA compiles few
      shapes; the port keeps the padding so launches, outputs and byte
-     accounting match it);
+     accounting match it). With ``edge_mode="scan"`` this step is
+     `serving.scan_edge._edge_phase_scan`: one masked forward through all
+     L layers for the whole micro-batch; ``"auto"`` picks per batch;
   4. **cloud** — non-exiting rows land in an `OffloadQueue`, kept on the
      device as tensors; at the batch boundary the queue flushes one
-     `cloud_fn` call per depth bucket (again pow2-padded);
+     `cloud_fn` call per depth bucket (again pow2-padded), through the
+     offload codec when one is set;
   5. **update** — `SplitEEController.update_batch` folds the batch.
 
 With B = 1 the pipeline makes the same decisions as the sequential
 runtime; with B > 1 the policy is UCB with feedback delayed by up to B-1
-rounds. Only ``edge_mode="bucketed"`` is ported.
+rounds.
 """
 from __future__ import annotations
 
@@ -26,17 +29,28 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import torch_dtype
 from repro_torch.core.controller import SplitEEController
 from repro_torch.core.rewards import CostModel
 from repro_torch.data.stream import microbatches
-from repro_torch.serving.simulator import EdgeCloudRuntime, _no_codec
+from repro_torch.serving.offload_codec import OffloadCodec
+from repro_torch.serving.simulator import EdgeCloudRuntime
 
 
 def _pow2(k: int) -> int:
-    """Smallest power of two >= k: a bucket's row capacity. (The
-    reference's `_bucket_cap` also rounds up to a replica count for its
-    sharded runtime; on one device it is this.)"""
+    """Smallest power of two >= k: a bucket's row capacity."""
     return 1 << (k - 1).bit_length() if k > 1 else 1
+
+
+def _offload_scale(codec: Optional[OffloadCodec],
+                   runtime: EdgeCloudRuntime, seq_len: int) -> float:
+    """Scale on the bandit's communication term: wire bytes over
+    full-dtype activation bytes (1.0 without a codec)."""
+    if codec is None:
+        return 1.0
+    cfg = runtime.cfg
+    return codec.cost_ratio(seq_len, cfg.d_model,
+                            torch_dtype(cfg.dtype).itemsize)
 
 
 def _pad_rows(arr, cap: int):
@@ -55,14 +69,14 @@ class PendingFlush:
 
     Holds the device tensors the `cloud_fn` calls returned (the launches
     are queued on the stream); ``resolve()`` copies them to the host and
-    returns ``{slot: (conf_L, pred_L)}``. ``slot_bytes`` holds the bytes
-    each offloaded slot shipped.
+    returns ``{slot: (conf_L, pred_L)}``. ``slot_bytes`` holds the wire
+    bytes each offloaded slot shipped.
     """
 
-    def __init__(self, launches, slot_bytes: Dict[int, int]):
+    def __init__(self, launches, slot_bytes: Optional[Dict[int, int]] = None):
         self._launches = launches        # [(slots, conf, pred)] depth order
         self._result: Optional[Dict[int, tuple]] = None
-        self.slot_bytes = slot_bytes
+        self.slot_bytes: Dict[int, int] = slot_bytes or {}
 
     def resolve(self) -> Dict[int, tuple]:
         if self._result is None:
@@ -83,16 +97,16 @@ class OffloadQueue:
     Rows stay on the device as (S, D) tensors (the reference keeps host
     numpy copies; a bfloat16 tensor has no numpy dtype, and the cloud
     half runs on the same device). `flush_async()` issues one `cloud_fn`
-    call per distinct depth with its rows stacked and pow2-padded. The
-    offload bytes of a row are its ``numel * element_size``. (The
-    reference's in-flight ring and pad multiple serve its sharded and
-    distributed runtimes, which are not ported yet.)
+    call per distinct depth with its rows stacked and pow2-padded; with a
+    ``codec`` the padded stack is encoded to the wire format and the cloud
+    gets the lossy decode. ``flush()`` is ``flush_async().resolve()``.
     """
 
-    def __init__(self, runtime: EdgeCloudRuntime, params, *, codec=None):
-        _no_codec(codec)
+    def __init__(self, runtime: EdgeCloudRuntime, params, *,
+                 codec: Optional[OffloadCodec] = None):
         self.runtime = runtime
         self.params = params
+        self.codec = codec
         self.rows: Dict[int, List[torch.Tensor]] = {}   # depth -> [(S, D)]
         self.slots: Dict[int, List[int]] = {}
 
@@ -102,15 +116,22 @@ class OffloadQueue:
         self.rows.setdefault(depth, []).extend(hidden_rows)
         self.slots.setdefault(depth, []).extend(slots)
 
+    def __len__(self):
+        return sum(len(v) for v in self.slots.values())
+
     def flush_async(self) -> PendingFlush:
         """Queue one `cloud_fn` call per queued depth; don't read back."""
         launches = []
         slot_bytes: Dict[int, int] = {}
         for d in sorted(self.rows):
             slots = self.slots[d]
-            hidden = _pad_rows(torch.stack(self.rows[d]),
-                               _pow2(len(slots)))
-            rb = hidden[0].numel() * hidden.element_size()
+            hidden = _pad_rows(torch.stack(self.rows[d]), _pow2(len(slots)))
+            if self.codec is not None:
+                enc = self.codec.encode(hidden)
+                hidden = self.codec.decode(enc)
+                rb = enc.row_bytes
+            else:
+                rb = hidden[0].numel() * hidden.element_size()
             conf_L, pred_L = self.runtime.cloud_fn(self.params, hidden, d)
             launches.append((list(slots), conf_L, pred_L))
             for s in slots:
@@ -118,6 +139,9 @@ class OffloadQueue:
         self.rows.clear()
         self.slots.clear()
         return PendingFlush(launches, slot_bytes)
+
+    def flush(self) -> Dict[int, tuple]:
+        return self.flush_async().resolve()
 
 
 def _edge_phase(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
@@ -159,37 +183,47 @@ def _edge_phase(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
 class _BatchedSession:
     """Incremental driver of the batched micro-batch schedule: one
     `push(batch)` runs select -> edge -> cloud flush -> delayed-feedback
-    fold; `result()` reports without ending the session."""
+    fold, so the one-shot `_serve_stream_batched` and the push-mode
+    `api.Engine` are the same machinery; `result()` reports without
+    ending the session."""
 
     def __init__(self, runtime: EdgeCloudRuntime, params, cost: CostModel,
                  *, batch_size: int = 32, side_info: bool = False,
                  beta: float = 1.0, labels_for_accounting: bool = True,
-                 edge_mode: str = "bucketed", codec=None):
-        if edge_mode != "bucketed":
-            raise NotImplementedError(
-                f"edge_mode={edge_mode!r}: not ported yet (only 'bucketed')")
-        _no_codec(codec)
+                 record_trace: bool = False, edge_mode: str = "bucketed",
+                 controller_kwargs: Optional[Dict[str, Any]] = None,
+                 codec: Optional[OffloadCodec] = None):
+        # lazy import: scan_edge imports OffloadQueue/_pad_rows from here
+        from repro_torch.serving.scan_edge import select_edge_phase
         self.runtime = runtime
         self.params = params
         self.cost = cost
         self.batch_size = batch_size
         self.side_info = side_info
+        self.edge_mode = edge_mode
+        self._edge_phase = select_edge_phase(edge_mode)
         self.labels_for_accounting = labels_for_accounting
-        self.ctl = SplitEEController(cost, beta=beta, side_info=side_info)
-        self.queue = OffloadQueue(runtime, params)
+        self.ctl = SplitEEController(cost, beta=beta, side_info=side_info,
+                                     **(controller_kwargs or {}))
+        self.codec = codec
+        self.queue = OffloadQueue(runtime, params, codec=codec)
         self.correct: List[int] = []
         self.preds: List[int] = []
+        self.trace: Optional[Dict[str, list]] = (
+            {"conf_path": [], "conf_L": []} if record_trace else None)
         self.n = 0
 
     def push(self, batch):
-        """Serve one micro-batch (any size >= 1); an empty push is a no-op."""
+        """Serve one micro-batch (any size >= 1); an empty push is a no-op
+        (a scheduler tick that formed nothing spends no bandit round)."""
         if not batch:
             return
         B = len(batch)
         arms = self.ctl.choose_splits(B)
         tokens = np.stack([np.asarray(s["tokens"]) for s in batch])
+        seq_len = tokens.shape[1]
 
-        conf_paths, batch_preds = _edge_phase(
+        conf_paths, batch_preds = self._edge_phase(
             self.runtime, self.params, tokens, arms, self.cost, self.queue,
             side_info=self.side_info)
 
@@ -202,9 +236,14 @@ class _BatchedSession:
             batch_preds[s] = p_L
             obs[s] = pending.slot_bytes[s]
 
-        self.ctl.update_batch(arms, conf_paths, conf_Ls, obs)
+        self.ctl.update_batch(
+            arms, conf_paths, conf_Ls, obs,
+            offload_scale=_offload_scale(self.codec, self.runtime, seq_len))
 
         self.preds.extend(batch_preds)
+        if self.trace is not None:
+            self.trace["conf_path"].extend(conf_paths)
+            self.trace["conf_L"].extend(conf_Ls)
         if self.labels_for_accounting:
             for s, sample in enumerate(batch):
                 if "labels" in sample:
@@ -231,6 +270,8 @@ class _BatchedSession:
         }
         if self.correct:
             out["accuracy"] = float(np.mean(self.correct))
+        if self.trace is not None:
+            out["trace"] = self.trace
         return out
 
 
@@ -239,13 +280,18 @@ def _serve_stream_batched(runtime: EdgeCloudRuntime, params, stream,
                           side_info: bool = False, beta: float = 1.0,
                           max_samples: int = 0,
                           labels_for_accounting: bool = True,
+                          record_trace: bool = False,
                           edge_mode: str = "bucketed",
-                          codec=None) -> Dict[str, Any]:
+                          controller_kwargs: Optional[Dict[str, Any]] = None,
+                          codec: Optional[OffloadCodec] = None,
+                          ) -> Dict[str, Any]:
     """Offline driver: replay a finite stream through a batched session."""
     sess = _BatchedSession(runtime, params, cost, batch_size=batch_size,
                            side_info=side_info, beta=beta,
                            labels_for_accounting=labels_for_accounting,
-                           edge_mode=edge_mode, codec=codec)
+                           record_trace=record_trace, edge_mode=edge_mode,
+                           controller_kwargs=controller_kwargs, codec=codec)
     for batch in microbatches(stream, batch_size, max_samples):
         sess.push(batch)
     return sess.result()
+

@@ -9,7 +9,8 @@ Two halves of the split, on one device:
 The offload payload between them is the (B, S, D) activation after the
 split layer; its byte size is metered per sample and is what the paper's
 `o` abstracts. ``edge_fn_s`` (SplitEE-S) also returns the confidences of
-every exit below the split. The layer loop is a Python loop over the
+every exit below the split; ``edge_scan_fn`` runs a whole micro-batch
+with a per-sample depth through the masked forward. The layer loop is a Python loop over the
 stacked layer parameters; attention (dense family), the WKV6 recurrence
 (ssm family) and the exit heads run the port's CUDA kernels on a CUDA
 device and their plain versions on the CPU.
@@ -17,7 +18,7 @@ device and their plain versions on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -30,13 +31,11 @@ from repro_torch.kernels.exit_confidence.ops import (exit_confidence,
                                                      exit_confidence_fused)
 from repro_torch.models.common import apply_norm
 from repro_torch.models.transformer import (_exit_w, _layer_full, _positions,
-                                            embed_inputs, layer_params,
+                                            embed_inputs,
+                                            forward_exits_masked,
+                                            grouped_exits, layer_params,
                                             pool_hidden)
-
-
-def _no_codec(codec) -> None:
-    if codec is not None:
-        raise NotImplementedError("offload codec: not ported yet")
+from repro_torch.serving.offload_codec import OffloadCodec
 
 
 @dataclasses.dataclass
@@ -55,14 +54,17 @@ class EdgeCloudRuntime:
 
     # ---------------------------------------------------------------- parts
 
-    def _embed(self, params, batch):
+    def _tokens(self, params, batch):
         emb = params["embed"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params on {emb.device}, runtime on "
                              f"{self.device}")
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 device=self.device)
-        x = embed_inputs(params, self.cfg, {"tokens": tokens})
+        return torch.as_tensor(np.asarray(batch["tokens"]),
+                               device=self.device)
+
+    def _embed(self, params, batch):
+        x = embed_inputs(params, self.cfg,
+                         {"tokens": self._tokens(params, batch)})
         return x, _positions(self.cfg, x.shape[0], x.shape[1],
                              device=self.device)
 
@@ -124,32 +126,21 @@ class EdgeCloudRuntime:
                 x = _layer_full(cfg, layer_params(params["layers"], i), x,
                                 pos, window=0)
             pooled.append(pool_hidden(cfg, x))
-        pooled = torch.stack(pooled)                         # (L, B, D)
-        l, bb, d = pooled.shape
-        norm_p = params["layers"]["exit_norm"]               # (L, D) entries
-        share = cfg.exits.share_head or not cfg.exits.enabled
-        if self.fused_exit:
-            if share:
-                rows_p = {k: v.repeat_interleave(bb, dim=0)
-                          for k, v in norm_p.items()}
-                conf, pred = exit_confidence_fused(
-                    pooled.reshape(l * bb, d), rows_p, params["exit_w"],
-                    kind=cfg.norm)
-            else:
-                conf, pred = exit_confidence_fused(
-                    pooled, dict(norm_p.items()), params["layers"]["exit_w"],
-                    kind=cfg.norm)
-        else:
-            normed = apply_norm(pooled,
-                                {k: v.unsqueeze(1) for k, v in norm_p.items()},
-                                cfg.norm)
-            if share:
-                conf, pred = exit_confidence(normed.reshape(l * bb, d),
-                                             params["exit_w"])
-            else:
-                conf, pred = exit_confidence(normed,
-                                             params["layers"]["exit_w"])
-        return conf.reshape(l, bb), pred.reshape(l, bb), x
+        conf, pred = grouped_exits(params, cfg, torch.stack(pooled),
+                                   fused=self.fused_exit)
+        return conf, pred, x
+
+    def edge_scan_fn(self, params, batch, depths):
+        """Masked edge pass over a whole micro-batch: ``depths`` (B,) holds
+        each sample's 0-indexed arm. Returns conf (L, B) f32 and pred (L,
+        B) i32 of every exit, and hidden (B, S, D) at each row's own
+        depth. The launch sequence depends only on the batch shape."""
+        tokens = self._tokens(params, batch)
+        out = forward_exits_masked(params, self.cfg, {"tokens": tokens},
+                                   torch.as_tensor(depths,
+                                                   device=self.device),
+                                   window=0, fused_exit=self.fused_exit)
+        return out["conf"], out["pred"], out["hidden"]
 
     def offload_bytes(self, batch_size: int, seq_len: int) -> int:
         return batch_size * seq_len * self.cfg.d_model \
@@ -160,12 +151,20 @@ def _serve_stream_sequential(runtime: EdgeCloudRuntime, params, stream,
                              cost: CostModel, *, side_info: bool = False,
                              beta: float = 1.0, max_samples: int = 0,
                              labels_for_accounting: bool = True,
-                             codec=None) -> Dict[str, Any]:
+                             controller_kwargs: Optional[Dict[str, Any]] = None,
+                             codec: Optional[OffloadCodec] = None,
+                             ) -> Dict[str, Any]:
     """Stream samples one by one through the online SplitEE controller and
     the edge/cloud runtime. Unsupervised: labels (if present) are used
-    only for reporting."""
-    _no_codec(codec)
-    ctl = SplitEEController(cost, beta=beta, side_info=side_info)
+    only for reporting.
+
+    With a ``codec`` the offload payload is encoded and decoded at the
+    edge->cloud handoff (the cloud sees the lossy reconstruction), and
+    both the byte accounting and the bandit's communication cost use the
+    wire bytes shipped."""
+    cfg = runtime.cfg
+    ctl = SplitEEController(cost, beta=beta, side_info=side_info,
+                            **(controller_kwargs or {}))
     correct, preds = [], []
     n = 0
     for sample in stream:
@@ -184,12 +183,24 @@ def _serve_stream_sequential(runtime: EdgeCloudRuntime, params, stream,
         will_exit = (conf_i >= cost.alpha) or (arm + 1 == cost.num_layers)
         conf_L = None
         ob = 0
+        # the scale applies to the communication term of EVERY arm's reward
+        # (counterfactual offloads ship through the same codec), so it
+        # depends only on the codec and the shape
+        scale = (1.0 if codec is None else
+                 codec.cost_ratio(tokens.shape[1], cfg.d_model,
+                                  torch_dtype(cfg.dtype).itemsize))
         if not will_exit:
-            ob = runtime.offload_bytes(1, tokens.shape[1])
+            if codec is None:
+                ob = runtime.offload_bytes(1, tokens.shape[1])
+            else:
+                enc = codec.encode(hidden)
+                hidden = codec.decode(enc)
+                ob = enc.row_bytes
             conf_L_v, pred_L = runtime.cloud_fn(params, hidden, arm)
             conf_L = float(conf_L_v[0])
             pred_i = int(pred_L[0])
-        ctl.update(arm, conf_path, conf_L, offload_bytes=ob)
+        ctl.update(arm, conf_path, conf_L, offload_bytes=ob,
+                   offload_scale=scale)
         preds.append(pred_i)
         if labels_for_accounting and "labels" in sample:
             correct.append(int(pred_i == int(sample["labels"])))
@@ -214,3 +225,4 @@ def _serve_stream_sequential(runtime: EdgeCloudRuntime, params, stream,
     if correct:
         out["accuracy"] = float(np.mean(correct))
     return out
+

@@ -76,6 +76,24 @@ def test_tensor_core_tiles_follow_the_row_count():
     assert tile_shape("cuda_core", 32)[:2] == (8, 256)
 
 
+@pytest.mark.parametrize("rows,tile", [
+    (1, "mma_sync"), (17, "mma_sync"), (32, "mma_sync"), (33, "wgmma"),
+    (544, "wgmma"), (1024, "wgmma")])
+def test_tensor_core_tile_counted_per_launch(rows, tile):
+    """The tile a tensor_core launch is counted under is the one its row
+    count takes (the mma.sync tile up to 32 rows a group, wgmma above;
+    M = 32 x 17 = 544 is the rwkv6 scan edge of a 17-row tail), and every
+    tile of both exit kernels has its counter."""
+    from repro_torch.kernels import tile_launch_counts
+    assert exit_kernel.tc_tile(rows) == tile
+    assert tile_shape("tensor_core", rows)[0] == (
+        exit_kernel.TC_SMALL_ROWS if tile == "mma_sync" else exit_kernel.TC_ROWS)
+    assert sorted(tile_launch_counts()) == sorted(
+        f"{k}/tensor_core/{t}" for k in ("exit_confidence",
+                                         "exit_confidence_fused")
+        for t in exit_kernel.TC_TILES)
+
+
 BF16, F32 = torch.bfloat16, torch.float32
 
 

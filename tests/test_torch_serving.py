@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config
 from repro.core import CostModel as JCostModel
@@ -31,8 +32,11 @@ from repro_torch.configs import get_smoke_config as t_get_smoke_config
 from repro_torch.core import CostModel, SplitEEController
 from repro_torch.data import OnlineStream as TStream
 from repro_torch.data import make_dataset as t_make_dataset
-from repro_torch.serving import (EdgeCloudRuntime, _serve_stream_batched,
-                                 _serve_stream_sequential)
+from repro_torch.models.transformer import init_params as t_init_params
+from repro_torch.serving import (EdgeCloudRuntime, ServingConfig,
+                                 _serve_stream_batched,
+                                 _serve_stream_sequential, serve)
+from repro_torch.serving.batched import OffloadQueue, _pow2
 
 N_SAMPLES = 37          # not a multiple of the batch size 8
 # the reference's attention runs its jnp oracle here (its Pallas kernel in
@@ -137,10 +141,48 @@ def test_offload_bytes_follow_activation_dtype():
 
 
 def test_unported_options_raise():
+    """The options that stay unported raise through `serve()` rather than
+    fall back: the sharded path, distributed serving, decode and an
+    explicit mesh. (The scan edge phase and the offload codec are ported:
+    tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py.)"""
     tcfg = t_get_smoke_config("elasticbert12")
     rt = EdgeCloudRuntime(tcfg, device="cpu")
     cost = CostModel(num_layers=tcfg.num_layers)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _serve_stream_batched(rt, None, [], cost, edge_mode="scan")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _serve_stream_sequential(rt, None, [], cost, codec=object())
+    for config, resources in (
+            (ServingConfig(batch_size=8, replicas=2), {}),
+            (ServingConfig(distributed=True), {}),
+            (ServingConfig(workload="decode", max_new_tokens=2), {}),
+            (ServingConfig(batch_size=8), {"mesh": object()})):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            serve(rt, None, [], cost, config, **resources)
+
+
+def test_offload_queue_padding_and_flush():
+    """`OffloadQueue.flush_async` pads each depth's rows to the next power
+    of two and makes one `cloud_fn` call per depth, in depth order;
+    `flush()` is ``flush_async().resolve()``; each slot's wire bytes are
+    its full-dtype row."""
+    tcfg = dataclasses.replace(t_get_smoke_config("elasticbert12"),
+                               dtype="float32")
+    params = t_init_params(tcfg, seed=0, device="cpu")
+    rt = EdgeCloudRuntime(tcfg, device="cpu")
+    shapes = []
+    cloud = rt.cloud_fn
+
+    def spy(p, hidden, depth):
+        shapes.append((int(depth), hidden.shape[0]))
+        return cloud(p, hidden, depth)
+
+    rt.cloud_fn = spy
+    rows = torch.randn((5, 8, tcfg.d_model))
+    q = OffloadQueue(rt, params)
+    assert [_pow2(k) for k in (1, 2, 3, 5, 8)] == [1, 2, 4, 8, 8]
+    q.add_rows(1, rows[:3], [0, 2, 4])
+    q.add_rows(0, rows[3:], [1, 3])
+    assert len(q) == 5
+    first = q.flush_async()
+    assert shapes == [(0, 2), (1, 4)] and len(q) == 0
+    assert first.slot_bytes == {s: 8 * tcfg.d_model * 4 for s in range(5)}
+    assert sorted(first.resolve()) == [0, 1, 2, 3, 4]
+    q.add_rows(1, rows[:2], [0, 1])
+    assert sorted(q.flush()) == [0, 1] and shapes[-1] == (1, 2)
