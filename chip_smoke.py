@@ -67,9 +67,33 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    a float64 CPU reading, WITNESS_FACTOR), the offload codec bitwise in
    every mode, and the served decisions of a small float32 model of each
    family (bucketed, scan, auto, int8);
-6. prints one JSON line of per-kernel numbers (``launches`` from the run
+6. trains full-width ElasticBERT-12 (12 layers, d 768, the synthetic
+   vocabulary of 512, 2 classes, float32) on the card: attention's
+   gradient (the kernel's forward and `attention_backward`) against
+   autograd of the plain version at the training shape (64, 12, 64, 64)
+   f32, at (32, 12, 64, 64) bf16 and causal GQA; `train_classifier` with
+   `launch/train.py:main`'s recipe (sst2_like, 8192 samples, batch 64,
+   200 steps, lr 3e-4), printing each logged loss, ms a step, tokens/s
+   and peak memory, and holding the loss falling and 12 x 200 attention
+   launches through `cuda_core`; training card vs CPU (2 layers of the
+   full width, the same initial parameters and 3 batches: losses,
+   step-0 gradients, parameters); then on the trained weights the
+   paper's pipeline: `exit_accuracy` (the last exit must beat the
+   majority rate; card conf within FULL_FORWARD_ATOL of the CPU's),
+   `calibrate_alpha` (card == CPU), `serve()` card f32 vs CPU f32 (the
+   same served confidences up to the first differing decision, which may
+   only be an exit flipped at alpha) and card bf16 vs card f32 (decisions
+   differing and their distance from alpha), and `run_many` (20 runs,
+   SplitEE and SplitEE-S) with regret and the final-exit baseline over
+   the trained model's imdb_like confidences and the imdb profile (25000
+   x 12), with its host seconds. The trained weights are saturated (no
+   confidence near alpha), so the same decision checks run again on the
+   recipe's first EARLY_STEPS steps, where at least MIN_NEAR_ALPHA served
+   confidences must lie within 1 % of alpha;
+7. prints one JSON line of per-kernel numbers (``launches`` from the run
    named in MAIN_PATH, ``launches_by_path``, ``launches_by_variant`` and,
-   for the exit kernels, ``launches_by_tile`` from every run), then the
+   for the exit kernels, ``launches_by_tile`` from every run; attention's
+   ``at_training`` entry the training shape), then the
    final line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the final
@@ -118,6 +142,33 @@ WITNESS_FACTOR = 2.0
 # WKV6 kernel vs plain version: both f32 outputs, the sums over dk and
 # the state over T are taken in different orders (rtol = atol)
 WKV6_TOL = 1e-4
+
+# attention's gradient, kernel forward + attention_backward against
+# autograd of the plain version: max |err| over max |plain| per tensor
+# (bf16: the two forwards round their outputs apart, and rowsum(dO∘O)
+# reads them)
+ATTN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# training card vs CPU (2 layers of the full width, float32, 3 steps):
+# losses (rtol), step-0 gradients (max |err| over max |CPU| per leaf), and
+# the parameters after 3 steps where the step-0 |grad| exceeds GRAD_FLOOR
+# (below it a gradient's sign may flip under rounding, and AdamW then
+# moves the element by ±lr)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+GRAD_FLOOR = 1e-6
+# launch/train.py:main's recipe
+TRAIN_SAMPLES = 8192
+TRAIN_BATCH = 64
+TRAIN_STEPS = 200
+# run_many's independent reshuffles (the paper's protocol)
+BANDIT_RUNS = 20
+# the early checkpoint whose served decisions are compared card vs CPU
+# and bf16 vs f32 (the trained weights are saturated: no confidence near
+# alpha), and how many of its served confidences must lie within 1 % of
+# alpha for those comparisons to be able to fail
+EARLY_STEPS = 30
+MIN_NEAR_ALPHA = 5
 
 SERVE_SAMPLES = 512
 SERVE_BATCH = 32
@@ -1262,24 +1313,35 @@ def front_end_phase(torch, dev, runs: Runs, params, cfg, data, cost,
     decision_difference(prefix, b_traced, traced[0], cost.alpha)
 
 
-def decision_difference(prefix, a, b, alpha):
-    """How many served decisions (arm or exit) differ between bucketed
-    ``a`` and scan ``b`` (both with a confidence trace), and the first
-    differing sample's confidence at its arm relative to alpha."""
+def decision_difference(prefix, a, b, alpha, names=("bucketed", "scan")):
+    """How many served decisions (arm or exit) differ between run ``a``
+    and run ``b`` (both with a confidence trace; ``names`` name them), the
+    first differing sample's confidence at its arm relative to alpha, and
+    how far from alpha the confidences of the samples whose exit flipped
+    at an unchanged arm lie. Returns the index of the first differing
+    sample, or None."""
     import numpy as np
-    diff = np.nonzero((np.asarray(a["arms"]) != np.asarray(b["arms"]))
+    arms_a, arms_b = np.asarray(a["arms"]), np.asarray(b["arms"])
+    diff = np.nonzero((arms_a != arms_b)
                       | (np.asarray(a["exited"]) != np.asarray(b["exited"])))[0]
-    msg = f"  {prefix}decisions differing scan vs bucketed: {len(diff)} of " \
-          f"{a['n']}"
+    msg = f"  {prefix}decisions differing {names[1]} vs {names[0]}: " \
+          f"{len(diff)} of {a['n']}"
+
+    def rel(run, s):
+        return (float(run["trace"]["conf_path"][s][-1]) - alpha) / alpha
+
     if len(diff):
         s = int(diff[0])
-        ca = float(a["trace"]["conf_path"][s][-1])
-        cb = float(b["trace"]["conf_path"][s][-1])
-        msg += (f"; first at sample {s} (arms {int(a['arms'][s])} / "
-                f"{int(b['arms'][s])}): conf (conf - alpha) / alpha "
-                f"{(ca - alpha) / alpha:+.3%} bucketed, "
-                f"{(cb - alpha) / alpha:+.3%} scan")
+        msg += (f"; first at sample {s} (arms {int(arms_a[s])} / "
+                f"{int(arms_b[s])}): conf (conf - alpha) / alpha "
+                f"{rel(a, s):+.3%} {names[0]}, {rel(b, s):+.3%} {names[1]}")
+        flips = [int(s) for s in diff if arms_a[s] == arms_b[s]]
+        if flips:
+            far = max(max(abs(rel(a, s)), abs(rel(b, s))) for s in flips)
+            msg += (f"; {len(flips)} exits flipped at an unchanged arm, "
+                    f"|conf - alpha| / alpha at most {far:.3%}")
     print(msg)
+    return int(diff[0]) if len(diff) else None
 
 
 def agreement_phase(torch, dev, params, cfg, data):
@@ -1593,6 +1655,459 @@ def small_serve_agreement(torch, dev, arch: str, data):
           f"{conf[k + 1] - conf[k]:.2e}): decisions identical")
 
 
+# ------------------------------------------------------------- train phase
+
+def attention_grad_checks(torch, dev):
+    """Attention's gradient on the card: `FlashAttention` (the kernel's
+    forward, `attention_backward`) against autograd through the plain
+    version, dq, dk and dv at ATTN_GRAD_RTOL (max |err| over max |plain|,
+    per tensor); each forward one launch through its variant. Returns the
+    training shape's record (kernel forward, plain, SDPA, bound) with the
+    time of `attention_backward` per call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
+    from repro_torch.kernels.flash_attention.ref import gqa_ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = [
+        # name, variant, b, hq, hkv, s, d, causal, dtype
+        ("train_f32", "cuda_core", TRAIN_BATCH, 12, 12, 64, 64, False,
+         "float32"),
+        ("bf16", "tensor_core", 32, 12, 12, 64, 64, False, "bfloat16"),
+        ("gqa_causal_f32", "cuda_core", 2, 8, 2, 130, 64, True, "float32"),
+        ("gqa_causal_d128_bf16", "tensor_core", 2, 8, 2, 130, 128, True,
+         "bfloat16"),
+    ]
+    saved = {}
+    for name, variant, b, hq, hkv, s, d, causal, dt in cases:
+        dtype = getattr(torch, dt)
+        mk = lambda h: torch.randn((b, h, s, d), generator=gen,  # noqa: E731
+                                   device=dev).to(dtype)
+        q, k, v = mk(hq), mk(hkv), mk(hkv)
+        dout = mk(hq)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = via("flash_attention", variant,
+                  lambda: attention(*leaves, causal=causal))
+        if out.grad_fn is None:
+            fail(f"attention[{name}]: no autograd graph through the kernel")
+        got = torch.autograd.grad(out, leaves, dout)
+        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want_out = gqa_ref(*plain, causal=causal)
+        want = torch.autograd.grad(want_out, plain, dout)
+        torch.cuda.synchronize()
+        check_close(f"attention[{name}] forward", out.detach(),
+                    want_out.detach(), dt)
+        errs = []
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel = ((g.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item()
+            if not (rel <= ATTN_GRAD_RTOL[dt] and torch.isfinite(g).all()):
+                fail(f"attention[{name}] {what}: kernel + attention_backward "
+                     f"vs autograd of the plain version, max relative err "
+                     f"{rel:.3e} > {ATTN_GRAD_RTOL[dt]}")
+            errs.append(rel)
+        print(f"  attention gradient [{name}] ({variant}, ({b},{hq}/{hkv},"
+              f"{s},{d}) {dt}{', causal' if causal else ''}): dq/dk/dv max "
+              f"relative err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+              f"{ATTN_GRAD_RTOL[dt]})")
+        saved[name] = (q, k, v, dout, out.detach(), max(errs))
+
+    q, k, v, dout, out, err = saved["train_f32"]
+    b, h, s, d = q.shape
+    rec = record(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:80",
+        f"q/k/v ({b},{h},{s},{d}) float32, bidirectional (training)", err,
+        lambda: via("flash_attention", "cuda_core",
+                    lambda: attention(q, k, v, causal=False)),
+        lambda: gqa_ref(q, k, v, causal=False),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "float32",
+        variant="cuda_core")
+    rec["backward_ms"] = graph_ms(lambda: attention_backward(
+        q, k, v, out, dout, causal=False, window=0, scale=d ** -0.5))
+    return rec
+
+
+def train_config():
+    """`launch/train.py:main`'s configuration: full-width ElasticBERT-12 with
+    the synthetic vocabulary and sst2_like's classes, in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DOMAINS, VOCAB
+    return dataclasses.replace(get_config("elasticbert12"), vocab_size=VOCAB,
+                               num_classes=DOMAINS["sst2_like"].num_classes,
+                               dtype="float32")
+
+
+def training_run(torch, dev, runs: Runs, cfg, data):
+    """`train_classifier` with `launch/train.py:main`'s recipe, counted as
+    its own run. Returns the trained params, the model and the log."""
+    import math
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_launch_counts)
+    from repro_torch.launch.train import train_classifier
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, model, log = train_classifier(cfg, data, steps=TRAIN_STEPS,
+                                          batch_size=TRAIN_BATCH, lr=3e-4,
+                                          remat=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = launch_counts(), variant_launch_counts()
+    name = f"train elasticbert12 {TRAIN_STEPS} steps"
+    runs.counts[name] = counts
+    runs.variants[name] = {k: n for k, n in variants.items() if n}
+    runs.tiles[name] = {}
+    for row in log:
+        print(f"    step {row['step']:4d} loss {row['loss']:.6f} "
+              f"t {row['time']:.3f}s")
+    first, last = log[0], log[-1]
+    ms_step = (last["time"] - first["time"]) / (last["step"] - first["step"]) \
+        * 1e3
+    tokens = TRAIN_BATCH * data["tokens"].shape[1]
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  {name}: {wall:.3f} s wall; {ms_step:.3f} ms a step (steps "
+          f"{first['step'] + 1}..{last['step']}, synchronised at each logged "
+          f"loss) = {tokens / ms_step * 1e3:.0f} tokens/s; peak device memory "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated); launches {counts}, by "
+          f"variant {runs.variants[name]}")
+    if not all(math.isfinite(row["loss"]) for row in log):
+        fail(f"{name}: non-finite loss in {log}")
+    if not last["loss"] < first["loss"]:
+        fail(f"{name}: loss did not fall ({first['loss']} -> {last['loss']})")
+    want = cfg.num_layers * TRAIN_STEPS
+    if counts["flash_attention"] != want or \
+            variants["flash_attention/cuda_core"] != want:
+        fail(f"{name}: attention launches {counts['flash_attention']} (by "
+             f"variant {variants}), want {want} through cuda_core")
+    if any(n for k, n in counts.items() if k != "flash_attention"):
+        fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
+    return params, model, {"launches": counts["flash_attention"],
+                           "ms_per_step": ms_step,
+                           "tokens_per_s": tokens / ms_step * 1e3,
+                           "peak_bytes": peak, "wall_s": wall}
+
+
+def train_agreement(torch, dev, cfg, data):
+    """Training on the card against the CPU: full width cut to 2 layers,
+    the same initial parameters (copied card -> CPU) and the same 3
+    batches through `make_train_step`. Losses at TRAIN_LOSS_RTOL, step-0
+    gradients at TRAIN_GRAD_RTOL (max |err| over max |CPU| per leaf), and
+    after 3 steps the parameters whose step-0 |grad| > GRAD_FLOOR within
+    TRAIN_PARAM_ATOL."""
+    import itertools
+    from repro_torch.data import batch_iterator
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import ParamTree, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, num_layers=2)
+    p_gpu = init_params(cut, seed=7, device=dev)
+    p_cpu = ParamTree(_tree_to(p_gpu, "cpu"))
+    model = build_model(cut)
+    trees, states = (p_gpu, p_cpu), (adamw_init(p_gpu), adamw_init(p_cpu))
+    for p in trees:
+        p.requires_grad_(True)
+    step = make_train_step(model, AdamWConfig(lr=3e-4), total_steps=TRAIN_STEPS,
+                           remat=False)
+    batches = list(itertools.islice(
+        batch_iterator(data, TRAIN_BATCH, seed=0, epochs=1), 3))
+    grad0 = None
+    for i, b in enumerate(batches):
+        losses = []
+        for p, st, d in zip(trees, states, (dev, "cpu")):
+            _, _, info = step(p, st, {k: torch.as_tensor(v, device=d)
+                                      for k, v in b.items()})
+            losses.append(float(info["loss"]))
+        if abs(losses[0] - losses[1]) > TRAIN_LOSS_RTOL * abs(losses[1]):
+            fail(f"training card vs CPU, step {i}: loss {losses[0]!r} vs "
+                 f"{losses[1]!r} (rtol {TRAIN_LOSS_RTOL})")
+        print(f"    step {i}: loss card {losses[0]:.7f}, CPU {losses[1]:.7f}")
+        if i == 0:
+            grad0, worst = {}, 0.0
+            for (name, a), (_, c) in zip(p_gpu.named_parameters(),
+                                         p_cpu.named_parameters()):
+                ga, gc = a.grad.cpu(), c.grad
+                rel = ((ga - gc).abs().max() / gc.abs().max()).item()
+                if not rel <= TRAIN_GRAD_RTOL:
+                    fail(f"training card vs CPU, step-0 gradient of {name}: "
+                         f"max relative err {rel:.3e} > {TRAIN_GRAD_RTOL}")
+                worst = max(worst, rel)
+                grad0[name] = gc.abs()
+            print(f"    step-0 gradients of {len(grad0)} leaves: max relative "
+                  f"err {worst:.3e} (tol {TRAIN_GRAD_RTOL})")
+    held = flipped = total = 0
+    worst = 0.0
+    for (name, a), (_, c) in zip(p_gpu.named_parameters(),
+                                 p_cpu.named_parameters()):
+        diff = (a.detach().cpu() - c.detach()).abs()
+        big = grad0[name] > GRAD_FLOOR
+        if big.any():
+            worst = max(worst, diff[big].max().item())
+        held += int(big.sum())
+        flipped += int((diff[~big] > TRAIN_PARAM_ATOL).sum())
+        total += diff.numel()
+    if not worst <= TRAIN_PARAM_ATOL:
+        fail(f"training card vs CPU: after 3 steps a parameter with step-0 "
+             f"|grad| > {GRAD_FLOOR} differs by {worst:.3e} > "
+             f"{TRAIN_PARAM_ATOL}")
+    print(f"  card vs CPU, elasticbert12 full width cut to 2 layers, 3 "
+          f"steps: parameters after 3 steps max|err| {worst:.3e} over the "
+          f"{held} of {total} elements with step-0 |grad| > {GRAD_FLOOR} "
+          f"(tol {TRAIN_PARAM_ATOL}); {flipped} elements with smaller "
+          f"gradients differ by more (a near-zero gradient's sign, moved "
+          f"by ±lr) [{time.perf_counter() - t0:.1f} s wall]")
+
+
+def decisions_phase(torch, dev, cfg, params, model, label, *,
+                    min_near: int = 0):
+    """The paper's pipeline up to the served decisions, on one set of
+    weights: per-exit accuracy (card conf held to the CPU's at
+    FULL_FORWARD_ATOL), calibrate_alpha (card conf == CPU conf's alpha),
+    serve() card f32 vs CPU f32 and card bf16 vs card f32. Card f32 and
+    CPU f32 serve the same confidences to FULL_FORWARD_ATOL up to their
+    first differing decision, and that one may only be an exit flipped at
+    an unchanged arm by a confidence within FULL_FORWARD_ATOL of alpha.
+    At least ``min_near`` served confidences must lie within 1 % of alpha,
+    so that a wrong exit path would move decisions. Returns (cost with
+    alpha, accuracy by exit, majority rate)."""
+    import numpy as np
+    from repro_torch.core import CostModel, calibrate_alpha
+    from repro_torch.data import OnlineStream, make_dataset
+    from repro_torch.launch.train import exit_accuracy
+    from repro_torch.models.transformer import ParamTree
+    from repro_torch.serving import EdgeCloudRuntime, ServingConfig, serve
+
+    val = make_dataset("sst2_like", 1024, seed=2)        # as build_testbed
+    conf_g, _, corr_g = exit_accuracy(model, params, val)
+    p_cpu = ParamTree(_tree_to(params, "cpu"))
+    conf_c, _, corr_c = exit_accuracy(model, p_cpu, val)
+    acc = corr_g.mean(0)
+    majority = max(np.mean(val["labels"] == c) for c in range(cfg.num_classes))
+    err = float(np.abs(conf_g - conf_c).max())
+    print(f"  {label}: exit_accuracy, 1024 sst2_like validation samples "
+          "(seed 2), card:\n    accuracy by exit " + " ".join(
+              f"{a:.4f}" for a in acc)
+          + "\n    mean conf by exit " + " ".join(
+              f"{c:.4f}" for c in conf_g.mean(0))
+          + f"\n    majority-class rate {majority:.4f}; card vs CPU conf "
+          f"max|err| {err:.3e} (tol {FULL_FORWARD_ATOL}), correct differing "
+          f"{int((corr_g != corr_c).sum())}")
+    if not err <= FULL_FORWARD_ATOL:
+        fail(f"{label}: exit_accuracy conf card vs CPU max|err| {err:.3e} > "
+             f"{FULL_FORWARD_ATOL}")
+    base = CostModel(num_layers=cfg.num_layers)
+    alpha_g = calibrate_alpha(conf_g, base, corr_g)
+    alpha_c = calibrate_alpha(conf_c, base, corr_c)
+    print(f"  {label}: calibrate_alpha (offload {base.offload}, labels): "
+          f"card conf {alpha_g!r}, CPU conf {alpha_c!r}")
+    if alpha_g != alpha_c:
+        fail(f"{label}: calibrate_alpha differs card {alpha_g} vs CPU "
+             f"{alpha_c}")
+    cost = dataclasses.replace(base, alpha=alpha_g)
+
+    data = make_dataset("imdb_like", SERVE_SAMPLES, seed=1)
+    config = ServingConfig(batch_size=SERVE_BATCH, record_trace=True)
+    p_bf16 = ParamTree(_tree_to(params, dev, torch.bfloat16))
+    cfg_bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    reps = {}
+    for name, c, p, d in (("card f32", cfg, params, dev),
+                          ("CPU f32", cfg, p_cpu, "cpu"),
+                          ("card bf16", cfg_bf16, p_bf16, dev)):
+        t1 = time.perf_counter()
+        rep = reps[name] = serve(EdgeCloudRuntime(c, device=d), p,
+                                 OnlineStream(data, seed=0), cost, config)
+        print(f"  {label}: serve() {name}, B={SERVE_BATCH}: {rep['n']} "
+              f"samples, exits {int(np.sum(rep['exited']))}, cost "
+              f"{rep['cost_total']:.3f}, arms "
+              f"{arm_histogram(rep['arms'], cfg.num_layers)} "
+              f"[{time.perf_counter() - t1:.1f} s wall]")
+    del p_bf16
+
+    def served(name):
+        return np.array([c[-1] for c in reps[name]["trace"]["conf_path"]])
+
+    conf_f, conf_c = served("card f32"), served("CPU f32")
+    # at alpha = 1 / classes every confidence exits: none can flip
+    near = int(np.sum(np.abs(conf_f - cost.alpha) < 0.01 * cost.alpha)) \
+        if cost.alpha > 1 / cfg.num_classes else 0
+    print(f"  {label}: card f32 served confidences at the arm, quantiles "
+          "0/10/50/90/100 %: " + " ".join(
+              f"{q:.6f}" for q in np.quantile(conf_f, [0, .1, .5, .9, 1]))
+          + f"; {near} of {len(conf_f)} within 1 % of alpha {cost.alpha}")
+    if near < min_near:
+        fail(f"{label}: {near} served confidences within 1 % of alpha, want "
+             f">= {min_near} (else no decision can move)")
+    for a, b in (("card f32", "CPU f32"), ("card bf16", "card f32")):
+        same = all(np.array_equal(reps[a][k], reps[b][k])
+                   for k in ("arms", "exited", "preds"))
+        preds = int(np.sum(np.asarray(reps[a]["preds"])
+                           != np.asarray(reps[b]["preds"])))
+        print(f"  {label}: {a} vs {b}: arms, exits and preds "
+              f"{'identical' if same else 'differ'}; preds differing {preds}")
+        first = decision_difference(f"{label}: ", reps[b], reps[a],
+                                    cost.alpha, (b, a))
+        if b != "CPU f32":
+            continue
+        upto = len(conf_f) if first is None else first
+        gap = float(np.abs(conf_f[:upto] - conf_c[:upto]).max(initial=0.0))
+        print(f"  {label}: served confidences card f32 vs CPU f32 up to the "
+              f"first differing decision: max|err| {gap:.3e} (tol "
+              f"{FULL_FORWARD_ATOL})")
+        if not gap <= FULL_FORWARD_ATOL:
+            fail(f"{label}: served conf card vs CPU max|err| {gap:.3e} > "
+                 f"{FULL_FORWARD_ATOL}")
+        if first is None:
+            continue
+        far = max(abs(conf_f[first] - cost.alpha),
+                  abs(conf_c[first] - cost.alpha))
+        if reps[a]["arms"][first] != reps[b]["arms"][first] \
+                or not far <= FULL_FORWARD_ATOL:
+            fail(f"{label}: card f32 vs CPU f32 first differ at sample "
+                 f"{first} (arms {reps[a]['arms'][first]} / "
+                 f"{reps[b]['arms'][first]}, confidence {far:.3e} from "
+                 f"alpha), not an exit flipped within {FULL_FORWARD_ATOL} "
+                 f"of alpha")
+    return cost, acc, majority
+
+
+def bandit_phase(cfg, params, model, cost):
+    """run_many with regret and the final-exit baseline over the trained
+    model's imdb_like conf and the imdb profile."""
+    import numpy as np
+    from repro_torch.core import (CostModel, calibrate_alpha,
+                                  cumulative_regret, final_exit, run_many)
+    from repro_torch.data import (PROFILE_DATASETS, make_dataset,
+                                  simulate_exit_profiles)
+    from repro_torch.launch.train import exit_accuracy
+
+    t0 = time.perf_counter()
+    evald = make_dataset("imdb_like", 4096, seed=1)      # build_testbed's eval
+    conf_e, _, corr_e = exit_accuracy(model, params, evald)
+    prof = simulate_exit_profiles(PROFILE_DATASETS["imdb"], seed=0)
+    n_val = min(4096, len(prof["conf"]) // 10)            # as benchmarks/common
+    p_cost = CostModel(num_layers=12, offload=5.0)
+    p_cost = dataclasses.replace(p_cost, alpha=calibrate_alpha(
+        prof["conf"][:n_val], p_cost, prof["correct"][:n_val]))
+    for label, conf, corr, c in (
+            ("trained elasticbert12, 4096 imdb_like", conf_e, corr_e, cost),
+            ("imdb profile (25000 x 12)", prof["conf"], prof["correct"],
+             p_cost)):
+        final_acc, final_cost = (x.sum() for x in final_exit(conf, corr, c))
+        for side_info in (False, True):
+            t1 = time.perf_counter()
+            out = run_many(conf, np.random.default_rng(0), cost=c,
+                           side_info=side_info, num_runs=BANDIT_RUNS)
+            host_s = time.perf_counter() - t1
+            perm, arms = out["perm"], out["arm"]
+            corr_p = corr[perm]                             # (R, N, L)
+            acc_r = np.where(out["exited"], np.take_along_axis(
+                corr_p, arms[..., None], 2)[..., 0], corr_p[..., -1]).mean(1)
+            regret = np.mean([cumulative_regret(
+                conf[perm[r]], arms[r], c, side_info=side_info)[-1]
+                for r in range(BANDIT_RUNS)])
+            cost_r = out["cost"].sum(1).mean()
+            n = len(conf)
+            print(f"  run_many {label}, alpha {c.alpha:.4g}, "
+                  f"{'SplitEE-S' if side_info else 'SplitEE'}, "
+                  f"{BANDIT_RUNS} runs: final cumulative regret "
+                  f"{regret:.3f}; cost {cost_r:.1f} vs final exit "
+                  f"{final_cost:.1f} ({1 - cost_r / final_cost:.2%} cut); "
+                  f"accuracy {acc_r.mean():.4f} vs final exit "
+                  f"{final_acc / n:.4f} (drop {final_acc / n - acc_r.mean():+.4f}"
+                  f"); {host_s:.3f} s on the chip machine's CPU (host, not "
+                  f"device time)")
+            if not np.isfinite(out["reward"]).all():
+                fail(f"run_many {label}: non-finite rewards")
+    print(f"  [run_many and regret: {time.perf_counter() - t0:.1f} s wall]")
+
+
+def training_profile(torch, dev, cfg, data, params):
+    """Where a training step's time goes: 5 more steps of the trained
+    model on one batch, their wall time and, over 5 more, the device time
+    by kernel (torch.profiler). Returns (busy ms, wall ms) a step."""
+    from repro_torch.data import batch_iterator
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig
+
+    params.requires_grad_(True)
+    state = adamw_init(params)
+    step = make_train_step(build_model(cfg), AdamWConfig(lr=3e-4),
+                           total_steps=TRAIN_STEPS, remat=False)
+    b = next(batch_iterator(data, TRAIN_BATCH, seed=1))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    busy, per_kernel = device_ms(lambda: step(params, state, batch), iters=5,
+                                 warmup=0)
+    print_busy("train step (elasticbert12 f32, batch 64 x 64)", busy, wall,
+               per_kernel)
+    params.zero_grad(set_to_none=True)
+    params.requires_grad_(False)
+    return busy, wall
+
+
+def train_phase(torch, dev, runs: Runs):
+    """Full-width ElasticBERT-12 trained on the card, then the paper's
+    pipeline on its weights and the served decisions on an early
+    checkpoint of the same recipe. Returns the attention record at the training
+    shape, with the run's launches and timings."""
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.train import train_classifier
+
+    rec = attention_grad_checks(torch, dev)
+    cfg = train_config()
+    data = make_dataset("sst2_like", TRAIN_SAMPLES, seed=0)
+    params, model, stats = training_run(torch, dev, runs, cfg, data)
+    train_agreement(torch, dev, cfg, data)
+    t0 = time.perf_counter()
+    label = f"trained ({TRAIN_STEPS} steps)"
+    cost, acc, majority = decisions_phase(torch, dev, cfg, params, model,
+                                          label)
+    if not acc[-1] > majority:
+        fail(f"{label}: last exit accuracy {acc[-1]:.4f} does not beat the "
+             f"majority rate {majority:.4f}")
+    bandit_phase(cfg, params, model, cost)
+    # the first EARLY_STEPS steps of the same recipe (the schedule is still
+    # in its warmup, so they are the 200-step run's): weights that are not
+    # saturated, where served confidences lie near alpha
+    early, _, log = train_classifier(cfg, data, steps=EARLY_STEPS,
+                                     batch_size=TRAIN_BATCH, lr=3e-4,
+                                     remat=False, device=dev)
+    print(f"  early checkpoint: {EARLY_STEPS} steps, losses " + ", ".join(
+        f"step {row['step']} {row['loss']:.6f}" for row in log))
+    decisions_phase(torch, dev, cfg, early, model,
+                    f"early ({EARLY_STEPS} steps)", min_near=MIN_NEAR_ALPHA)
+    del early
+    print(f"  [pipeline on the trained and early weights: "
+          f"{time.perf_counter() - t0:.1f} s wall]")
+    stats["step_busy_ms"], stats["step_wall_ms"] = training_profile(
+        torch, dev, cfg, data, params)
+    rec.update(stats)
+    print(f"  flash_attention at {rec['shape']} (cuda_core): device ms per "
+          f"call (CUDA graph): kernel {rec['ms']:.5f}, plain "
+          f"{rec['plain_ms']:.5f}, SDPA {rec['library_ms']:.5f}, bound "
+          f"{rec['bound_ms']:.6f} ({rec['bound_by']}); attention_backward "
+          f"{rec['backward_ms']:.5f}; {rec['launches']} launches in the "
+          f"training run")
+    return rec
+
+
 def _first_rows(tree, n: int):
     """The first ``n`` rows of every leaf: the first n layers of a
     stacked-layer tree."""
@@ -1689,6 +2204,9 @@ def main() -> int:
     with phase("agreement: offload codec, card vs CPU"):
         codec_agreement(torch, dev)
 
+    with phase("train: elasticbert12 (full width) on the card"):
+        rec_attn["at_training"] = train_phase(torch, dev, runs)
+
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6):
         path = MAIN_PATH[rec["name"]]
@@ -1714,7 +2232,8 @@ def main() -> int:
               f"library {'none' if lib is None else f'{lib:.5f}'}, bound "
               f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
               f"launches in the {path} run")
-        for at in filter(None, (rec.get("at_grouped"), rec.get("at_lm_head"),
+        for at in filter(None, (rec.get("at_training"),
+                                rec.get("at_grouped"), rec.get("at_lm_head"),
                                 rec.get("at_splitee_s"),
                                 rec.get("at_scan_tail"), rec.get("at_b4"))):
             lib = at["library_ms"]

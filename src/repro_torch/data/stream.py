@@ -39,3 +39,18 @@ def microbatches(stream, batch_size: int, max_samples: int = 0):
             break
     if buf:
         yield buf
+
+
+def batch_iterator(data, batch_size: int, seed: int = 0, *,
+                   drop_remainder: bool = True, epochs: int = 1):
+    """Shuffled mini-batches of ``data`` (a dict of equal-length arrays),
+    a fresh permutation every epoch, the same batches as the reference's
+    ``batch_iterator`` for the same seed."""
+    n = len(data["labels"])
+    rng = np.random.default_rng(seed)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        stop = n - n % batch_size if drop_remainder else n
+        for s in range(0, stop, batch_size):
+            idx = order[s:s + batch_size]
+            yield {k: v[idx] for k, v in data.items()}

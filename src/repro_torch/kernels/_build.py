@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "torch_kernels"
 INCLUDE_DIR = Path(__file__).resolve().parent / "include"
@@ -133,6 +135,27 @@ def rows_aligned(*tensors) -> bool:
         (st * t.element_size()) % 16 == 0
         for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
         for t in tensors)
+
+
+def grad_wanted(*tensors) -> bool:
+    """Autograd would record a call on these tensors: grad mode is on and
+    one of them (None entries skipped) requires a gradient. A pure
+    function of the tensors and the grad mode."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a gradient is wanted through a kernel that has no
+    backward: its wrapper fills ``torch.empty`` outputs through ctypes,
+    which autograd cannot see, so it would return a tensor silently cut
+    from the graph. Called first in such a wrapper, before any device
+    check."""
+    if grad_wanted(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and a gradient is "
+            f"wanted (grad mode on, an input requires grad); run it under "
+            f"torch.no_grad() or detach the inputs")
 
 
 def check(status: int, what: str) -> None:

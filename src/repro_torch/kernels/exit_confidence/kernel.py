@@ -16,7 +16,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels._build import (check, count_launch, load,
-                                        register_kernel, rows_aligned)
+                                        refuse_grad, register_kernel,
+                                        rows_aligned)
 
 NAME = "exit_confidence"
 NAME_FUSED = "exit_confidence_fused"
@@ -168,7 +169,9 @@ def _ptr(t):
 
 def exit_confidence_cuda(h, w, hbias=None):
     """conf (…, B) f32 and pred (…, B) i32 of ``h @ w`` (+ ``hbias`` (…,
-    V)), one call of one variant."""
+    V)), one call of one variant. Raises when a gradient is wanted: the
+    kernel has no backward (`_build.refuse_grad`)."""
+    refuse_grad(NAME, h, w, hbias)
     squeeze = h.ndim == 2
     h3, w3 = _grouped(h, w)
     g, b, d = h3.shape
@@ -206,7 +209,9 @@ def exit_confidence_fused_cuda(x, gamma, nbias, w, hbias, *, kind: str):
     """Fused exit epilogue on RAW pooled rows ``x``: norm (``kind``,
     ``gamma``/``nbias`` shared or per row; ``nbias`` None = 0), cast to
     the activation dtype, ``@ w`` (+ ``hbias`` (…, V) or None), online
-    softmax. One call of one variant."""
+    softmax. One call of one variant. Raises when a gradient is wanted:
+    the kernel has no backward (`_build.refuse_grad`)."""
+    refuse_grad(NAME_FUSED, x, gamma, nbias, w, hbias)
     squeeze = x.ndim == 2
     x3, w3 = _grouped(x, w)
     g, b, d = x3.shape

@@ -13,7 +13,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import (check, count_launch, load,
-                                        register_kernel, rows_aligned)
+                                        refuse_grad, register_kernel,
+                                        rows_aligned)
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
@@ -50,7 +51,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) CUDA tensors of one dtype
     (float32 or bfloat16), head_dim contiguous, any other strides.
     Returns (B, Hq, Sq, d) whose memory is laid out (B, Sq, Hq, d), so the
-    caller's merge of heads back into the model width is a view."""
+    caller's merge of heads back into the model width is a view.
+
+    The forward alone: under grad it raises (`_build.refuse_grad`); a
+    gradient goes through `ops.FlashAttention`, which calls this with
+    grad mode off and saves what `ops.attention_backward` reads."""
+    refuse_grad(NAME, q, k, v)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if not (q.device == k.device == v.device):

@@ -8,6 +8,19 @@ from __future__ import annotations
 import torch
 
 
+def attention_mask(sq: int, skv: int, causal: bool, window: int, device):
+    """(Sq, Skv) bool, True where a query may attend a key; the Sq queries
+    are the last Sq positions of the Skv timeline."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def mha_ref(q, k, v, *, causal: bool = True, window: int = 0,
             scale: float | None = None):
     """q: (B, H, Sq, d); k, v: (B, H, Skv, d). Sq positions are the LAST
@@ -17,13 +30,7 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if scale is None:
         scale = d ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    k_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window:
-        mask &= k_pos > q_pos - window
+    mask = attention_mask(sq, skv, causal, window, q.device)
     logits = logits.masked_fill(~mask, -1e30)
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)

@@ -14,7 +14,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import (check, count_launch, load,
-                                        register_kernel, rows_aligned)
+                                        refuse_grad, register_kernel,
+                                        rows_aligned)
 
 NAME = "wkv6"
 SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
@@ -70,8 +71,10 @@ def wkv6_cuda(r, k, v, w, u):
     Returns (y (B, H, T, dv) f32 whose memory is laid out (B, T, H, dv),
     so the caller's merge of heads back into the model width is a view;
     final state (B, H, dk, dv) f32), from a zero state. One launch of the
-    variant `wkv6_variant` picks."""
+    variant `wkv6_variant` picks. Raises when a gradient is wanted: the
+    kernel has no backward (`_build.refuse_grad`)."""
     tensors = (r, k, v, w, u)
+    refuse_grad(NAME, *tensors)
     if not all(t.is_cuda and t.device == r.device for t in tensors):
         raise ValueError("wkv6_cuda needs r, k, v, w, u on one CUDA device")
     if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype or v.dtype != r.dtype:

@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, init helpers.
+"""Shared building blocks: norms, RoPE, init helpers, cross-entropy.
 
 Numerics follow the reference twin: norms reduce in float32 with eps 1e-6
 and the population variance, and cast back to the input dtype; RoPE is
@@ -78,3 +78,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ losses
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE in float32. logits (..., C); labels (...) int; ``valid``
+    (...) an optional 0/1 weight per position: the mean is then over the
+    valid positions (at least 1).
+
+    The label logit is gathered; the reference contracts with a one-hot
+    to keep a vocabulary-sharded layout, which gives the same value (the
+    other terms are exact zeros) on one device."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    loss = lse - ll
+    if valid is not None:
+        valid = valid.float()
+        return torch.sum(loss * valid) / torch.clamp(torch.sum(valid),
+                                                     min=1.0)
+    return torch.mean(loss)

@@ -5,7 +5,8 @@ Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names
 are the reference pytree's paths (``layers.attn.wq`` is
 ``params["layers"]["attn"]["wq"]``). Layers are stacked on a leading L
 axis, as in the reference's ``init_params``; per-layer views come from
-`layer_params`. The layer loop is a Python loop.
+`layer_params`. The layer loop is a Python loop. `train_loss` is the
+joint multi-exit training loss; serving runs without gradient.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -21,16 +23,19 @@ from repro_torch.kernels.exit_confidence.ops import (exit_confidence,
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as ff
 from repro_torch.models import rwkv6 as rk
-from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       init_norm)
+from repro_torch.models.common import (apply_norm, cross_entropy,
+                                       dense_init, embed_init, init_norm)
 
 
 class ParamTree(nn.Module):
     """Nested parameters, indexable like the reference's dict pytree.
 
     Every nested dict becomes a child module and every leaf an
-    ``nn.Parameter`` without gradient, so ``named_parameters()`` lists the
-    pytree paths and ``.to(device)`` moves the whole tree."""
+    ``nn.Parameter``, so ``named_parameters()`` lists the pytree paths and
+    ``.to(device)`` moves the whole tree. Leaves are made without
+    gradient, as serving wants them; ``requires_grad_(True)`` (the
+    ``nn.Module`` method, on the whole tree) makes them trainable and
+    ``requires_grad_(False)`` freezes them again."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
@@ -196,6 +201,64 @@ def _layer_full(cfg: ModelConfig, lp, x, positions, *, window: int):
 
 def _exit_w(params, lp):
     return lp["exit_w"] if "exit_w" in lp else params["exit_w"]
+
+
+# -------------------------------------------------------------- train / eval
+
+def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
+               remat: bool = True):
+    """Joint multi-exit loss (paper/ElasticBERT style): mean CE over the
+    exits + final-layer CE + ``0.01 * aux / L`` (aux, the MoE balance
+    loss, is 0 for the dense and ssm families). LM (shifted labels) when
+    ``cfg.num_classes == 0``, else classification on the pooled token.
+
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations.
+    """
+    x = embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = _positions(cfg, b, s, device=x.device)
+    window = cfg.effective_window(s)
+    labels = batch["labels"].to(x.device).long()
+
+    def logits_of(hn, w):
+        if cfg.num_classes:
+            return pool_hidden(cfg, hn) @ w                # (B, C)
+        return (hn @ w)[:, :-1]                            # (B, S-1, V)
+
+    def ce(logits):
+        return cross_entropy(logits, labels if cfg.num_classes
+                             else labels[:, 1:])
+
+    def body(xx, i):
+        lp = layer_params(params["layers"], i)
+        xx = _layer_full(cfg, lp, xx, positions, window=window)
+        if not cfg.exits.enabled:
+            return xx, xx.new_zeros((), dtype=torch.float32)
+        # pooling precedes the exit norm for a classifier (they commute)
+        src = xx[:, :1] if cfg.num_classes else xx
+        hn = apply_norm(src, lp["exit_norm"], cfg.norm)
+        return xx, ce(logits_of(hn, _exit_w(params, lp)))
+
+    exit_losses = []
+    for i in range(cfg.num_layers):
+        if remat:
+            x, loss_i = checkpoint(body, x, i, use_reentrant=False)
+        else:
+            x, loss_i = body(x, i)
+        exit_losses.append(loss_i)
+
+    xf = apply_norm(x[:, :1] if cfg.num_classes else x,
+                    params["final_norm"], cfg.norm)
+    w = params.get("exit_w")
+    if w is None:  # per-exit heads: the final exit is the last layer's head
+        w = params["layers"]["exit_w"][-1]
+    aux = 0.0      # no MoE layer in the ported families
+    loss = ce(logits_of(xf, w)) + 0.01 * aux / cfg.num_layers
+    if cfg.exits.enabled:
+        loss = loss + torch.stack(exit_losses).mean()
+    return loss
 
 
 # ------------------------------------------------- streaming exit observables
