@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit. It imports only the port (``src/repro_torch``) and:
@@ -22,10 +22,13 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    tensor-core variant (bf16, d 64 and 128) and the CUDA-core one (f32,
    d 16/32/48) at the serving shape and at long/ragged sequences, causal
    + window, GQA, suffix queries, strided q, keys past their length set
-   to NaN and fully masked rows. Exit confidence: small-head (V = 2 and
+   to NaN and fully masked rows, and the qwen3-1.7b decode prefill (8,
+   16, 64, 128) causal GQA. Exit confidence: small-head (V = 2 and
    40, grouped), tensor-core (the rwkv6-3b LM head (32, 2560) x (2560,
    65536), the SplitEE-S shape (1024, 2560) x (2560, 65536), the scan
-   edge of a 17-row tail (544, 2560) x (2560, 65536), V = 151936,
+   edge of a 17-row tail (544, 2560) x (2560, 65536), a decode step's
+   exits (224 and 28, 2048) x (2048, 151936) and (256, 2560) x (2560,
+   65536), V = 151936,
    a head bias, plain and fused with rms/layer norm and shared/per-row
    parameters) and CUDA-core (f32) variants, conf at an LM head held at a
    tolerance scaled to its size that must reject a halved conf and one
@@ -39,8 +42,8 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    and on inputs one element off 16 bytes or at a feature stride of 2
    (the `scalar` variant); each WKV6 instantiation's blocks per SM,
    registers and spills are printed (a spill fails), the WKV6 SASS must
-   hold no tensor-core instruction, and the kernel is timed at B = 32 and
-   at a depth bucket of B = 4;
+   hold no tensor-core instruction, and the kernel is timed at B = 32, at
+   a depth bucket of B = 4 and at the decode prefill of B = 8;
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
    and fused exits, and SplitEE-S) and the sequential driver, then
@@ -67,7 +70,25 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    a float64 CPU reading, WITNESS_FACTOR), the offload codec bitwise in
    every mode, and the served decisions of a small float32 model of each
    family (bucketed, scan, auto, int8);
-6. trains full-width ElasticBERT-12 (12 layers, d 768, the synthetic
+6. serves autoregressive decode (``workload="decode"``) with full-width
+   qwen3-1.7b, then full-width rwkv6-3b (bfloat16, weights and 64
+   prompts of 64 tokens from ``--seed``, 32 new tokens each, alpha the
+   median layer-L/2 confidence of a first edge step): bandit,
+   forced-final and int8 + error feedback at B = 8, bandit at B = 1 on 4
+   prompts, and an `Engine` (fifo) fed in ragged chunks (equal to the
+   one-shot run). Each run's launches must be the decode launch model's
+   (`decode_expected`: per push one attention or WKV6 launch a layer in
+   the prefill; per step exactly one exit launch over the L x B exit
+   rows, wgmma above 32 rows, mma.sync else; none in the cloud resume).
+   It prints tokens/s, exits/offloads, wire bytes and the device busy
+   time of a one-push bandit and forced-final run, checks on the card
+   that forced-final serving equals a plain `decode_step` loop bitwise,
+   that the bandit ledger replayed from a fresh prefill regenerates its
+   tokens, and that an offload at quant "none" re-syncs to the full
+   step bitwise, and holds the card against the CPU on the weights cut
+   to 4 layers in float32 (logits and confidences within
+   LM_FORWARD_RTOL, tokens equal but at near-ties);
+7. trains full-width ElasticBERT-12 (12 layers, d 768, the synthetic
    vocabulary of 512, 2 classes, float32) on the card: attention's
    gradient (the kernel's forward and `attention_backward`) against
    autograd of the plain version at the training shape (64, 12, 64, 64)
@@ -90,7 +111,7 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    confidence near alpha), so the same decision checks run again on the
    recipe's first EARLY_STEPS steps, where at least MIN_NEAR_ALPHA served
    confidences must lie within 1 % of alpha;
-7. prints one JSON line of per-kernel numbers (``launches`` from the run
+8. prints one JSON line of per-kernel numbers (``launches`` from the run
    named in MAIN_PATH, ``launches_by_path``, ``launches_by_variant`` and,
    for the exit kernels, ``launches_by_tile`` from every run; attention's
    ``at_training`` entry the training shape), then the
@@ -101,6 +122,7 @@ line. Without CUDA, or without the port beside it, it exits with 2.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -187,6 +209,26 @@ LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
 # the variant every launch of a kernel must take in a bf16 serve run, by
 # model family: attention at d 64 and the LM head on the tensor cores, the
 # 2-class heads on the small-head variant, WKV6 on 16-byte cp.async rows
+# the decode phase: prompts drawn from --seed, their length, the micro-
+# batch, new tokens per prompt; the card-vs-CPU cut (layers, steps)
+DECODE_PROMPTS = 64
+DECODE_PROMPT_LEN = 64
+DECODE_BATCH = 8
+DECODE_TOKENS = 32
+# the Engine's ragged chunks (3 pushes, held against the one-shot run's
+# first 3) and the profiled runs (one push, this many new tokens: the
+# profiler's cost grows with the ~100 launches a layer and step)
+DECODE_ENGINE_CHUNKS = (5, 1, 7, 3, 8)
+DECODE_PROFILE_TOKENS = 8
+DECODE_AGREE_LAYERS = 4
+DECODE_AGREE_STEPS = 4
+DECODE_ARCHS = ("qwen3-1.7b", LM)
+# the variant every launch of a decode run must take: attention at d 128
+# and the LM-head exits on the tensor cores, WKV6 on 16-byte rows
+DECODE_VARIANTS = {"dense": {"flash_attention": "tensor_core",
+                             "exit_confidence": "tensor_core"},
+                   "ssm": {"wkv6": "vec16",
+                           "exit_confidence": "tensor_core"}}
 SERVE_VARIANTS = {
     "dense": {"flash_attention": "tensor_core",
               "exit_confidence": "small_head",
@@ -489,6 +531,10 @@ def attention_checks(torch, dev):
         ("gqa_causal_d128_bf16", tc, 2, 8, 2, 130, 130, 128, True, 0,
          "bfloat16"),
         ("gqa_suffix_q_bf16", tc, 2, 8, 2, 7, 90, 64, True, 0, "bfloat16"),
+        # the qwen3-1.7b decode prefill: B = 8, 64 tokens, 16 query and 8
+        # KV heads of 128, causal
+        ("qwen3_prefill_bf16", tc, 8, 16, 8, 64, 64, 128, True, 0,
+         "bfloat16"),
         ("suffix_q_f32", cc, 2, 4, 4, 7, 90, 32, True, 0, "float32"),
         ("d16_bf16", cc, 2, 4, 4, 70, 70, 16, False, 0, "bfloat16"),
         ("d48_causal_bf16", cc, 2, 4, 2, 70, 70, 48, True, 0, "bfloat16"),
@@ -539,7 +585,7 @@ def attention_checks(torch, dev):
 
     q, k, v, err = out["main_bf16"]
     b, h, s, d = q.shape
-    return record(
+    rec = record(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:80",
@@ -550,6 +596,24 @@ def attention_checks(torch, dev):
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "bfloat16",
         variant=tc)
+    # bytes: q and the output (16 heads), k and v (8 heads); operations:
+    # the causal half of the two products
+    q, k, v, err = out["qwen3_prefill_bf16"]
+    b, h, s, d = q.shape
+    rec["at_qwen3_prefill"] = record(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:80",
+        f"q ({b},{h},{s},{d}), k/v ({b},{k.shape[1]},{s},{d}) bfloat16, "
+        f"causal GQA", err,
+        lambda: via("flash_attention", tc,
+                    lambda: attention(q, k, v, causal=True)),
+        lambda: gqa_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        2 * (q.numel() + k.numel()) * q.element_size(),
+        2.0 * b * h * s * s * d, "bfloat16", variant=tc)
+    return rec
 
 
 def _exit_logits(h, w, bias=None):
@@ -844,6 +908,30 @@ def exit_checks(torch, dev):
                                           kind="layernorm"),
         None, nbytes + 2 * m * d * 2, 2.0 * m * d * v + 8.0 * m * d,
         "bfloat16", **few)
+
+    # a decode edge step scores its L x B exit rows at the shared LM head
+    # in one launch: qwen3-1.7b (28 layers, D 2048, V 151936) at B = 8
+    # (224 rows = 128 + a partial 96: wgmma) and B = 1 (28: mma.sync),
+    # rwkv6-3b (32 layers) at B = 8 (256: wgmma); its B = 1 is the
+    # (32, 2560) LM head above
+    w_q = rnd(2048, 151936, scale=2048 ** -0.5).to(bf16)
+    for key, m, w_d, tile in (("at_decode_qwen3_b8", 224, w_q, "wgmma"),
+                              ("at_decode_qwen3_b1", 28, w_q, "mma_sync"),
+                              ("at_decode_rwkv6_b8", 256, w_lm, "wgmma")):
+        d, v = w_d.shape
+        h_d = rnd(m, d).to(bf16)
+        err_d = plain_case(f"{key[3:]}_bf16", h_d, w_d, "bfloat16", lm=True,
+                           tile=tile)
+        rec_plain[key] = record(
+            "exit_confidence", src,
+            "src/repro/kernels/exit_confidence/kernel.py:100",
+            f"h ({m},{d}) @ w ({d},{v}) bfloat16 (a decode step)", err_d,
+            lambda: exit_confidence(h_d, w_d),
+            lambda: exit_confidence_ref(h_d, w_d),
+            lambda: torch.softmax(h_d @ w_d, dim=-1).max(dim=-1),
+            h_d.numel() * 2 + w_d.numel() * 2 + m * 8, 2.0 * m * d * v,
+            "bfloat16", **few)
+    del w_q
     return rec_plain, rec_fused
 
 
@@ -961,6 +1049,8 @@ def wkv6_checks(torch, dev):
     rec = timed(main, "")
     rec["at_b4"] = timed(tuple(a[:4] if a.ndim == 4 else a for a in main),
                          " (a depth bucket of 4)")
+    rec["at_b8"] = timed(tuple(a[:8] if a.ndim == 4 else a for a in main),
+                         " (the decode prefill of B = 8)")
     return rec
 
 
@@ -1655,6 +1745,355 @@ def small_serve_agreement(torch, dev, arch: str, data):
           f"{conf[k + 1] - conf[k]:.2e}): decisions identical")
 
 
+# ------------------------------------------------------------ decode phase
+
+def decode_expected(cfg, n: int, batch_size: int):
+    """Launches a decode run needs, by kernel and by exit tile: a push of
+    ``rows`` prompts makes one attention (dense) or WKV6 (ssm) launch a
+    layer in its prefill, then exactly one exit launch a decode step over
+    its L x rows exit rows (mma.sync up to 32 rows, wgmma above); the
+    one-token layers and the cloud resume launch no port kernel."""
+    from repro_torch.kernels.exit_confidence.kernel import tc_tile
+    counts = {name: 0 for name in MAIN_PATH}
+    tiles = {}
+    for start in range(0, n, batch_size):
+        rows = min(batch_size, n - start)
+        counts[LAYER_KERNEL[cfg.family]] += cfg.num_layers
+        counts["exit_confidence"] += DECODE_TOKENS
+        key = f"exit_confidence/tensor_core/{tc_tile(cfg.num_layers * rows)}"
+        tiles[key] = tiles.get(key, 0) + DECODE_TOKENS
+    return counts, tiles
+
+
+def decode_run(torch, runs: Runs, name, fn, cfg, n: int, batch_size: int,
+               *, mixed: bool = True):
+    """``fn()`` serves ``n`` prompts with ``workload="decode"``; its
+    launches, reset just before and read just after, must be
+    `decode_expected`'s, each through DECODE_VARIANTS. ``mixed``: the run
+    must both exit and offload. Returns (report, wall seconds)."""
+    import numpy as np
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     tile_launch_counts,
+                                     variant_launch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    variants = {k: c for k, c in variant_launch_counts().items() if c}
+    tiles = {k: c for k, c in tile_launch_counts().items() if c}
+    runs.counts[name], runs.variants[name] = counts, variants
+    runs.tiles[name] = tiles
+    dec = rep.decode
+    exits, offloads = int(dec["exited_steps"].sum()), \
+        int(dec["offloaded_steps"].sum())
+    toks = dec["tokens"]
+    print(f"  {name}: {dec['sequences']} sequences x {DECODE_TOKENS} tokens "
+          f"in {dt:.3f}s = {toks.size / dt:.1f} tokens/s (session "
+          f"{dec['tokens_per_sec']:.1f}); exits {exits}, offloads "
+          f"{offloads}, offload wire bytes {rep.offload_bytes}, arms "
+          f"{arm_histogram(rep.arms, cfg.num_layers)}; launches {counts}; "
+          f"by variant {variants}; by tile {tiles}")
+    if rep.path != "decode" or toks.shape != (n, DECODE_TOKENS) \
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{name}: path {rep.path}, tokens {toks.shape} in "
+             f"[{toks.min()}, {toks.max()}]")
+    if not np.isfinite(rep.rewards).all() or not np.all(
+            dec["exited_steps"] ^ dec["offloaded_steps"]):
+        fail(f"{name}: non-finite rewards, or a token both (or neither) "
+             f"exited and offloaded")
+    if mixed and not (exits and offloads):
+        fail(f"{name}: exits {exits}, offloads {offloads}: need both")
+    want, want_tiles = decode_expected(cfg, n, batch_size)
+    if counts != want or tiles != want_tiles:
+        fail(f"{name}: launches {counts} by tile {tiles}, but the decode "
+             f"launch model needs {want} by tile {want_tiles}")
+    for kname, variant in DECODE_VARIANTS[cfg.family].items():
+        if variants.get(f"{kname}/{variant}", 0) != counts[kname]:
+            fail(f"{name}: {counts[kname]} launches of {kname}, not all "
+                 f"through its {variant} variant: {variants}")
+    return rep, dt
+
+
+def _trees_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(
+            _trees_equal(torch, a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def decode_pins(torch, dev, rt, params, cfg, prompts, final, bandit,
+                seed: int):
+    """The card's own pins, on the first push (8 prompts): forced-final
+    serving == a plain `decode_step` loop bitwise (tokens, each step's
+    logits, the final cache); the bandit run's recorded depths and
+    offloads, replayed from a fresh prefill, regenerate its tokens; an
+    offload at quant "none" re-syncs to the full-depth step bitwise."""
+    import numpy as np
+    from repro_torch.models.transformer import decode_step
+    B, L = DECODE_BATCH, cfg.num_layers
+    first = prompts[:B]
+    S = first.shape[1]
+    total = S + DECODE_TOKENS
+    lg0, caches = rt.prefill_fn(params, first, total)
+    tok, tokens, logits = lg0.argmax(-1), [], []
+    with torch.no_grad():
+        for t in range(DECODE_TOKENS):
+            lg, _, _, caches = decode_step(params, cfg, caches, tok, S + t,
+                                           all_exits=True,
+                                           window_seq_len=total)
+            tok = lg.argmax(-1)
+            tokens.append(tok.cpu().numpy())
+            logits.append(lg)
+    if not np.array_equal(np.stack(tokens, 1), final.decode["tokens"][:B]):
+        fail(f"{cfg.arch_id}: forced-final tokens differ from the plain "
+             f"decode_step loop")
+    lg0, m_caches = rt.prefill_fn(params, first, total)
+    tok = lg0.argmax(-1)
+    depths = torch.full((B,), L - 1, device=dev)
+    for t in range(DECODE_TOKENS):
+        lg, _, _, _, tok, _, m_caches = rt.edge_fn(params, m_caches, tok,
+                                                   S + t, depths, total)
+        if not torch.equal(lg, logits[t]):
+            fail(f"{cfg.arch_id}: forced-final step {t} logits differ from "
+                 f"the plain loop's")
+    if not _trees_equal(torch, caches, m_caches):
+        fail(f"{cfg.arch_id}: forced-final cache differs from the plain "
+             f"loop's")
+
+    dec = bandit.decode
+    lg0, caches = rt.prefill_fn(params, first, total)
+    tok = lg0.argmax(-1)
+    gen = np.zeros((B, DECODE_TOKENS), np.int64)
+    for t in range(DECODE_TOKENS):
+        arms = np.asarray(dec["realized_depths"][:B, t])
+        d_dev = torch.as_tensor(arms, device=dev)
+        _, _, pred, _, pred_fin, hidden, caches = rt.edge_fn(
+            params, caches, tok, S + t, d_dev, total)
+        toks = np.where(arms + 1 == L, pred_fin.cpu().numpy(),
+                        pred.cpu().numpy()[arms, np.arange(B)])
+        off = np.asarray(dec["offloaded_steps"][:B, t], bool)
+        if off.any():
+            _, _, pred_l, caches = rt.cloud_fn(
+                params, caches, hidden, S + t, d_dev,
+                torch.as_tensor(off, device=dev), total)
+            toks[off] = pred_l.cpu().numpy()[off]
+        gen[:, t] = toks
+        tok = torch.as_tensor(toks, device=dev)
+    if not np.array_equal(gen, dec["tokens"][:B]):
+        fail(f"{cfg.arch_id}: the bandit run's ledger replayed from a fresh "
+             f"prefill does not regenerate its tokens")
+
+    rng = np.random.default_rng(seed + 1)
+    _, caches = rt.prefill_fn(params, first, S + 1)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, B), device=dev)
+    depths = torch.as_tensor(rng.integers(0, L - 1, B), device=dev)
+    lg_full, *_, c_full = rt.edge_fn(params, caches, tok, S,
+                                     torch.full((B,), L - 1, device=dev),
+                                     S + 1)
+    *_, hidden, c_edge = rt.edge_fn(params, caches, tok, S, depths, S + 1)
+    lg_res, _, _, c_res = rt.cloud_fn(params, c_edge, hidden, S, depths,
+                                      torch.ones(B, dtype=torch.bool,
+                                                 device=dev), S + 1)
+    if not (torch.equal(lg_full, lg_res)
+            and _trees_equal(torch, c_full, c_res)):
+        fail(f"{cfg.arch_id}: edge + resume at quant none differs from the "
+             f"full-depth step")
+    print(f"  {cfg.arch_id} on the card, first push of {B}: forced-final == "
+          f"plain decode_step loop bitwise ({DECODE_TOKENS} steps of tokens "
+          f"and logits, final cache); the bandit ledger replayed from a "
+          f"fresh prefill regenerates its tokens "
+          f"({int(dec['offloaded_steps'][:B].sum())} offloads); edge at "
+          f"depths {depths.tolist()} + resume == the full step bitwise")
+
+
+def decode_agreement(torch, dev, params, cfg, prompts):
+    """The same full-width weights cut to DECODE_AGREE_LAYERS layers in
+    float32, B = 2, on the card and on the CPU: a prefill and
+    DECODE_AGREE_STEPS edge steps at mixed depths with a cloud resume of
+    the rows below the final layer, both sides fed the CPU's tokens.
+    Logits within LM_FORWARD_RTOL of the CPU's largest, exit confidences
+    within LM_FORWARD_RTOL relative, tokens equal but at near-ties."""
+    import numpy as np
+    from repro_torch.models.transformer import ParamTree
+    from repro_torch.serving import DecodeRuntime
+    t0 = time.perf_counter()
+    L = DECODE_AGREE_LAYERS
+    cut, tree = lm_cut(params, cfg, L)
+    first = prompts[:2]
+    S = first.shape[1]
+    total = S + DECODE_AGREE_STEPS
+    sched = np.asarray([[L - 1, 1], [0, L - 1], [L - 2, 2], [L - 1, L - 1]])
+    inputs = []                      # the CPU's token of every step
+
+    def run(device):
+        p = ParamTree(_tree_to(tree, device, torch.float32))
+        rt = DecodeRuntime(cut, device=device)
+        lg, caches = rt.prefill_fn(p, first, total)
+        out = {"logits": [lg.cpu()], "conf": [], "tok_logits": []}
+        tok = lg.argmax(-1)
+        for t in range(DECODE_AGREE_STEPS):
+            if device == "cpu":
+                inputs.append(tok.numpy())
+            tok = torch.as_tensor(inputs[t], device=device)
+            d = torch.as_tensor(sched[t], device=device)
+            lg, conf, _, _, _, hidden, caches = rt.edge_fn(
+                p, caches, tok, S + t, d, total)
+            active = torch.as_tensor(sched[t] < L - 1, device=device)
+            lg_c, _, _, caches = rt.cloud_fn(p, caches, hidden, S + t, d,
+                                             active, total)
+            final = torch.where(active[:, None], lg_c, lg)
+            out["logits"] += [lg.cpu(), lg_c.cpu()]
+            out["conf"].append(conf.cpu())
+            out["tok_logits"].append(final.cpu())
+            tok = final.argmax(-1)
+        del p
+        return out
+
+    cpu = run("cpu")
+    card = run(dev)
+    lg_err = max(((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(card["logits"], cpu["logits"]))
+    conf_err = max(((a - b).abs() / b).max().item()
+                   for a, b in zip(card["conf"], cpu["conf"]))
+    if not (lg_err <= LM_FORWARD_RTOL and conf_err <= LM_FORWARD_RTOL):
+        fail(f"{cfg.arch_id} decode card vs CPU ({L} layers f32): logits "
+             f"{lg_err:.3e}, conf {conf_err:.3e} > {LM_FORWARD_RTOL}")
+    flips = sum(check_pred(f"{cfg.arch_id} decode token step {t}",
+                           a.argmax(-1), b.argmax(-1), lambda b=b: b,
+                           "float32")
+                for t, (a, b) in enumerate(zip(card["tok_logits"],
+                                               cpu["tok_logits"])))
+    print(f"  full-width {cfg.arch_id} cut to {L} layers, float32, B = 2, a "
+          f"{S}-token prefill and {DECODE_AGREE_STEPS} steps at depths "
+          f"{sched.tolist()} with a cloud resume: card vs CPU logits max|err|"
+          f" / max|logit| {lg_err:.3e}, exit conf max relative err "
+          f"{conf_err:.3e} (tol {LM_FORWARD_RTOL}), tokens differing at "
+          f"near-ties {flips} [{time.perf_counter() - t0:.1f} s wall]")
+
+
+def decode_phase(torch, dev, runs: Runs, arch: str, seed: int):
+    """Full-width ``arch`` (bf16, weights from ``seed``) served with
+    ``workload="decode"``: DECODE_PROMPTS prompts of DECODE_PROMPT_LEN
+    tokens drawn from ``seed``, DECODE_TOKENS new tokens each. Runs, each
+    with its own launch counts held against `decode_expected`: bandit,
+    forced-final and int8 + error feedback at B = DECODE_BATCH, bandit at
+    B = 1 on 4 prompts, and an `Engine` (fifo) fed the first 24 prompts in
+    ragged chunks, whose tokens and decisions must equal those of the
+    one-shot bandit run's first 3 pushes. Prints tokens/s, exits/
+    offloads and wire bytes of each run, and the device busy time of a
+    one-push bandit and forced-final run (torch.profiler); then
+    `decode_pins` and `decode_agreement`."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import CostModel
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import DecodeRuntime, Engine, ServingConfig, serve
+    from repro_torch.serving.kvcache import hidden_raw_bytes, step_slice_bytes
+
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"  {arch}: {L} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {sum(p.numel() for p in params.parameters())} "
+          f"stored parameters = {n_bytes / 1e9:.3f} GB (param_count "
+          f"{cfg.param_count()}), init {time.perf_counter() - t0:.2f}s")
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (DECODE_PROMPTS, DECODE_PROMPT_LEN)).astype(
+            np.int32)
+    samples = [{"tokens": row} for row in prompts]
+    rt = DecodeRuntime(cfg, device=dev)
+    S, B = DECODE_PROMPT_LEN, DECODE_BATCH
+    lg, caches = rt.prefill_fn(params, prompts[:B], S + DECODE_TOKENS)
+    conf = rt.edge_fn(params, caches, lg.argmax(-1), S,
+                      torch.full((B,), L - 1, device=dev),
+                      S + DECODE_TOKENS)[1]
+    alpha = float(conf[L // 2 - 1].float().median())
+    del lg, caches, conf
+    cost = CostModel(num_layers=L, alpha=alpha, offload=3.0)
+    print(f"  alpha = median layer-{L // 2} confidence of the first edge "
+          f"step (8 prompts, through the kernels) = {alpha:.6g}; per-step "
+          f"cache slice at the deepest split {step_slice_bytes(cfg, L - 1)} "
+          f"B, hidden {hidden_raw_bytes(cfg)} B")
+    base = ServingConfig(batch_size=B, workload="decode",
+                         max_new_tokens=DECODE_TOKENS)
+    serve(rt, params, iter(samples[:B]), cost,
+          dataclasses.replace(base, max_new_tokens=2))       # warm-up
+    n = DECODE_PROMPTS
+    out = {}
+    for name, config, count, mixed in (
+            ("bandit", base, n, True),
+            ("final", dataclasses.replace(base, split_policy="final"), n,
+             False),
+            ("int8 feedback", dataclasses.replace(
+                base, offload_quant="int8", offload_error_feedback=True), n,
+             True),
+            ("bandit B=1", dataclasses.replace(base, batch_size=1,
+                                               max_samples=4), 4, False)):
+        out[name] = decode_run(
+            torch, runs, f"{arch} decode {name}",
+            lambda c=config: serve(rt, params, iter(samples), cost, c),
+            cfg, count, config.batch_size, mixed=mixed)
+    rep, _ = out["int8 feedback"]
+    wire = rep.decode["wire_bytes_per_sequence"].sum()
+    if rep.offload_bytes != wire:
+        fail(f"{arch} decode int8: offload bytes {rep.offload_bytes} != the "
+             f"per-sequence ledger's {wire}")
+
+    engine_cfg = dataclasses.replace(base, scheduler="fifo")
+
+    n_eng = sum(DECODE_ENGINE_CHUNKS)
+
+    def engine():
+        eng = Engine(rt, params, cost, engine_cfg)
+        i = 0
+        for c in DECODE_ENGINE_CHUNKS:
+            eng.submit(samples[i:i + c])
+            i += c
+        return eng.close()
+
+    rep, _ = decode_run(torch, runs, f"{arch} decode engine fifo", engine,
+                        cfg, n_eng, B)
+    # the controller folds a push's rounds step-major: the first n_eng
+    # prompts' rounds lead the one-shot run's history
+    ref, rounds = out["bandit"][0], n_eng * DECODE_TOKENS
+    for key in ("arms", "exited", "preds"):
+        if not np.array_equal(rep[key], np.asarray(ref[key])[:rounds]):
+            fail(f"{arch} decode engine: {key} differ from one-shot serve()")
+    if not np.array_equal(rep.decode["tokens"],
+                          ref.decode["tokens"][:n_eng]):
+        fail(f"{arch} decode engine: tokens differ from one-shot serve()")
+    lat = rep["scheduler"]["latency_ms"]
+    print(f"    engine == one-shot serve()'s first {n_eng} prompts (tokens, "
+          f"arms, exits, preds); request latency ms p50 {lat['p50']:.1f}, "
+          f"p99 {lat['p99']:.1f}")
+
+    for policy in ("bandit", "final"):
+        config = dataclasses.replace(base, split_policy=policy,
+                                     max_new_tokens=DECODE_PROFILE_TOKENS)
+        call = lambda c=config: serve(rt, params, iter(samples[:B]),  # noqa
+                                      cost, c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy, per_kernel = device_ms(call, iters=1, warmup=0)
+        print_busy(f"{arch} decode {policy} (one push of {B}, "
+                   f"{DECODE_PROFILE_TOKENS} new tokens)", busy, wall * 1e3,
+                   per_kernel)
+    decode_pins(torch, dev, rt, params, cfg, prompts, out["final"][0],
+                out["bandit"][0], seed)
+    decode_agreement(torch, dev, params, cfg, prompts)
+    del params
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- train phase
 
 def attention_grad_checks(torch, dev):
@@ -2122,7 +2561,12 @@ def _tree_to(tree, device, dtype=None):
             for key, val in tree.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one CUDA GPU.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the decode phase's weights and prompts")
+    seed = parser.parse_args(argv).seed
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -2201,6 +2645,10 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
+    for arch in DECODE_ARCHS:
+        with phase(f"decode: {arch} (full width) on the card"):
+            decode_phase(torch, dev, runs, arch, seed)
+
     with phase("agreement: offload codec, card vs CPU"):
         codec_agreement(torch, dev)
 
@@ -2232,10 +2680,8 @@ def main() -> int:
               f"library {'none' if lib is None else f'{lib:.5f}'}, bound "
               f"{rec['bound_ms']:.6f} ({rec['bound_by']}); {rec['launches']} "
               f"launches in the {path} run")
-        for at in filter(None, (rec.get("at_training"),
-                                rec.get("at_grouped"), rec.get("at_lm_head"),
-                                rec.get("at_splitee_s"),
-                                rec.get("at_scan_tail"), rec.get("at_b4"))):
+        for at in (val for key, val in rec.items()
+                   if key.startswith("at_")):
             lib = at["library_ms"]
             print(f"    at {at['shape']} ({at['variant']}): kernel "
                   f"{at['ms']:.5f}, plain "

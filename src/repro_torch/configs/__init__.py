@@ -1,7 +1,8 @@
 """Architecture/config registry of the port.
 
-Only ``elasticbert12`` (dense) and ``rwkv6-3b`` (ssm) are ported; every
-other arch id of the reference registry raises ``NotImplementedError``.
+Only ``elasticbert12`` and ``qwen3-1.7b`` (dense) and ``rwkv6-3b`` (ssm)
+are ported; every other arch id of the reference registry raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,12 +18,13 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 )
 
 # arch id -> module name under repro_torch.configs
-_MODULES = {"elasticbert12": "elasticbert12", "rwkv6-3b": "rwkv6_3b"}
+_MODULES = {"elasticbert12": "elasticbert12", "qwen3-1.7b": "qwen3_1_7b",
+            "rwkv6-3b": "rwkv6_3b"}
 PORTED_ARCHS = tuple(_MODULES)
 NOT_PORTED_ARCHS = (
-    "deepseek-coder-33b", "granite-3-2b", "qwen2-vl-2b", "qwen3-1.7b",
-    "qwen1.5-32b", "zamba2-1.2b", "mixtral-8x22b",
-    "phi3.5-moe-42b-a6.6b", "seamless-m4t-large-v2",
+    "deepseek-coder-33b", "granite-3-2b", "qwen2-vl-2b", "qwen1.5-32b",
+    "zamba2-1.2b", "mixtral-8x22b", "phi3.5-moe-42b-a6.6b",
+    "seamless-m4t-large-v2",
 )
 
 

@@ -3,7 +3,7 @@ stack behind one object, as the reference's ``models/api.py:Model``.
 
 There is no ``backend`` string: every kernel dispatches by the device of
 its tensors (plain PyTorch versions on the CPU, the CUDA kernels on the
-card). Decode is not ported yet; its methods raise.
+card).
 """
 from __future__ import annotations
 
@@ -11,11 +11,6 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
-
-
-def _decode_not_ported(*_, **__):
-    raise NotImplementedError("decode (KV caches, decode_step*): not ported "
-                              "yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +37,37 @@ class Model:
             params, self.cfg, batch, depths, window=window,
             fused_exit=fused_exit)
 
-    prefill = init_caches = decode_step = _decode_not_ported
-    decode_step_masked = decode_step_resume = _decode_not_ported
+    def prefill(self, params, batch, *, cache_seq_len: int = 0):
+        return transformer.prefill(params, self.cfg, batch,
+                                   cache_seq_len=cache_seq_len)
+
+    def init_caches(self, batch: int, seq_len: int, *, device=None):
+        return transformer.init_caches(self.cfg, batch, seq_len,
+                                       device=device)
+
+    def decode_step(self, params, caches, token, cur_index: int, *,
+                    split_layer=None, all_exits: bool = False,
+                    window_seq_len: int = 0):
+        return transformer.decode_step(
+            params, self.cfg, caches, token, cur_index,
+            split_layer=split_layer, all_exits=all_exits,
+            window_seq_len=window_seq_len)
+
+    def decode_step_masked(self, params, caches, token, cur_index: int,
+                           depths, *, window_seq_len: int = 0):
+        """Edge half of a decode-serving step; see
+        ``transformer.decode_step_masked``."""
+        return transformer.decode_step_masked(
+            params, self.cfg, caches, token, cur_index, depths,
+            window_seq_len=window_seq_len)
+
+    def decode_step_resume(self, params, caches, hidden, cur_index: int,
+                           depths, active, *, window_seq_len: int = 0):
+        """Cloud half: layers > depth for active samples only; see
+        ``transformer.decode_step_resume``."""
+        return transformer.decode_step_resume(
+            params, self.cfg, caches, hidden, cur_index, depths, active,
+            window_seq_len=window_seq_len)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,10 +1,15 @@
-"""GQA attention, prefill side: full-sequence causal, sliding-window or
-bidirectional attention over projected, rotated q/k/v.
+"""GQA attention: prefill (full-sequence causal, sliding-window or
+bidirectional) and ring-buffer KV-cache decode.
 
 Layout conventions (as in the reference twin):
   hidden x           : (B, S, D)
   q/k/v (internal)   : (B, S, H, hd)
-Decode (KV caches) is not ported yet.
+  KV cache per layer : {"k": (B, W, Hkv, hd), "v": same, "pos": (B, W) i32}
+where W is the cache window (the total sequence length, or the sliding
+window). "pos" holds the absolute position in each ring slot (-1 =
+empty), so the ring-buffer mask is exact from the first token. The
+one-token decode is plain PyTorch, as the reference's is plain einsum
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -60,9 +65,10 @@ def _project_qkv(p, x, num_heads, num_kv_heads, head_dim, *,
 def attn_prefill(p, x, positions, *, num_heads, num_kv_heads, head_dim,
                  causal: bool = True, window: int = 0,
                  rope_theta: float = 10000.0, qk_norm: bool = False,
-                 mrope: bool = False):
-    """Full-sequence self-attention (cross-attention and the K/V return
-    for decode caches are not ported yet)."""
+                 mrope: bool = False, return_kv: bool = False):
+    """Full-sequence self-attention (cross-attention is not ported yet).
+    ``return_kv`` also returns the rotated (k, v), (B, S, Hkv, hd) each,
+    that a prefill writes into the decode cache."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            qk_norm=qk_norm, rope_theta=rope_theta,
@@ -72,4 +78,68 @@ def attn_prefill(p, x, positions, *, num_heads, num_kv_heads, head_dim,
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
     out = out.transpose(1, 2).reshape(b, s, num_heads * head_dim)
-    return out @ p["wo"]
+    out = out @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def init_cache(batch: int, window: int, num_kv_heads: int, head_dim: int,
+               dtype: torch.dtype, device=None):
+    zeros = torch.zeros((batch, window, num_kv_heads, head_dim), dtype=dtype,
+                        device=device)
+    return {"k": zeros, "v": zeros.clone(),
+            "pos": torch.full((batch, window), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def fill_cache(cache, k, v, start: int = 0):
+    """Write a prefill's (B, S, Hkv, hd) keys/values into a copy of the
+    cache at their ring slots (absolute position % window), so later
+    ring-buffer decode writes stay aligned."""
+    s = k.shape[1]
+    w = cache["k"].shape[1]
+    assert s <= w, "prefill longer than cache window"
+    pos = torch.arange(s, dtype=torch.int32, device=k.device) + start
+    slots = (pos % w).long()
+    out = {name: t.clone() for name, t in cache.items()}
+    out["k"][:, slots] = k.to(out["k"].dtype)
+    out["v"][:, slots] = v.to(out["v"].dtype)
+    out["pos"][:, slots] = pos[None]
+    return out
+
+
+def attn_decode(p, x, cache, cur_index: int, *, num_heads, num_kv_heads,
+                head_dim, window: int = 0, rope_theta: float = 10000.0,
+                qk_norm: bool = False, mrope: bool = False):
+    """One-token decode. x: (B, 1, D); ``cur_index`` the position of the
+    new token. Returns (out (B, 1, D), new_cache); the input cache is not
+    written."""
+    b = x.shape[0]
+    w = cache["k"].shape[1]
+    pos1 = torch.full((b, 1), cur_index, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(
+        p, x, num_heads, num_kv_heads, head_dim, qk_norm=qk_norm,
+        rope_theta=rope_theta, mrope=mrope, positions=pos1)
+
+    slot = cur_index % w
+    new_cache = {name: t.clone() for name, t in cache.items()}
+    new_cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    new_cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    new_cache["pos"][:, slot] = cur_index
+
+    # grouped-query scores against the whole window, in float32
+    g = num_heads // num_kv_heads
+    qg = q.reshape(b, num_kv_heads, g, head_dim).float()
+    kf = new_cache["k"].float()                       # (B, W, Hkv, hd)
+    vf = new_cache["v"].float()
+    scores = torch.einsum("bngd,bwnd->bngw", qg, kf) * (head_dim ** -0.5)
+    pos = new_cache["pos"]                            # (B, W)
+    valid = (pos >= 0) & (pos <= cur_index)
+    if window:
+        valid &= pos > cur_index - window
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngw,bwnd->bngd", probs, vf)
+    out = out.reshape(b, 1, num_heads * head_dim).to(x.dtype)
+    return out @ p["wo"], new_cache

@@ -6,7 +6,9 @@ are the reference pytree's paths (``layers.attn.wq`` is
 ``params["layers"]["attn"]["wq"]``). Layers are stacked on a leading L
 axis, as in the reference's ``init_params``; per-layer views come from
 `layer_params`. The layer loop is a Python loop. `train_loss` is the
-joint multi-exit training loss; serving runs without gradient.
+joint multi-exit training loss; serving runs without gradient, the
+classifier through `forward_exits*`, autoregressive decode through
+`prefill` and the `decode_step*` functions over stacked cache trees.
 """
 from __future__ import annotations
 
@@ -171,32 +173,41 @@ def _positions(cfg: ModelConfig, b: int, s: int, device=None):
 
 # ------------------------------------------------------------ full-seq layer
 
-def _layer_full(cfg: ModelConfig, lp, x, positions, *, window: int):
-    """One layer over the full sequence. An ssm (RWKV6) layer starts its
-    token shift and recurrence from a zero state and ignores
-    ``positions`` and ``window``."""
+def _layer_prefill(cfg: ModelConfig, lp, x, positions, *, window: int):
+    """One layer over the full sequence from an empty state. Returns (x,
+    state): an ssm layer's final ``{tm_last, cm_last, wkv}`` (its token
+    shift and recurrence start from a zero state, and it ignores
+    ``positions`` and ``window``), or a dense layer's rotated (k, v),
+    (B, S, Hkv, hd) each."""
     _check_family(cfg)
     if cfg.family == "ssm":
         heads = _ssm_heads(cfg)
         st = rk.init_rwkv_state(x.shape[0], cfg.d_model, heads,
                                 device=x.device)
-        h, _ = rk.time_mix(lp["tm"], apply_norm(x, lp["ln1"], cfg.norm),
-                           (st["tm_last"], st["wkv"]), num_heads=heads,
-                           chunk=cfg.ssm.chunk_size)
+        h, (tm_last, wkv) = rk.time_mix(
+            lp["tm"], apply_norm(x, lp["ln1"], cfg.norm),
+            (st["tm_last"], st["wkv"]), num_heads=heads,
+            chunk=cfg.ssm.chunk_size)
         x = x + h
-        h, _ = rk.channel_mix(lp["cm"], apply_norm(x, lp["ln2"], cfg.norm),
-                              st["cm_last"])
-        return x + h
-    h = attn.attn_prefill(
+        h, cm_last = rk.channel_mix(
+            lp["cm"], apply_norm(x, lp["ln2"], cfg.norm), st["cm_last"])
+        return x + h, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv}
+    h, kv = attn.attn_prefill(
         lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), positions,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, causal=cfg.causal,
         window=window, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-        mrope=cfg.mrope)
+        mrope=cfg.mrope, return_kv=True)
     x = x + h
     h = ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
                        cfg.activation)
-    return x + h
+    return x + h, kv
+
+
+def _layer_full(cfg: ModelConfig, lp, x, positions, *, window: int):
+    """One layer over the full sequence (`_layer_prefill` without its
+    state)."""
+    return _layer_prefill(cfg, lp, x, positions, window=window)[0]
 
 
 def _exit_w(params, lp):
@@ -366,3 +377,207 @@ def forward_exits_masked(params, cfg: ModelConfig, batch: Mapping[str, Any],
     conf, pred = grouped_exits(params, cfg, torch.stack(pooled),
                                fused=fused_exit)
     return {"conf": conf, "pred": pred, "hidden": x}
+
+
+# ----------------------------------------------------------- prefill / decode
+#
+# Cache trees are nested dicts of tensors with a leading L axis:
+# {"attn": {k, v, pos}} (dense) or {"ssm": {tm_last, cm_last, wkv}} (ssm).
+# Every function below returns a new tree and never writes into its input.
+
+def _cache_key(cfg: ModelConfig) -> str:
+    return "ssm" if cfg.family == "ssm" else "attn"
+
+
+def _map(fn, tree, *rest):
+    return {k: _map(fn, v, *(r[k] for r in rest)) if _is_tree(v)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
+    """Stacked per-layer decode caches (window-sized for SWA archs) on
+    ``device`` (default cuda; ``"meta"`` gives shapes and dtypes without
+    allocating). Recurrent states are float32, as ``init_rwkv_state``
+    makes them."""
+    _check_family(cfg)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
+    if cfg.family == "ssm":
+        one = rk.init_rwkv_state(batch, cfg.d_model, _ssm_heads(cfg),
+                                 device=dev)
+    else:
+        window = cfg.effective_window(seq_len) or seq_len
+        one = attn.init_cache(batch, window, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, torch_dtype(cfg.dtype),
+                              device=dev)
+    return {_cache_key(cfg): _map(
+        lambda a: a.expand(cfg.num_layers, *a.shape).contiguous(), one)}
+
+
+def _layer_decode(cfg: ModelConfig, lp, x, st, cur_index: int, *,
+                  window: int):
+    """One-token decode through one layer. Returns (x, new_cache_slice)."""
+    if cfg.family == "ssm":
+        heads = _ssm_heads(cfg)
+        h, (tm_last, wkv) = rk.time_mix(
+            lp["tm"], apply_norm(x, lp["ln1"], cfg.norm),
+            (st["tm_last"], st["wkv"]), num_heads=heads)
+        x = x + h
+        h, cm_last = rk.channel_mix(
+            lp["cm"], apply_norm(x, lp["ln2"], cfg.norm), st["cm_last"])
+        return x + h, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv}
+    h, new_cache = attn.attn_decode(
+        lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), st, cur_index,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, window=window,
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, mrope=cfg.mrope)
+    x = x + h
+    h = ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
+                       cfg.activation)
+    return x + h, new_cache
+
+
+def _step_input(params, cfg: ModelConfig, token_or_embed):
+    """Token ids (B,) -> (B, 1, D) embeddings; an embedding passes."""
+    if token_or_embed.ndim <= 1 or not token_or_embed.is_floating_point():
+        return params["embed"][token_or_embed.reshape(-1, 1).long()]
+    return token_or_embed.to(torch_dtype(cfg.dtype))
+
+
+def _final_logits(params, cfg: ModelConfig, x):
+    """The final head on the last token: ``norm(x) @ ew`` (torch.matmul,
+    as in the reference); ew is the shared head, else the last layer's."""
+    ew = params["exit_w"] if "exit_w" in params \
+        else params["layers"]["exit_w"][-1]
+    return apply_norm(x, params["final_norm"], cfg.norm)[:, -1, :] @ ew
+
+
+def _mask_rows(mask, new, old):
+    """Per-sample cache merge: ``new`` where ``mask`` (B,) is set, else
+    ``old``. Every cache leaf is batch-leading."""
+    def sel(nw, od):
+        return torch.where(mask.reshape(-1, *([1] * (nw.ndim - 1))), nw, od)
+    return _map(sel, new, old)
+
+
+def decode_step(params, cfg: ModelConfig, caches, token_or_embed,
+                cur_index: int, *, split_layer=None, all_exits: bool = False,
+                window_seq_len: int = 0):
+    """SplitEE serve step: decode ONE token; exit confidence at
+    ``split_layer`` (SplitEE) or at every exit (``all_exits``, SplitEE-S:
+    one `grouped_exits` launch over the (L·B, D) rows). Returns (logits,
+    conf, pred, new_caches); conf/pred are None with neither."""
+    x = _step_input(params, cfg, token_or_embed)
+    window = cfg.effective_window(window_seq_len)
+    key = _cache_key(cfg)
+    new, pooled = [], []
+    for i in range(cfg.num_layers):
+        x, st = _layer_decode(cfg, layer_params(params["layers"], i), x,
+                              layer_params(caches[key], i), cur_index,
+                              window=window)
+        new.append(st)
+        pooled.append(pool_hidden(cfg, x))
+    if all_exits:
+        conf, pred = grouped_exits(params, cfg, torch.stack(pooled))
+    elif split_layer is not None:
+        lp = layer_params(params["layers"], split_layer)
+        conf, pred = exit_confidence(
+            apply_norm(pooled[split_layer], lp["exit_norm"], cfg.norm),
+            _exit_w(params, lp))
+    else:
+        conf = pred = None
+    return _final_logits(params, cfg, x), conf, pred, {key: _stack(new)}
+
+
+def decode_step_masked(params, cfg: ModelConfig, caches, token_or_embed,
+                       cur_index: int, depths, *, window_seq_len: int = 0):
+    """Edge half of a decode-serving step: run layers ``0..depths[b]``
+    per sample (``torch.where`` freezes the carry and the cache slots of
+    a row above its depth; a layer above every row's depth is not run,
+    which leaves the same carry and cache). A skipped attention layer
+    leaves its ring slot for this step unwritten; the ``pos`` mask
+    excludes the hole at later reads, so ``cur_index`` stays global.
+
+    Returns (logits, conf (L, B), pred (L, B), hidden (B, 1, D),
+    new_caches): ``logits`` is the final head on the masked carry (it
+    means something where depths[b] == L-1); conf/pred are every exit's,
+    from one grouped confidence launch; ``hidden`` is the carry after
+    each sample's own split layer, the offload payload.
+    """
+    x = _step_input(params, cfg, token_or_embed)
+    window = cfg.effective_window(window_seq_len)
+    key = _cache_key(cfg)
+    live = depths.to(x.device)
+    stop = int(depths.max()) + 1
+    new, pooled = [], []
+    for i in range(cfg.num_layers):
+        st = layer_params(caches[key], i)
+        if i < stop:
+            x2, st2 = _layer_decode(cfg, layer_params(params["layers"], i),
+                                    x, st, cur_index, window=window)
+            m = i <= live
+            x = torch.where(m[:, None, None], x2, x)
+            st = _mask_rows(m, st2, st)
+        new.append(st)
+        pooled.append(pool_hidden(cfg, x))
+    conf, pred = grouped_exits(params, cfg, torch.stack(pooled))
+    return _final_logits(params, cfg, x), conf, pred, x, {key: _stack(new)}
+
+
+def decode_step_resume(params, cfg: ModelConfig, caches, hidden,
+                       cur_index: int, depths, active, *,
+                       window_seq_len: int = 0):
+    """Cloud half of a decode-serving step: resume from the shipped edge
+    carry ``hidden`` (B, 1, D) and run layers ``depths[b]+1 .. L-1`` for
+    the samples with ``active[b]`` set (a layer no active sample needs
+    is not run). The returned cache tree equals the input bitwise
+    wherever it did not advance (inactive samples, and layers <= depth),
+    so committing it re-syncs the edge cache. No kernel runs here.
+    Returns (logits, new_caches)."""
+    x = hidden.to(torch_dtype(cfg.dtype))
+    window = cfg.effective_window(window_seq_len)
+    key = _cache_key(cfg)
+    resumed = depths[active.to(depths.device)]
+    start = int(resumed.min()) + 1 if resumed.numel() else cfg.num_layers
+    depths, active = depths.to(x.device), active.to(x.device)
+    new = []
+    for i in range(cfg.num_layers):
+        st = layer_params(caches[key], i)
+        if i >= start:
+            x2, st2 = _layer_decode(cfg, layer_params(params["layers"], i),
+                                    x, st, cur_index, window=window)
+            m = active & (i > depths)
+            x = torch.where(m[:, None, None], x2, x)
+            st = _mask_rows(m, st2, st)
+        new.append(st)
+    return _final_logits(params, cfg, x), {key: _stack(new)}
+
+
+def prefill(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
+            cache_seq_len: int = 0):
+    """Process the prompt (B, S), build the decode caches for a total
+    length ``cache_seq_len`` (default S) and return the final logits.
+    Dense layers write their rotated K/V into ring slots (the last
+    window's worth when the window is shorter than the prompt); ssm
+    layers keep their final token-shift rows (in the model dtype) and
+    WKV state (float32)."""
+    x = embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = _positions(cfg, b, s, device=x.device)
+    seq_total = cache_seq_len or s
+    window = cfg.effective_window(seq_total)
+    cache_window = window or seq_total
+    states = []
+    for i in range(cfg.num_layers):
+        x, st = _layer_prefill(cfg, layer_params(params["layers"], i), x,
+                               positions, window=window)
+        if cfg.family != "ssm":
+            kk, vv = st
+            st = attn.fill_cache(
+                attn.init_cache(b, cache_window, cfg.num_kv_heads,
+                                cfg.resolved_head_dim,
+                                torch_dtype(cfg.dtype), device=x.device),
+                kk[:, -cache_window:], vv[:, -cache_window:],
+                start=max(0, s - cache_window))
+        states.append(st)
+    return _final_logits(params, cfg, x), {_cache_key(cfg): _stack(states)}

@@ -3,13 +3,15 @@
 The supported surface is the unified API (`serving/api.py`): declare a
 `ServingConfig`, call `serve(runtime, params, stream, cost, config)` for
 an offline stream or drive an `Engine` push-session for request-level
-traffic, and read the typed `ServeReport`. The sharded, distributed and
-decode runtimes are not ported.
+traffic, and read the typed `ServeReport`; ``workload="decode"`` with a
+`DecodeRuntime` serves autoregressive generation. The sharded and
+distributed runtimes are not ported.
 """
 from repro_torch.serving.simulator import (  # noqa: F401
     EdgeCloudRuntime, _serve_stream_sequential)
 from repro_torch.serving.batched import (  # noqa: F401
     OffloadQueue, PendingFlush, _serve_stream_batched)
+from repro_torch.serving.decode import DecodeRuntime  # noqa: F401
 from repro_torch.serving.offload_codec import EncodedRows, OffloadCodec
 from repro_torch.serving.scheduler import Request, RequestScheduler
 from repro_torch.serving.api import (Engine, MultiTenantEngine, ServeReport,
@@ -24,6 +26,7 @@ __all__ = [
     "TenantSpec",
     "serve",
     # runtime building blocks
+    "DecodeRuntime",
     "EdgeCloudRuntime",
     "EncodedRows",
     "OffloadCodec",

@@ -7,11 +7,12 @@
 * `serve(runtime, params, stream, cost, config)` — the facade. Resolves
   the cheapest serving path that satisfies the config (`resolved_path`)
   and returns a typed `ServeReport`. The port runs the sequential and
-  batched paths (bucketed, scan or auto edge phase, any offload codec);
-  a config that resolves to the sharded, distributed or decode runtime,
-  or an explicit ``mesh``/``exchange``/``init_state``, passes validation
-  and then raises ``NotImplementedError`` — it never falls back to
-  another path.
+  batched paths (bucketed, scan or auto edge phase, any offload codec)
+  and the decode runtime (``workload="decode"``, serving/decode.py); a
+  config that resolves to the sharded or distributed runtime, or an
+  explicit ``mesh``/``exchange``/``init_state``, passes validation and
+  then raises ``NotImplementedError`` — it never falls back to another
+  path.
 * `Engine` — a push-session over the same controller/queue machinery:
   `submit(samples)` / `drain()` / `close()`. A push-session over the same
   samples is bit-identical to the one-shot `serve()` call; with
@@ -35,6 +36,8 @@ from repro_torch.core.controller import CONTROLLER_MODES
 from repro_torch.core.rewards import CostModel, CostTrace
 from repro_torch.serving.batched import (_BatchedSession,
                                          _serve_stream_batched)
+from repro_torch.serving.decode import (DecodeRuntime, _DecodeSession,
+                                        _serve_stream_decode)
 from repro_torch.serving.offload_codec import (QUANT_MODES, OffloadCodec,
                                                codec_from_fields)
 from repro_torch.serving.scheduler import (SCHEDULERS, SHED_POLICIES,
@@ -554,7 +557,7 @@ def _controller_kwargs(config: ServingConfig) -> Optional[Dict[str, Any]]:
         record_history=config.record_history)
 
 
-NOT_PORTED_PATHS = ("sharded", "distributed", "decode")
+NOT_PORTED_PATHS = ("sharded", "distributed")
 
 
 def _not_ported(path: str) -> NotImplementedError:
@@ -577,7 +580,9 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
     ``mesh``, ``exchange``, ``init_state`` and ``stream_offset`` are the
     reference's runtime resources of the sharded and distributed paths,
     which are not ported: passing one raises ``NotImplementedError``, as
-    does a config that resolves to those paths or to decode.
+    does a config that resolves to those paths. A `DecodeRuntime` needs
+    a decode config (``workload="decode"``), and a decode config needs
+    a `DecodeRuntime`.
 
     Any extra keyword arguments are `ServingConfig` field overrides:
     ``serve(rt, p, s, c, batch_size=32)`` replaces the field on the
@@ -588,6 +593,11 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
     if overrides:
         config = dataclasses.replace(config, **overrides)
     path = config.resolved_path()
+    if isinstance(runtime, DecodeRuntime) and path != "decode":
+        raise ValueError(
+            f"runtime is a DecodeRuntime but the config resolves to "
+            f"path={path!r}; set ServingConfig(workload='decode', "
+            f"max_new_tokens=...)")
     if mesh is not None or exchange is not None or init_state is not None \
             or stream_offset:
         raise NotImplementedError(
@@ -604,6 +614,19 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
                                        config.max_samples or None):
             eng.submit(sample)
         return eng.close()
+    if path == "decode":
+        t0 = time.perf_counter()
+        raw = _serve_stream_decode(
+            runtime, params, stream, cost,
+            batch_size=config.batch_size,
+            max_new_tokens=config.max_new_tokens,
+            split_policy=config.split_policy, beta=config.beta,
+            max_samples=config.max_samples,
+            controller_kwargs=_controller_kwargs(config),
+            codec=_codec_from_config(config))
+        return ServeReport.from_raw(
+            raw, path=path, num_layers=cost.num_layers,
+            wall_s=time.perf_counter() - t0)
     common = dict(side_info=config.side_info, beta=config.beta,
                   max_samples=config.max_samples,
                   labels_for_accounting=config.labels_for_accounting,
@@ -635,13 +658,25 @@ def _build_session(runtime, params, cost: CostModel, config: ServingConfig):
     path = c.resolved_path()
     if path in NOT_PORTED_PATHS:
         raise _not_ported(path)
+    ctl_kw = _controller_kwargs(c)
+    codec = _codec_from_config(c)
+    if path == "decode":
+        sess = _DecodeSession(
+            runtime, params, cost, batch_size=c.batch_size,
+            max_new_tokens=c.max_new_tokens, split_policy=c.split_policy,
+            beta=c.beta, controller_kwargs=ctl_kw, codec=codec)
+        return sess, path
+    if isinstance(runtime, DecodeRuntime):
+        raise ValueError(
+            f"runtime is a DecodeRuntime but the config resolves to "
+            f"path={path!r}; set ServingConfig(workload='decode', "
+            f"max_new_tokens=...)")
     sess = _BatchedSession(
         runtime, params, cost, batch_size=c.batch_size,
         side_info=c.side_info, beta=c.beta,
         labels_for_accounting=c.labels_for_accounting,
         record_trace=c.record_trace, edge_mode=c.edge_mode,
-        controller_kwargs=_controller_kwargs(c),
-        codec=_codec_from_config(c))
+        controller_kwargs=ctl_kw, codec=codec)
     return sess, path
 
 
@@ -664,8 +699,10 @@ class Engine:
     the batch sequence `microbatches()` would have produced, a session
     that submits the same samples (with `drain` called once, at the end)
     is **bit-identical** to the one-shot `serve()` call. Sequential
-    configs are served through the batched machinery at ``B=1``. Configs
-    of the unported paths raise ``NotImplementedError``.
+    configs are served through the batched machinery at ``B=1``; decode
+    configs through `_DecodeSession` (a push prefills and generates one
+    micro-batch). Configs of the unported paths raise
+    ``NotImplementedError``.
 
     With ``config.scheduler="fifo"`` submits are routed through a
     `RequestScheduler` (serving/scheduler.py) instead of the plain
@@ -873,8 +910,8 @@ class Engine:
 @dataclasses.dataclass(frozen=True)
 class TenantSpec:
     """Everything one tenant brings to a shared engine: its model runtime
-    (an `EdgeCloudRuntime`; families can be mixed freely across
-    tenants), parameters, cost model, and the
+    (classifier `EdgeCloudRuntime` or `DecodeRuntime`; families can be
+    mixed freely across tenants), parameters, cost model, and the
     per-tenant `ServingConfig` describing its session (batch size, policy
     knobs, workload). Scheduler fields stay on the shared engine — a
     tenant config asking for its own scheduler is rejected."""

@@ -97,6 +97,38 @@ def test_tensor_core_tile_counted_per_launch(rows, tile):
 BF16, F32 = torch.bfloat16, torch.float32
 
 
+@pytest.mark.parametrize("rows,d,v,tile,row_tiles", [
+    (28, 2048, 151936, "mma_sync", 1),     # qwen3-1.7b, B = 1: 28 exits
+    (224, 2048, 151936, "wgmma", 2),       # B = 8: 128 + a partial 96
+    (32, 2560, 65536, "mma_sync", 1),      # rwkv6-3b, B = 1: 32 exits
+    (256, 2560, 65536, "wgmma", 2),        # B = 8
+])
+def test_decode_step_exit_launch(rows, d, v, tile, row_tiles):
+    """A decode edge step scores L x B exit rows at the LM head in one
+    launch: bf16 aligned rows take the tensor-core variant, the mma.sync
+    tile up to 32 rows and wgmma above (224 = 128 + 96 leaves a partial
+    row tile), and the plan covers every column of the vocabulary once."""
+    assert exit_variant(BF16, d, v, True) == "tensor_core"
+    assert exit_kernel.tc_tile(rows) == tile
+    pl = plan(1, rows, v, H100_SMS, *tile_shape("tensor_core", rows))
+    assert -(-rows // pl.rows_per_tile) == row_tiles
+    assert pl.cols_per_split % exit_kernel.TC_COLS == 0
+    assert (pl.splits - 1) * pl.cols_per_split < v <= \
+        pl.splits * pl.cols_per_split
+    assert exit_variant(F32, d, v, True) == "cuda_core"   # the f32 cut
+
+
+@pytest.mark.parametrize("dtype,aligned,want", [
+    (BF16, True, "tensor_core"), (BF16, False, "cuda_core"),
+    (F32, True, "cuda_core")])
+def test_qwen3_prefill_attention_variant(dtype, aligned, want):
+    """qwen3-1.7b's prefill attention: head dim 128, 16 query and 8 KV
+    heads (GQA resolved by index in the kernel)."""
+    q = torch.zeros((8, 64, 16, 128), dtype=dtype).transpose(1, 2)
+    assert rows_aligned(q)
+    assert attention_variant(dtype, 128, aligned) == want
+
+
 @pytest.mark.parametrize("dtype,d,v,aligned,want", [
     (BF16, 768, 2, True, "small_head"),          # ElasticBERT exits
     (F32, 768, 2, True, "small_head"),

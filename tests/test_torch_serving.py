@@ -142,16 +142,16 @@ def test_offload_bytes_follow_activation_dtype():
 
 def test_unported_options_raise():
     """The options that stay unported raise through `serve()` rather than
-    fall back: the sharded path, distributed serving, decode and an
-    explicit mesh. (The scan edge phase and the offload codec are ported:
-    tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py.)"""
+    fall back: the sharded path, distributed serving and an explicit
+    mesh. (The scan edge phase, the offload codec and decode are ported:
+    tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py,
+    tests/test_torch_decode_serving.py.)"""
     tcfg = t_get_smoke_config("elasticbert12")
     rt = EdgeCloudRuntime(tcfg, device="cpu")
     cost = CostModel(num_layers=tcfg.num_layers)
     for config, resources in (
             (ServingConfig(batch_size=8, replicas=2), {}),
             (ServingConfig(distributed=True), {}),
-            (ServingConfig(workload="decode", max_new_tokens=2), {}),
             (ServingConfig(batch_size=8), {"mesh": object()})):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             serve(rt, None, [], cost, config, **resources)

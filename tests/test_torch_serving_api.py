@@ -338,26 +338,32 @@ def test_request_scheduler_matches_reference():
     assert got.shed > 0 and got.served > 0
 
 
+NOT_PORTED = (NotImplementedError, "not ported yet")
 UNPORTED = [
-    (dict(replicas=2), {}), (dict(mesh=True), {}),
-    (dict(path="sharded"), {}), (dict(distributed=True), {}),
-    (dict(workload="decode", max_new_tokens=2), {}),
-    (dict(batch_size=8), dict(mesh=object())),
-    (dict(batch_size=8), dict(exchange=object())),
-    (dict(batch_size=8), dict(init_state={})),
-    (dict(batch_size=8), dict(stream_offset=4)),
+    (dict(replicas=2), {}, NOT_PORTED), (dict(mesh=True), {}, NOT_PORTED),
+    (dict(path="sharded"), {}, NOT_PORTED),
+    (dict(distributed=True), {}, NOT_PORTED),
+    # decode is ported: a classifier runtime under a decode config raises
+    # the reference's type error
+    (dict(workload="decode", max_new_tokens=2), {},
+     (TypeError, "workload='decode' needs a DecodeRuntime")),
+    (dict(batch_size=8), dict(mesh=object()), NOT_PORTED),
+    (dict(batch_size=8), dict(exchange=object()), NOT_PORTED),
+    (dict(batch_size=8), dict(init_state={}), NOT_PORTED),
+    (dict(batch_size=8), dict(stream_offset=4), NOT_PORTED),
 ]
 
 
-@pytest.mark.parametrize("kwargs,resources", UNPORTED)
-def test_unported_paths_raise(bed, kwargs, resources):
+@pytest.mark.parametrize("kwargs,resources,expect", UNPORTED)
+def test_unported_paths_raise(bed, kwargs, resources, expect):
     b = bed["elasticbert12"]
     config = ServingConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    exc, match = expect
+    with pytest.raises(exc, match=match):
         serve(b["trt"], b["tp"], _streams()[1], b["tcost"], config,
               **resources)
     if not resources and config.resolved_path() != "distributed":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(exc, match=match):
             Engine(b["trt"], b["tp"], b["tcost"], config)
 
 

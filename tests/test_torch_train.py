@@ -301,10 +301,23 @@ def test_model_facade():
                                        torch.full((4,), tcfg.num_layers - 1))
     assert torch.equal(a["conf"], b["conf"])
     assert torch.equal(m["pred"], a["pred"])
-    for name in ("prefill", "init_caches", "decode_step",
-                 "decode_step_masked", "decode_step_resume"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            getattr(model, name)(params)
+    # decode runs (tests/test_torch_decode.py holds it to the reference)
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": toks},
+                                       cache_seq_len=toks.shape[1] + 1)
+        assert model.init_caches(4, toks.shape[1] + 1, device="cpu")[
+            "attn"]["k"].shape == caches["attn"]["k"].shape
+        tok = logits.argmax(-1)
+        depths = torch.full((4,), tcfg.num_layers - 1)
+        step = model.decode_step(params, caches, tok, toks.shape[1],
+                                 all_exits=True)
+        edge = model.decode_step_masked(params, caches, tok, toks.shape[1],
+                                        depths)
+        cloud = model.decode_step_resume(params, caches, edge[3],
+                                         toks.shape[1], depths,
+                                         torch.ones(4, dtype=torch.bool))
+    assert torch.equal(step[0], edge[0])
+    assert cloud[0].shape == step[0].shape
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(dataclasses.replace(tcfg, family="moe"))
 
