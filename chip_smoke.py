@@ -22,14 +22,18 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    tensor-core variant (bf16, d 64 and 128) and the CUDA-core one (f32,
    d 16/32/48) at the serving shape and at long/ragged sequences, causal
    + window, GQA, suffix queries, strided q, keys past their length set
-   to NaN and fully masked rows, and the qwen3-1.7b decode prefill (8,
-   16, 64, 128) causal GQA. Exit confidence: small-head (V = 2 and
-   40, grouped), tensor-core (the rwkv6-3b LM head (32, 2560) x (2560,
+   to NaN and fully masked rows, the qwen3-1.7b decode prefill (8,
+   16, 64, 128) causal GQA, zamba2-1.2b's shared block (32|8, 32, 64,
+   64) causal MHA and phi3.5-moe's attention (32|8, 32/8, 64, 128)
+   causal GQA (served and prefilled). Exit confidence: small-head (V =
+   2 and 40, grouped), tensor-core (the rwkv6-3b LM head (32, 2560) x (2560,
    65536), the SplitEE-S shape (1024, 2560) x (2560, 65536), the scan
    edge of a 17-row tail (544, 2560) x (2560, 65536), a decode step's
    exits (224 and 28, 2048) x (2048, 151936) and (256, 2560) x (2560,
-   65536), V = 151936,
-   a head bias, plain and fused with rms/layer norm and shared/per-row
+   65536), V = 151936, zamba2's head (32|1216|304|38, 2048) x (2048,
+   32000) and phi3.5-moe's (32|512|128, 4096) x (4096, 32064), whose
+   last 128-column tile holds 64 columns (the argmax and exact ties put
+   in it, in the last full tile and across the two), a head bias, plain and fused with rms/layer norm and shared/per-row
    parameters) and CUDA-core (f32) variants, conf at an LM head held at a
    tolerance scaled to its size that must reject a halved conf and one
    vocabulary split left out, and exact ties (the lowest index wins)
@@ -53,25 +57,32 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    `Engine` with the fifo scheduler fed in ragged chunks (its decisions
    must equal the one-shot scan run's; its p50/p99 latency is printed);
    then the same runs with full-width rwkv6-3b (32 layers, d 2560, vocab
-   65536, bfloat16). Each run has its own launch counts, per kernel, per
-   variant and per tensor-core tile, reset just before it and read just
-   after: they must equal the launches its decisions need
-   (`expected_launches`: bucketed, one edge call per distinct split depth
-   of a micro-batch; scan, one masked forward through all L layers;
-   "auto", scan for a micro-batch of >= 2 distinct arms; one cloud call
-   per distinct depth of its offloaded samples), and every launch must
+   65536, bfloat16) and full-width zamba2-1.2b (38 Mamba2 layers, d
+   2048, one shared attention + MLP block after every 6th, vocab 32000,
+   bfloat16; alpha its median layer-19 confidence). Each run has its
+   own launch counts, per kernel, per variant and per tensor-core tile,
+   reset just before it and read just after: they must equal the
+   launches its decisions need (`expected_launches`: bucketed, one edge
+   call per distinct split depth of a micro-batch; scan, one masked
+   forward through all L layers (a hybrid's attention launches only at
+   the layers its shared block follows); "auto", scan for a micro-batch
+   of >= 2 distinct arms; one cloud call per distinct depth of its
+   offloaded samples), and every launch must
    have taken the variant SERVE_VARIANTS names. A codec run's offload
    bytes must be its offloads times the codec's wire bytes per row. It
    prints samples/s and device busy time (torch.profiler) of scan against
    bucketed at B=32, and how many decisions differ between them. It then
    checks the card against the port's CPU (plain-version) path: full-width
    `forward_exits` and `forward_exits_masked` in float32 (ElasticBERT-12
-   at all 12 layers, rwkv6-3b cut to 8; rwkv6-3b at all 32 layers against
-   a float64 CPU reading, WITNESS_FACTOR), the offload codec bitwise in
-   every mode, and the served decisions of a small float32 model of each
-   family (bucketed, scan, auto, int8);
+   at all 12 layers, rwkv6-3b cut to 8, zamba2-1.2b cut to 12: two
+   shared blocks; rwkv6-3b at all 32 layers against a float64 CPU
+   reading, WITNESS_FACTOR), the offload codec bitwise in every mode,
+   and the served decisions of a small float32 model of each family
+   (bucketed, scan, auto, int8); for zamba2 and an MoE it prints the
+   device time inside the plain-PyTorch blocks (Mamba2 and its SSD, the
+   MoE dispatch) beside the run's busy time;
 6. serves autoregressive decode (``workload="decode"``) with full-width
-   qwen3-1.7b, then full-width rwkv6-3b (bfloat16, weights and 64
+   qwen3-1.7b, rwkv6-3b and zamba2-1.2b (bfloat16, weights and 64
    prompts of 64 tokens from ``--seed``, 32 new tokens each, alpha the
    median layer-L/2 confidence of a first edge step): bandit,
    forced-final and int8 + error feedback at B = 8, bandit at B = 1 on 4
@@ -86,8 +97,16 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    that the bandit ledger replayed from a fresh prefill regenerates its
    tokens, and that an offload at quant "none" re-syncs to the full
    step bitwise, and holds the card against the CPU on the weights cut
-   to 4 layers in float32 (logits and confidences within
-   LM_FORWARD_RTOL, tokens equal but at near-ties);
+   to 4 layers (zamba2: 6, one shared block) in float32 (logits and
+   confidences within LM_FORWARD_RTOL, tokens equal but at near-ties);
+   then phi3.5-moe at its published widths and 16 of its 32 layers
+   (42.1 GB of bf16 weights from ``--seed``; the whole model does not
+   fit the card): `serve()` bucketed and scan at B = 32 on 256 samples,
+   card vs CPU on its first 2 layers in float32 (its routing too: the
+   same dropped entries per MoE call, a top-2 flip printed and allowed
+   only at a near-tie), decode bandit and forced-final at B = 8 on 16
+   prompts x 16 new tokens with the same pins and agreement, every
+   run's launches held as above;
 7. trains full-width ElasticBERT-12 (12 layers, d 768, the synthetic
    vocabulary of 512, 2 classes, float32) on the card: attention's
    gradient (the kernel's forward and `attention_backward`) against
@@ -204,8 +223,10 @@ MAIN_PATH = {"flash_attention": "batched B=32",
 # the __global__ functions of the port's CUDA sources, in profiler names
 PORT_KERNEL = re.compile(r"(exit_confidence\w*|exit_norm_rows_kernel|"
                          r"wkv6_kernel|flash_attention\w*)")
-# the kernel of every layer, by model family
-LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
+# the kernel of every layer, by model family (a hybrid's: of its shared
+# attention block, which runs after every k-th layer only)
+LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6",
+                "hybrid": "flash_attention", "moe": "flash_attention"}
 # the variant every launch of a kernel must take in a bf16 serve run, by
 # model family: attention at d 64 and the LM head on the tensor cores, the
 # 2-class heads on the small-head variant, WKV6 on 16-byte cp.async rows
@@ -222,18 +243,49 @@ DECODE_ENGINE_CHUNKS = (5, 1, 7, 3, 8)
 DECODE_PROFILE_TOKENS = 8
 DECODE_AGREE_LAYERS = 4
 DECODE_AGREE_STEPS = 4
-DECODE_ARCHS = ("qwen3-1.7b", LM)
+# the hybrid served at full width and depth: alpha the median confidence
+# of its layer 19 of 38; its card-vs-CPU forward cut holds two shared
+# attention occurrences
+HYBRID = "zamba2-1.2b"
+HYBRID_ALPHA_LAYER = 19
+HYBRID_AGREE_LAYERS = 12
+# the decoded archs and the layers of their card-vs-CPU cut (zamba2's must
+# hold its shared attention block, which follows the 6th layer)
+DECODE_ARCHS = (("qwen3-1.7b", DECODE_AGREE_LAYERS),
+                (LM, DECODE_AGREE_LAYERS), (HYBRID, 6))
+# the MoE at its published widths and 16 of its 32 layers (the whole
+# model, 83.7 GB in bf16, does not fit one 80 GB card): serve() bucketed
+# and scan on MOE_SAMPLES samples, decode of MOE_PROMPTS prompts x
+# MOE_TOKENS new tokens, and card vs CPU on the first 2 layers
+MOE = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 16
+MOE_SAMPLES = 256
+MOE_PROMPTS = 16
+MOE_TOKENS = 16
+MOE_AGREE_LAYERS = 2
 # the variant every launch of a decode run must take: attention at d 128
 # and the LM-head exits on the tensor cores, WKV6 on 16-byte rows
 DECODE_VARIANTS = {"dense": {"flash_attention": "tensor_core",
                              "exit_confidence": "tensor_core"},
                    "ssm": {"wkv6": "vec16",
+                           "exit_confidence": "tensor_core"},
+                   "hybrid": {"flash_attention": "tensor_core",
+                              "exit_confidence": "tensor_core"},
+                   "moe": {"flash_attention": "tensor_core",
                            "exit_confidence": "tensor_core"}}
 SERVE_VARIANTS = {
     "dense": {"flash_attention": "tensor_core",
               "exit_confidence": "small_head",
               "exit_confidence_fused": "small_head"},
     "ssm": {"wkv6": "vec16",
+            "exit_confidence": "tensor_core",
+            "exit_confidence_fused": "tensor_core"},
+    # zamba2's shared block (d 64) and phi3.5-moe's attention (d 128) on
+    # the tensor cores, as their LM heads
+    "hybrid": {"flash_attention": "tensor_core",
+               "exit_confidence": "tensor_core",
+               "exit_confidence_fused": "tensor_core"},
+    "moe": {"flash_attention": "tensor_core",
             "exit_confidence": "tensor_core",
             "exit_confidence_fused": "tensor_core"}}
 
@@ -278,6 +330,75 @@ def device_ms(fn, iters: int = 50, warmup: int = 5):
     if total <= 0:
         fail("torch.profiler recorded no device time")
     return total, per_kernel
+
+
+# the plain-PyTorch blocks of a family (no kernel of the port: the
+# reference runs them in plain XLA), wrapped in profiler ranges for one
+# profiled run so that their device time can be read beside the kernels';
+# a serve run's range profile covers its first RANGE_SAMPLES samples (the
+# host-side trace of a whole run takes minutes)
+RANGE_SAMPLES = 64
+PROFILE_RANGES = {
+    "hybrid": (("repro_torch.models.mamba2", "mamba2_forward"),
+               ("repro_torch.models.mamba2", "_ssd_chunked")),
+    "moe": (("repro_torch.models.mlp", "moe_forward"),
+            ("repro_torch.models.mlp", "moe_route"))}
+
+
+def range_device_ms(fn, family: str):
+    """One call of ``fn`` profiled with CPU and CUDA activities while the
+    family's PROFILE_RANGES functions run inside
+    ``torch.profiler.record_function`` ranges of their names. Returns
+    ({range: device ms}, device ms of the whole call): the device time
+    of a range is that of the kernels launched by the host ops inside
+    it (the CPU-side range event's, not the device-side annotation's,
+    whose span would count the idle gaps between its kernels), the
+    call's that of every kernel and copy its top-level host ops launch.
+    The functions are restored afterwards."""
+    import importlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    patched = []
+    for mod_name, attr in PROFILE_RANGES[family]:
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, attr)
+
+        def wrapped(*a, _orig=orig, _name=attr, **k):
+            with record_function(_name):
+                return _orig(*a, **k)
+        setattr(mod, attr, wrapped)
+        patched.append((mod, attr, orig))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in patched:
+            setattr(mod, attr, orig)
+    names = {attr for _, attr in PROFILE_RANGES[family]}
+    out, total = dict.fromkeys(sorted(names), 0.0), 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        if ev.name in names:
+            out[ev.name] += ev.device_time_total / 1e3
+        if ev.cpu_parent is None:
+            total += ev.device_time_total / 1e3
+    return out, total
+
+
+def print_ranges(name, family, fn):
+    """The device time of the family's plain-PyTorch blocks in one
+    profiled call of ``fn``, beside the call's whole device time."""
+    ranges, total = range_device_ms(fn, family)
+    print(f"  {name}: device time inside the plain-PyTorch blocks "
+          f"(torch.profiler ranges over one call): " + ", ".join(
+              f"{k} {ranges[k]:.3f} ms ({ranges[k] / total:.1%})"
+              for _, k in PROFILE_RANGES[family])
+          + f" of the call's {total:.3f} ms of device time")
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
@@ -535,6 +656,17 @@ def attention_checks(torch, dev):
         # KV heads of 128, causal
         ("qwen3_prefill_bf16", tc, 8, 16, 8, 64, 64, 128, True, 0,
          "bfloat16"),
+        # zamba2-1.2b's shared block (causal MHA, 32 heads of 64) served at
+        # B = 32 and in the decode prefill at B = 8; phi3.5-moe's attention
+        # (causal GQA 32/8, head dim 128) likewise
+        ("zamba2_serve_bf16", tc, 32, 32, 32, 64, 64, 64, True, 0,
+         "bfloat16"),
+        ("zamba2_prefill_bf16", tc, 8, 32, 32, 64, 64, 64, True, 0,
+         "bfloat16"),
+        ("phi35_serve_bf16", tc, 32, 32, 8, 64, 64, 128, True, 0,
+         "bfloat16"),
+        ("phi35_prefill_bf16", tc, 8, 32, 8, 64, 64, 128, True, 0,
+         "bfloat16"),
         ("suffix_q_f32", cc, 2, 4, 4, 7, 90, 32, True, 0, "float32"),
         ("d16_bf16", cc, 2, 4, 4, 70, 70, 16, False, 0, "bfloat16"),
         ("d48_causal_bf16", cc, 2, 4, 2, 70, 70, 48, True, 0, "bfloat16"),
@@ -596,23 +728,29 @@ def attention_checks(torch, dev):
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "bfloat16",
         variant=tc)
-    # bytes: q and the output (16 heads), k and v (8 heads); operations:
+    # bytes: q and the output (Hq heads), k and v (Hkv heads); operations:
     # the causal half of the two products
-    q, k, v, err = out["qwen3_prefill_bf16"]
-    b, h, s, d = q.shape
-    rec["at_qwen3_prefill"] = record(
-        "flash_attention",
-        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:80",
-        f"q ({b},{h},{s},{d}), k/v ({b},{k.shape[1]},{s},{d}) bfloat16, "
-        f"causal GQA", err,
-        lambda: via("flash_attention", tc,
-                    lambda: attention(q, k, v, causal=True)),
-        lambda: gqa_ref(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True),
-        2 * (q.numel() + k.numel()) * q.element_size(),
-        2.0 * b * h * s * s * d, "bfloat16", variant=tc)
+    for key, case in (("at_qwen3_prefill", "qwen3_prefill_bf16"),
+                      ("at_zamba2_serve", "zamba2_serve_bf16"),
+                      ("at_zamba2_prefill", "zamba2_prefill_bf16"),
+                      ("at_phi35_serve", "phi35_serve_bf16"),
+                      ("at_phi35_prefill", "phi35_prefill_bf16")):
+        q, k, v, err = out[case]
+        b, h, s, d = q.shape
+        gqa = k.shape[1] != h
+        rec[key] = record(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:80",
+            f"q ({b},{h},{s},{d}), k/v ({b},{k.shape[1]},{s},{d}) bfloat16, "
+            f"causal {'GQA' if gqa else 'MHA'}", err,
+            lambda: via("flash_attention", tc,
+                        lambda: attention(q, k, v, causal=True)),
+            lambda: gqa_ref(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=gqa),
+            2 * (q.numel() + k.numel()) * q.element_size(),
+            2.0 * b * h * s * s * d, "bfloat16", variant=tc)
     return rec
 
 
@@ -932,7 +1070,103 @@ def exit_checks(torch, dev):
             h_d.numel() * 2 + w_d.numel() * 2 + m * 8, 2.0 * m * d * v,
             "bfloat16", **few)
     del w_q
+    new_vocabulary_checks(torch, dev, rnd, plain_case, fused_case, rec_plain,
+                          rec_fused, few)
     return rec_plain, rec_fused
+
+
+def new_vocabulary_checks(torch, dev, rnd, plain_case, fused_case, rec_plain,
+                          rec_fused, few):
+    """The exit at zamba2-1.2b's head (D 2048, V 32000: 250 whole column
+    tiles) and phi3.5-moe's (D 4096, V 32064 = 250 x 128 + 64: the first
+    vocabulary whose last 128-column tile is partial), at every shape the
+    new paths give it: a bucketed edge (32 rows, mma.sync), the scan edge
+    of a B = 32 micro-batch (38 x 32 = 1216 and 16 x 32 = 512 rows,
+    wgmma), decode steps (38 x 8 = 304 and 38 rows for zamba2, 16 x 8 =
+    128 for phi3.5, wgmma), plain and fused (rmsnorm; shared and per-row
+    parameters). At V = 32064 the argmax and exact ties are placed in the
+    partial last tile, in the last full tile and across their boundary:
+    the lowest index must win, through both tiles, plain and fused.
+    Every shape is timed against its plain version and one library
+    call; its entries are ``at_*`` of the exit records."""
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_confidence, exit_confidence_fused)
+    from repro_torch.kernels.exit_confidence.ref import (
+        exit_confidence_fused_ref, exit_confidence_ref)
+    bf16 = torch.bfloat16
+    src = "src/repro_torch/kernels/exit_confidence/csrc/exit_confidence.cu"
+    heads = {"zamba2": (2048, 32000, 38), "phi35": (4096, 32064, 16)}
+    for name, (d, v, layers) in heads.items():
+        w = rnd(d, v, scale=d ** -0.5).to(bf16)
+        plain_shapes = [(f"at_{name}_lm_head", 32, "mma_sync"),
+                        (f"at_{name}_scan", layers * 32, "wgmma"),
+                        (f"at_decode_{name}_b8", layers * 8, "wgmma")]
+        if layers > 32:
+            plain_shapes.append((f"at_decode_{name}_b1", layers, "wgmma"))
+        for key, m, tile in plain_shapes:
+            h = rnd(m, d).to(bf16)
+            err = plain_case(f"{key[3:]}_bf16", h, w, "bfloat16", lm=True,
+                             tile=tile)
+            rec_plain[key] = record(
+                "exit_confidence", src,
+                "src/repro/kernels/exit_confidence/kernel.py:100",
+                f"h ({m},{d}) @ w ({d},{v}) bfloat16", err,
+                lambda: exit_confidence(h, w),
+                lambda: exit_confidence_ref(h, w),
+                lambda: torch.softmax(h @ w, dim=-1).max(dim=-1),
+                h.numel() * 2 + w.numel() * 2 + m * 8, 2.0 * m * d * v,
+                "bfloat16", **few)
+        for key, m, tile, per_row in (
+                (f"at_{name}_lm_head", 32, "mma_sync", False),
+                (f"at_{name}_scan", layers * 32, "wgmma", True)):
+            x = (rnd(m, d, scale=2.0) + 0.5).to(bf16)
+            norm = {"scale": (rnd(*((m,) if per_row else ()), d, scale=0.1)
+                              + 1.0).to(bf16)}
+            err = fused_case(f"rmsnorm_{key[3:]}_bf16", x, norm, w, None,
+                             "rmsnorm", "bfloat16", lm=True, tile=tile)
+            rows = f"per-row ({m},{d})" if per_row else "shared (D,)"
+            rec_fused[key] = record(
+                "exit_confidence_fused", src,
+                "src/repro/kernels/exit_confidence/kernel.py:186",
+                f"rmsnorm x ({m},{d}), {rows} params, w ({d},{v}) bfloat16",
+                err,
+                lambda: exit_confidence_fused(x, norm, w, kind="rmsnorm"),
+                lambda: exit_confidence_fused_ref(x, norm, w,
+                                                  kind="rmsnorm"),
+                None, x.numel() * 2 + w.numel() * 2 + m * 8
+                + norm["scale"].numel() * 2,
+                2.0 * m * d * v + 4.0 * m * d, "bfloat16", **few)
+        del w
+
+    # the partial last tile of V = 32064: columns 32000..32063
+    d, v = 64, 32064
+    ties = {"argmax at the last column": [32063],
+            "tie in the partial last tile": [32001, 32063],
+            "tie in the last full tile": [31873, 31999],
+            "tie across the last two tiles": [31999, 32000]}
+    for m in (32, 512):
+        h_tie = torch.ones((m, d), device=dev, dtype=bf16)
+        ones = {"scale": torch.ones(d, device=dev, dtype=bf16)}
+        for what, cols in ties.items():
+            w_tie = torch.zeros((d, v), device=dev, dtype=bf16)
+            w_tie[:, cols] = 2.0
+            want = exit_confidence_ref(h_tie, w_tie)[0]
+            for kname, call in (
+                    ("exit_confidence",
+                     lambda: exit_confidence(h_tie, w_tie)),
+                    ("exit_confidence_fused",
+                     lambda: exit_confidence_fused(h_tie, ones, w_tie,
+                                                   kind="rmsnorm"))):
+                conf, pred = via(kname, "tensor_core", call,
+                                 "mma_sync" if m <= 32 else "wgmma")
+                if not (pred == min(cols)).all():
+                    fail(f"{kname} at V = {v}, {what}, M = {m}: pred "
+                         f"{pred.unique().tolist()} != {min(cols)}")
+                check_close(f"{kname}[V {v}, {what}, M={m}]", conf, want,
+                            "float32")
+    print(f"  exit_confidence(+fused) at V = {v} (250 x 128 + 64), M = 32 "
+          f"(mma.sync) and 512 (wgmma): {', '.join(ties)}: the lowest index "
+          f"wins")
 
 
 def wkv6_checks(torch, dev):
@@ -1068,20 +1302,30 @@ def arm_histogram(arms, num_layers):
     return np.bincount(np.asarray(arms), minlength=num_layers).tolist()
 
 
-def expected_launches(arms, exited, batch_size: int, num_layers: int,
-                      fused: bool, layer_kernel: str, *,
+def layer_launches(cfg, start: int, stop: int) -> int:
+    """Launches of the family's layer kernel by layers start..stop-1: one
+    a layer, but a hybrid's only after the layers its shared attention
+    block follows ((i+1) % k == 0)."""
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        return sum(1 for i in range(start, stop) if (i + 1) % k == 0)
+    return stop - start
+
+
+def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
                       edge_mode: str = "bucketed", side_info: bool = False,
                       lm_head: bool = False):
     """Kernel launches the serving drivers make for these decisions.
 
     Per micro-batch, the edge: bucketed, one edge call per distinct arm a
-    (a+1 launches of the family's layer kernel and one exit launch;
-    SplitEE-S scores every exit in that one launch); scan, one masked
-    forward (L layer-kernel launches and one exit launch over every
-    exit); "auto" takes the scan for a micro-batch with >= 2 distinct
-    arms, else the bucketed edge. The cloud: one call per distinct arm
-    among the offloaded samples (L-1-a layers and the final head, never
-    fused). The sequential driver is micro-batches of one.
+    (the layer-kernel launches of layers 0..a, `layer_launches`, and one
+    exit launch; SplitEE-S scores every exit in that one launch); scan,
+    one masked forward (all L layers' layer-kernel launches and one exit
+    launch over every exit); "auto" takes the scan for a micro-batch
+    with >= 2 distinct arms, else the bucketed edge. The cloud: one call
+    per distinct arm among the offloaded samples (layers a+1..L-1 and the
+    final head, never fused). The sequential driver is micro-batches of
+    one.
 
     Returns (launches by kernel, launches by "<kernel>/tensor_core/<tile>"
     at a shared LM head (``lm_head``; else empty), {rows: launches} of
@@ -1089,6 +1333,7 @@ def expected_launches(arms, exited, batch_size: int, num_layers: int,
     SplitEE-S or scan edge call, pow2-padded bucket rows otherwise."""
     import numpy as np
     from repro_torch.kernels.exit_confidence.kernel import tc_tile
+    num_layers, layer_kernel = cfg.num_layers, LAYER_KERNEL[cfg.family]
     arms = np.asarray(arms)
     offloaded = ~np.asarray(exited).astype(bool)
     n = {name: 0 for name in MAIN_PATH}
@@ -1111,16 +1356,16 @@ def expected_launches(arms, exited, batch_size: int, num_layers: int,
         scan = edge_mode == "scan" or (edge_mode == "auto"
                                        and len(np.unique(mb)) >= 2)
         if scan:
-            n[layer_kernel] += num_layers
+            n[layer_kernel] += layer_launches(cfg, 0, num_layers)
             exit_launch(edge_exit, num_layers * len(mb), True)
         else:
             for a in np.unique(mb):
                 cap = pow2(int(np.sum(mb == a)))
-                n[layer_kernel] += int(a) + 1
+                n[layer_kernel] += layer_launches(cfg, 0, int(a) + 1)
                 exit_launch(edge_exit, num_layers * cap if side_info else cap,
                             True)
         for a in np.unique(mb[off]):
-            n[layer_kernel] += num_layers - 1 - int(a)
+            n[layer_kernel] += layer_launches(cfg, int(a) + 1, num_layers)
             exit_launch("exit_confidence", pow2(int(np.sum(mb[off] == a))),
                         False)
     return n, tiles, wgmma_rows
@@ -1174,9 +1419,8 @@ class Runs:
         lm_head = SERVE_VARIANTS[cfg.family]["exit_confidence"] == \
             "tensor_core"
         want, want_tiles, rows = expected_launches(
-            out["arms"], out["exited"], batch_size, cfg.num_layers, fused,
-            layer_kernel, edge_mode=edge_mode, side_info=side_info,
-            lm_head=lm_head)
+            out["arms"], out["exited"], batch_size, cfg, fused,
+            edge_mode=edge_mode, side_info=side_info, lm_head=lm_head)
         if counts != want:
             fail(f"{name}: kernel launches {counts}, but its decisions "
                  f"need {want}")
@@ -1197,31 +1441,66 @@ class Runs:
         return out, dt, rows
 
 
-def serve_setup(torch, dev, arch: str, alpha_layer: int):
-    """Full-width ``arch`` (bf16, weights from seed 0), the 512-sample
-    stream and the cost model with alpha calibrated through the kernels."""
+def model_config(arch: str, layers: int | None = None):
+    """``arch`` as published (bf16), cut to its first ``layers`` layers
+    when given."""
     from repro_torch.configs import get_config
-    from repro_torch.core import CostModel
-    from repro_torch.data import make_dataset
-    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
 
-    cfg = get_config(arch)                            # as published, bf16
+
+def describe_heads(cfg) -> str:
+    if cfg.family == "ssm":
+        return (f"{cfg.ssm.num_heads or cfg.d_model // cfg.ssm.state_size} "
+                f"WKV heads of {cfg.ssm.state_size}")
+    heads = f"{cfg.num_heads}/{cfg.num_kv_heads} heads of " \
+        f"{cfg.resolved_head_dim}"
+    if cfg.family == "hybrid":
+        return (f"Mamba2 (N {cfg.ssm.state_size}, expand {cfg.ssm.expand}, "
+                f"chunk {cfg.ssm.chunk_size}) + one shared attention block "
+                f"({heads}, d_ff {cfg.d_ff}) run after every "
+                f"{cfg.hybrid_attn_every} layers")
+    if cfg.family == "moe":
+        return (f"{heads}, {cfg.moe.num_experts} experts top-"
+                f"{cfg.moe.top_k} (capacity factor "
+                f"{cfg.moe.capacity_factor})")
+    return heads
+
+
+def init_full(torch, dev, cfg, seed: int):
+    """``cfg``'s parameters from ``seed`` on the card; prints their count,
+    bytes and the init time."""
+    from repro_torch.models.transformer import init_params
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev)
+    params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    heads = (f"{cfg.ssm.num_heads or cfg.d_model // cfg.ssm.state_size} "
-             f"WKV heads of {cfg.ssm.state_size}" if cfg.family == "ssm"
-             else f"{cfg.num_heads} heads")
-    print(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {heads}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+    print(f"  {cfg.arch_id}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{describe_heads(cfg)}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.num_classes or 'LM'} classes, {cfg.dtype}; {n_params} "
           f"stored parameters = {n_bytes / 1e9:.3f} GB (analytic "
           f"param_count {cfg.param_count()}, without the norms), init "
           f"{time.perf_counter() - t0:.2f}s, device memory allocated "
-          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB")
-    data = make_dataset("imdb_like", SERVE_SAMPLES, seed=1)
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    return params
+
+
+def serve_setup(torch, dev, arch: str, alpha_layer: int, *,
+                layers: int | None = None, samples: int = SERVE_SAMPLES,
+                seed: int = 0, params=None):
+    """Full-width ``arch`` (bf16, weights from ``seed``; cut to ``layers``
+    when given, or ``params`` already on the card), the ``samples``-long
+    imdb_like stream and the cost model with alpha calibrated through
+    the kernels."""
+    from repro_torch.core import CostModel
+    from repro_torch.data import make_dataset
+
+    cfg = model_config(arch, layers)
+    if params is None:
+        params = init_full(torch, dev, cfg, seed)
+    data = make_dataset("imdb_like", samples, seed=1)
     calib = make_dataset("sst2_like", 64, seed=2)["tokens"]
     alpha = calibrated_alpha(torch, params, cfg, calib, layer=alpha_layer)
     cost = CostModel(num_layers=cfg.num_layers, alpha=alpha, offload=3.0)
@@ -1262,7 +1541,7 @@ def serve_phase(torch, dev, runs: Runs, params, cfg, data, cost,
     rt = EdgeCloudRuntime(cfg, device=dev)
     runs.run(torch, prefix + "sequential", lambda: _serve_stream_sequential(
         rt, params, OnlineStream(data, seed=0), cost,
-        max_samples=SEQUENTIAL_SAMPLES), cfg, batch_size=1)
+        max_samples=sequential_samples(cfg)), cfg, batch_size=1)
 
     # where the time goes: the device time of one more batched B=32 run
     # (profiled) against the wall time of the unprofiled run above; this
@@ -1273,7 +1552,17 @@ def serve_phase(torch, dev, runs: Runs, params, cfg, data, cost,
         batch_size=SERVE_BATCH, record_trace=True)), iters=1, warmup=0)
     report, wall, _ = out["batched B=32"]
     print_busy(f"{prefix}batched B=32", busy, wall * 1e3, per_kernel)
+    if cfg.family in PROFILE_RANGES:
+        print_ranges(f"{prefix}batched B=32, {RANGE_SAMPLES} samples",
+                     cfg.family, lambda: _serve_stream_batched(
+                         rt, params, OnlineStream(data, seed=0), cost,
+                         batch_size=SERVE_BATCH, max_samples=RANGE_SAMPLES))
     return report, wall, busy, traced[0]
+
+
+def sequential_samples(cfg) -> int:
+    """Samples of a sequential run: enough that every arm is pulled."""
+    return max(SEQUENTIAL_SAMPLES, cfg.num_layers)
 
 
 def print_busy(name, busy, wall_ms, per_kernel):
@@ -1326,8 +1615,8 @@ def front_end_phase(torch, dev, runs: Runs, params, cfg, data, cost,
         ("int4 sparsity 0.5 scan B=32",
          ServingConfig(batch_size=B, edge_mode="scan", offload_quant="int4",
                        offload_sparsity=0.5), False, True),
-        ("sequential int8", ServingConfig(offload_quant="int8",
-                                          max_samples=SEQUENTIAL_SAMPLES),
+        ("sequential int8", ServingConfig(
+            offload_quant="int8", max_samples=sequential_samples(cfg)),
          False, True),
         # one ragged micro-batch of 17 rows
         ("scan B=32 tail 17", dataclasses.replace(scan, max_samples=17),
@@ -1396,6 +1685,12 @@ def front_end_phase(torch, dev, runs: Runs, params, cfg, data, cost,
         dataclasses.replace(scan, record_trace=True))), iters=1, warmup=0)
     rep, wall, _ = out["scan B=32"]
     print_busy(f"{prefix}scan B=32", busy, wall * 1e3, per_kernel)
+    if cfg.family in PROFILE_RANGES:
+        print_ranges(f"{prefix}scan B=32, {RANGE_SAMPLES} samples",
+                     cfg.family, lambda: serve(
+                         rt, params, OnlineStream(data, seed=0), cost,
+                         dataclasses.replace(scan,
+                                             max_samples=RANGE_SAMPLES)))
     b_rep, b_wall, b_busy, b_traced = bucketed
     print(f"  {prefix}B=32 scan vs bucketed: {rep['n'] / wall:.1f} vs "
           f"{b_rep['n'] / b_wall:.1f} samples/s, device busy {busy:.3f} vs "
@@ -1576,13 +1871,16 @@ def lm_depth_witness(torch, dev, params, cfg, data, layers: int,
     return held
 
 
-def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8):
-    """rwkv6-3b at full width, cut to its first ``layers`` layers of the
-    serve phase's weights, in float32: `forward_exits` and
-    `forward_exits_masked` (depths spread over 0..layers-1) on the card
-    (WKV6 and exit kernels) against the CPU (plain versions); then the
-    served decisions of the small float32 rwkv6 model. All 32 layers are
-    held by `lm_depth_witness`, against a float64 CPU reading."""
+def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
+                       witness: bool = True):
+    """An LM at full width (rwkv6-3b, zamba2-1.2b, phi3.5-moe), cut to
+    its first ``layers`` layers of the serve phase's weights, in float32:
+    `forward_exits` and `forward_exits_masked` (depths spread over
+    0..layers-1) on the card (the layer and exit kernels) against the CPU
+    (plain versions), an MoE's routing held by `compare_routes`; then the
+    served decisions of the small float32 model of the arch. With
+    ``witness``, all layers are held by `lm_depth_witness`, against a
+    float64 CPU reading."""
     from repro_torch.models.common import apply_norm
     from repro_torch.models.transformer import (ParamTree, exit_hidden,
                                                 _layer_full, _positions,
@@ -1593,8 +1891,16 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8):
     cut, tree = lm_cut(params, cfg, layers)
     toks = data["tokens"][:8]
     depths = lm_depths(torch, layers)
-    gpu = lm_exit_runs(torch, tree, cut, toks, depths, dev, torch.float32)
-    cpu = lm_exit_runs(torch, tree, cut, toks, depths, "cpu", torch.float32)
+    moe = cfg.family == "moe"
+    with route_records(moe) as routes_gpu:
+        gpu = lm_exit_runs(torch, tree, cut, toks, depths, dev,
+                           torch.float32)
+    with route_records(moe) as routes_cpu:
+        cpu = lm_exit_runs(torch, tree, cut, toks, depths, "cpu",
+                           torch.float32)
+    if moe:
+        compare_routes(f"full-width {cfg.arch_id} cut to {layers} layers",
+                       routes_gpu, routes_cpu)
     cpu_p = ParamTree(_tree_to(tree, "cpu", torch.float32))
     batch = {"tokens": torch.as_tensor(toks)}
 
@@ -1606,7 +1912,8 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8):
         for i in range(layers):
             lp = layer_params(cpu_p["layers"], i)
             x = torch.where(i <= depths.reshape(-1, 1, 1),
-                            _layer_full(cut, lp, x, pos, window=0), x)
+                            _layer_full(cut, cpu_p, lp, x, pos, i,
+                                        window=0)[0], x)
             rows.append(apply_norm(pool_hidden(cut, x), lp["exit_norm"],
                                    cut.norm))
         return _exit_logits(torch.stack(rows), cpu_p["exit_w"])
@@ -1634,8 +1941,68 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8):
     print(f"  [{cfg.arch_id} {layers}-layer float32 agreement: "
           f"{time.perf_counter() - t0:.1f} s wall]")
     del cpu_p
-    lm_depth_witness(torch, dev, params, cfg, data, cfg.num_layers)
+    if witness:
+        lm_depth_witness(torch, dev, params, cfg, data, cfg.num_layers)
     small_serve_agreement(torch, dev, cfg.arch_id, data)
+
+
+@contextlib.contextmanager
+def route_records(active: bool = True):
+    """While active, every `moe_route` call appends its decisions (top-k
+    experts, kept entries and router probabilities, on the CPU) to the
+    yielded list; the function is restored afterwards."""
+    import repro_torch.models.mlp as mlp
+    calls = []
+    if not active:
+        yield calls
+        return
+    orig = mlp.moe_route
+
+    def recording(*a, **k):
+        r = orig(*a, **k)
+        calls.append({key: r[key].detach().cpu()
+                      for key in ("top_e", "keep", "probs")})
+        return r
+    mlp.moe_route = recording
+    try:
+        yield calls
+    finally:
+        mlp.moe_route = orig
+
+
+def compare_routes(name, card, cpu):
+    """An MoE's routing on the card against the CPU's, call by call: the
+    same number of dropped (over-capacity) entries, and the same top-k
+    experts of every token except where the CPU's router probabilities
+    of the two experts that swap lie within PRED_TIE_GAP (a near-tie the
+    rounding may flip), each of which is printed; a flip away from a tie
+    fails."""
+    if len(card) != len(cpu):
+        fail(f"{name}: {len(card)} MoE calls on the card, {len(cpu)} on the "
+             f"CPU")
+    drops = [(int((~a["keep"]).sum()), int((~b["keep"]).sum()))
+             for a, b in zip(card, cpu)]
+    flips = []
+    for call, (a, b) in enumerate(zip(card, cpu)):
+        for t in (a["top_e"] != b["top_e"]).any(-1).nonzero()[:, 0].tolist():
+            ea, eb = a["top_e"][t].tolist(), b["top_e"][t].tolist()
+            swapped = sorted(set(ea) ^ set(eb)) or ea
+            p = b["probs"][t, swapped]
+            gap = float(p.max() - p.min())
+            flips.append((call, t, ea, eb, gap))
+            print(f"    {name}: MoE call {call}, token {t}: top-k "
+                  f"experts {ea} on the card, {eb} on the CPU; CPU router "
+                  f"probability gap {gap:.3e}")
+            if gap >= PRED_TIE_GAP["float32"]:
+                fail(f"{name}: routing flips away from a near-tie (gap "
+                     f"{gap:.3e})")
+    if any(x != y for x, y in drops):
+        fail(f"{name}: dropped entries per MoE call differ card vs CPU: "
+             f"{drops}")
+    print(f"  {name}: MoE routing card vs CPU over {len(cpu)} calls, "
+          f"{sum(int(b['keep'].numel()) for b in cpu)} token-expert "
+          f"entries: dropped entries per call equal "
+          f"{[x for x, _ in drops]}; top-k flips at near-ties {len(flips)}")
 
 
 def codec_agreement(torch, dev):
@@ -1747,30 +2114,34 @@ def small_serve_agreement(torch, dev, arch: str, data):
 
 # ------------------------------------------------------------ decode phase
 
-def decode_expected(cfg, n: int, batch_size: int):
+def decode_expected(cfg, n: int, batch_size: int, tokens: int):
     """Launches a decode run needs, by kernel and by exit tile: a push of
-    ``rows`` prompts makes one attention (dense) or WKV6 (ssm) launch a
-    layer in its prefill, then exactly one exit launch a decode step over
-    its L x rows exit rows (mma.sync up to 32 rows, wgmma above); the
-    one-token layers and the cloud resume launch no port kernel."""
+    ``rows`` prompts makes the layer kernel's launches of all L layers in
+    its prefill (attention or WKV6 once a layer; a hybrid's shared
+    attention once an occurrence), then exactly one exit launch a decode
+    step over its L x rows exit rows (mma.sync up to 32 rows, wgmma
+    above); the one-token layers and the cloud resume launch no port
+    kernel."""
     from repro_torch.kernels.exit_confidence.kernel import tc_tile
     counts = {name: 0 for name in MAIN_PATH}
     tiles = {}
     for start in range(0, n, batch_size):
         rows = min(batch_size, n - start)
-        counts[LAYER_KERNEL[cfg.family]] += cfg.num_layers
-        counts["exit_confidence"] += DECODE_TOKENS
+        counts[LAYER_KERNEL[cfg.family]] += layer_launches(cfg, 0,
+                                                           cfg.num_layers)
+        counts["exit_confidence"] += tokens
         key = f"exit_confidence/tensor_core/{tc_tile(cfg.num_layers * rows)}"
-        tiles[key] = tiles.get(key, 0) + DECODE_TOKENS
+        tiles[key] = tiles.get(key, 0) + tokens
     return counts, tiles
 
 
 def decode_run(torch, runs: Runs, name, fn, cfg, n: int, batch_size: int,
-               *, mixed: bool = True):
-    """``fn()`` serves ``n`` prompts with ``workload="decode"``; its
-    launches, reset just before and read just after, must be
-    `decode_expected`'s, each through DECODE_VARIANTS. ``mixed``: the run
-    must both exit and offload. Returns (report, wall seconds)."""
+               *, mixed: bool = True, tokens: int = DECODE_TOKENS):
+    """``fn()`` serves ``n`` prompts with ``workload="decode"``, ``tokens``
+    new tokens each; its launches, reset just before and read just
+    after, must be `decode_expected`'s, each through DECODE_VARIANTS.
+    ``mixed``: the run must both exit and offload. Returns (report, wall
+    seconds)."""
     import numpy as np
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      tile_launch_counts,
@@ -1790,13 +2161,13 @@ def decode_run(torch, runs: Runs, name, fn, cfg, n: int, batch_size: int,
     exits, offloads = int(dec["exited_steps"].sum()), \
         int(dec["offloaded_steps"].sum())
     toks = dec["tokens"]
-    print(f"  {name}: {dec['sequences']} sequences x {DECODE_TOKENS} tokens "
+    print(f"  {name}: {dec['sequences']} sequences x {tokens} tokens "
           f"in {dt:.3f}s = {toks.size / dt:.1f} tokens/s (session "
           f"{dec['tokens_per_sec']:.1f}); exits {exits}, offloads "
           f"{offloads}, offload wire bytes {rep.offload_bytes}, arms "
           f"{arm_histogram(rep.arms, cfg.num_layers)}; launches {counts}; "
           f"by variant {variants}; by tile {tiles}")
-    if rep.path != "decode" or toks.shape != (n, DECODE_TOKENS) \
+    if rep.path != "decode" or toks.shape != (n, tokens) \
             or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{name}: path {rep.path}, tokens {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
@@ -1806,7 +2177,7 @@ def decode_run(torch, runs: Runs, name, fn, cfg, n: int, batch_size: int,
              f"exited and offloaded")
     if mixed and not (exits and offloads):
         fail(f"{name}: exits {exits}, offloads {offloads}: need both")
-    want, want_tiles = decode_expected(cfg, n, batch_size)
+    want, want_tiles = decode_expected(cfg, n, batch_size, tokens)
     if counts != want or tiles != want_tiles:
         fail(f"{name}: launches {counts} by tile {tiles}, but the decode "
              f"launch model needs {want} by tile {want_tiles}")
@@ -1825,7 +2196,7 @@ def _trees_equal(torch, a, b) -> bool:
 
 
 def decode_pins(torch, dev, rt, params, cfg, prompts, final, bandit,
-                seed: int):
+                seed: int, n_tokens: int = DECODE_TOKENS):
     """The card's own pins, on the first push (8 prompts): forced-final
     serving == a plain `decode_step` loop bitwise (tokens, each step's
     logits, the final cache); the bandit run's recorded depths and
@@ -1836,24 +2207,25 @@ def decode_pins(torch, dev, rt, params, cfg, prompts, final, bandit,
     B, L = DECODE_BATCH, cfg.num_layers
     first = prompts[:B]
     S = first.shape[1]
-    total = S + DECODE_TOKENS
+    total = S + n_tokens
     lg0, caches = rt.prefill_fn(params, first, total)
-    tok, tokens, logits = lg0.argmax(-1), [], []
+    tok, gen_tokens, logits = lg0.argmax(-1), [], []
     with torch.no_grad():
-        for t in range(DECODE_TOKENS):
+        for t in range(n_tokens):
             lg, _, _, caches = decode_step(params, cfg, caches, tok, S + t,
                                            all_exits=True,
                                            window_seq_len=total)
             tok = lg.argmax(-1)
-            tokens.append(tok.cpu().numpy())
+            gen_tokens.append(tok.cpu().numpy())
             logits.append(lg)
-    if not np.array_equal(np.stack(tokens, 1), final.decode["tokens"][:B]):
+    if not np.array_equal(np.stack(gen_tokens, 1),
+                          final.decode["tokens"][:B]):
         fail(f"{cfg.arch_id}: forced-final tokens differ from the plain "
              f"decode_step loop")
     lg0, m_caches = rt.prefill_fn(params, first, total)
     tok = lg0.argmax(-1)
     depths = torch.full((B,), L - 1, device=dev)
-    for t in range(DECODE_TOKENS):
+    for t in range(n_tokens):
         lg, _, _, _, tok, _, m_caches = rt.edge_fn(params, m_caches, tok,
                                                    S + t, depths, total)
         if not torch.equal(lg, logits[t]):
@@ -1866,8 +2238,8 @@ def decode_pins(torch, dev, rt, params, cfg, prompts, final, bandit,
     dec = bandit.decode
     lg0, caches = rt.prefill_fn(params, first, total)
     tok = lg0.argmax(-1)
-    gen = np.zeros((B, DECODE_TOKENS), np.int64)
-    for t in range(DECODE_TOKENS):
+    gen = np.zeros((B, n_tokens), np.int64)
+    for t in range(n_tokens):
         arms = np.asarray(dec["realized_depths"][:B, t])
         d_dev = torch.as_tensor(arms, device=dev)
         _, _, pred, _, pred_fin, hidden, caches = rt.edge_fn(
@@ -1902,35 +2274,46 @@ def decode_pins(torch, dev, rt, params, cfg, prompts, final, bandit,
         fail(f"{cfg.arch_id}: edge + resume at quant none differs from the "
              f"full-depth step")
     print(f"  {cfg.arch_id} on the card, first push of {B}: forced-final == "
-          f"plain decode_step loop bitwise ({DECODE_TOKENS} steps of tokens "
+          f"plain decode_step loop bitwise ({n_tokens} steps of tokens "
           f"and logits, final cache); the bandit ledger replayed from a "
           f"fresh prefill regenerates its tokens "
           f"({int(dec['offloaded_steps'][:B].sum())} offloads); edge at "
           f"depths {depths.tolist()} + resume == the full step bitwise")
 
 
-def decode_agreement(torch, dev, params, cfg, prompts):
-    """The same full-width weights cut to DECODE_AGREE_LAYERS layers in
-    float32, B = 2, on the card and on the CPU: a prefill and
-    DECODE_AGREE_STEPS edge steps at mixed depths with a cloud resume of
-    the rows below the final layer, both sides fed the CPU's tokens.
-    Logits within LM_FORWARD_RTOL of the CPU's largest, exit confidences
-    within LM_FORWARD_RTOL relative, tokens equal but at near-ties."""
+def decode_agreement(torch, dev, params, cfg, prompts,
+                     layers: int = DECODE_AGREE_LAYERS):
+    """The same full-width weights cut to ``layers`` layers in float32,
+    B = 2, on the card and on the CPU: a prefill and DECODE_AGREE_STEPS
+    edge steps at mixed depths with a cloud resume of the rows below the
+    final layer, both sides fed the CPU's tokens. Logits within
+    LM_FORWARD_RTOL of the CPU's largest, exit confidences within
+    LM_FORWARD_RTOL relative, tokens equal but at near-ties; an MoE's
+    routing as `compare_routes` holds it."""
     import numpy as np
     from repro_torch.models.transformer import ParamTree
     from repro_torch.serving import DecodeRuntime
     t0 = time.perf_counter()
-    L = DECODE_AGREE_LAYERS
+    L = layers
     cut, tree = lm_cut(params, cfg, L)
     first = prompts[:2]
     S = first.shape[1]
     total = S + DECODE_AGREE_STEPS
-    sched = np.asarray([[L - 1, 1], [0, L - 1], [L - 2, 2], [L - 1, L - 1]])
+    sched = np.asarray([[L - 1, min(1, L - 1)], [0, L - 1],
+                        [max(L - 2, 0), min(2, L - 1)], [L - 1, L - 1]])
     inputs = []                      # the CPU's token of every step
+    routes = {}
 
     def run(device):
         p = ParamTree(_tree_to(tree, device, torch.float32))
         rt = DecodeRuntime(cut, device=device)
+        with route_records(cfg.family == "moe") as rec:
+            out = steps(p, rt, device)
+        routes[str(device)] = rec
+        del p
+        return out
+
+    def steps(p, rt, device):
         lg, caches = rt.prefill_fn(p, first, total)
         out = {"logits": [lg.cpu()], "conf": [], "tok_logits": []}
         tok = lg.argmax(-1)
@@ -1949,11 +2332,13 @@ def decode_agreement(torch, dev, params, cfg, prompts):
             out["conf"].append(conf.cpu())
             out["tok_logits"].append(final.cpu())
             tok = final.argmax(-1)
-        del p
         return out
 
     cpu = run("cpu")
     card = run(dev)
+    if cfg.family == "moe":
+        compare_routes(f"{cfg.arch_id} decode, {L} layers",
+                       routes[str(dev)], routes["cpu"])
     lg_err = max(((a - b).abs().max() / b.abs().max()).item()
                  for a, b in zip(card["logits"], cpu["logits"]))
     conf_err = max(((a - b).abs() / b).max().item()
@@ -1974,45 +2359,42 @@ def decode_agreement(torch, dev, params, cfg, prompts):
           f"near-ties {flips} [{time.perf_counter() - t0:.1f} s wall]")
 
 
-def decode_phase(torch, dev, runs: Runs, arch: str, seed: int):
-    """Full-width ``arch`` (bf16, weights from ``seed``) served with
-    ``workload="decode"``: DECODE_PROMPTS prompts of DECODE_PROMPT_LEN
-    tokens drawn from ``seed``, DECODE_TOKENS new tokens each. Runs, each
-    with its own launch counts held against `decode_expected`: bandit,
-    forced-final and int8 + error feedback at B = DECODE_BATCH, bandit at
-    B = 1 on 4 prompts, and an `Engine` (fifo) fed the first 24 prompts in
-    ragged chunks, whose tokens and decisions must equal those of the
-    one-shot bandit run's first 3 pushes. Prints tokens/s, exits/
-    offloads and wire bytes of each run, and the device busy time of a
-    one-push bandit and forced-final run (torch.profiler); then
-    `decode_pins` and `decode_agreement`."""
+def decode_phase(torch, dev, runs: Runs, arch: str, seed: int, *,
+                 layers: int | None = None, params=None,
+                 n_prompts: int = DECODE_PROMPTS,
+                 tokens: int = DECODE_TOKENS, full: bool = True,
+                 agree_layers: int = DECODE_AGREE_LAYERS):
+    """Full-width ``arch`` (bf16, weights from ``seed``, or ``params``
+    already on the card; cut to ``layers`` when given) served with
+    ``workload="decode"``: ``n_prompts`` prompts of DECODE_PROMPT_LEN
+    tokens drawn from ``seed``, ``tokens`` new tokens each. Runs, each
+    with its own launch counts held against `decode_expected`: bandit and
+    forced-final at B = DECODE_BATCH and, with ``full``, int8 + error
+    feedback at B = DECODE_BATCH, bandit at B = 1 on 4 prompts, and an
+    `Engine` (fifo) fed the first 24 prompts in ragged chunks, whose
+    tokens and decisions must equal those of the one-shot bandit run's
+    first 3 pushes. Prints tokens/s, exits/offloads and wire bytes of
+    each run, and the device busy time of a one-push bandit and
+    forced-final run (torch.profiler; for a hybrid or MoE also the time
+    inside its plain-PyTorch blocks); then `decode_pins` and
+    `decode_agreement` at ``agree_layers`` layers."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core import CostModel
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serving import DecodeRuntime, Engine, ServingConfig, serve
+    from repro_torch.serving import DecodeRuntime, ServingConfig, serve
     from repro_torch.serving.kvcache import hidden_raw_bytes, step_slice_bytes
 
-    cfg = get_config(arch)
+    cfg = model_config(arch, layers)
     L = cfg.num_layers
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=seed, device=dev)
-    torch.cuda.synchronize()
-    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    print(f"  {arch}: {L} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
-          f"{cfg.dtype}; {sum(p.numel() for p in params.parameters())} "
-          f"stored parameters = {n_bytes / 1e9:.3f} GB (param_count "
-          f"{cfg.param_count()}), init {time.perf_counter() - t0:.2f}s")
+    if params is None:
+        params = init_full(torch, dev, cfg, seed)
     prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (DECODE_PROMPTS, DECODE_PROMPT_LEN)).astype(
-            np.int32)
+        0, cfg.vocab_size, (n_prompts, DECODE_PROMPT_LEN)).astype(np.int32)
     samples = [{"tokens": row} for row in prompts]
     rt = DecodeRuntime(cfg, device=dev)
     S, B = DECODE_PROMPT_LEN, DECODE_BATCH
-    lg, caches = rt.prefill_fn(params, prompts[:B], S + DECODE_TOKENS)
+    lg, caches = rt.prefill_fn(params, prompts[:B], S + tokens)
     conf = rt.edge_fn(params, caches, lg.argmax(-1), S,
-                      torch.full((B,), L - 1, device=dev),
-                      S + DECODE_TOKENS)[1]
+                      torch.full((B,), L - 1, device=dev), S + tokens)[1]
     alpha = float(conf[L // 2 - 1].float().median())
     del lg, caches, conf
     cost = CostModel(num_layers=L, alpha=alpha, offload=3.0)
@@ -2021,57 +2403,33 @@ def decode_phase(torch, dev, runs: Runs, arch: str, seed: int):
           f"cache slice at the deepest split {step_slice_bytes(cfg, L - 1)} "
           f"B, hidden {hidden_raw_bytes(cfg)} B")
     base = ServingConfig(batch_size=B, workload="decode",
-                         max_new_tokens=DECODE_TOKENS)
+                         max_new_tokens=tokens)
     serve(rt, params, iter(samples[:B]), cost,
           dataclasses.replace(base, max_new_tokens=2))       # warm-up
-    n = DECODE_PROMPTS
-    out = {}
-    for name, config, count, mixed in (
-            ("bandit", base, n, True),
+    n = n_prompts
+    plan = [("bandit", base, n, True),
             ("final", dataclasses.replace(base, split_policy="final"), n,
-             False),
-            ("int8 feedback", dataclasses.replace(
-                base, offload_quant="int8", offload_error_feedback=True), n,
-             True),
-            ("bandit B=1", dataclasses.replace(base, batch_size=1,
-                                               max_samples=4), 4, False)):
+             False)]
+    if full:
+        plan += [("int8 feedback", dataclasses.replace(
+                     base, offload_quant="int8",
+                     offload_error_feedback=True), n, True),
+                 ("bandit B=1", dataclasses.replace(
+                     base, batch_size=1, max_samples=4), 4, False)]
+    out = {}
+    for name, config, count, mixed in plan:
         out[name] = decode_run(
             torch, runs, f"{arch} decode {name}",
             lambda c=config: serve(rt, params, iter(samples), cost, c),
-            cfg, count, config.batch_size, mixed=mixed)
-    rep, _ = out["int8 feedback"]
-    wire = rep.decode["wire_bytes_per_sequence"].sum()
-    if rep.offload_bytes != wire:
-        fail(f"{arch} decode int8: offload bytes {rep.offload_bytes} != the "
-             f"per-sequence ledger's {wire}")
-
-    engine_cfg = dataclasses.replace(base, scheduler="fifo")
-
-    n_eng = sum(DECODE_ENGINE_CHUNKS)
-
-    def engine():
-        eng = Engine(rt, params, cost, engine_cfg)
-        i = 0
-        for c in DECODE_ENGINE_CHUNKS:
-            eng.submit(samples[i:i + c])
-            i += c
-        return eng.close()
-
-    rep, _ = decode_run(torch, runs, f"{arch} decode engine fifo", engine,
-                        cfg, n_eng, B)
-    # the controller folds a push's rounds step-major: the first n_eng
-    # prompts' rounds lead the one-shot run's history
-    ref, rounds = out["bandit"][0], n_eng * DECODE_TOKENS
-    for key in ("arms", "exited", "preds"):
-        if not np.array_equal(rep[key], np.asarray(ref[key])[:rounds]):
-            fail(f"{arch} decode engine: {key} differ from one-shot serve()")
-    if not np.array_equal(rep.decode["tokens"],
-                          ref.decode["tokens"][:n_eng]):
-        fail(f"{arch} decode engine: tokens differ from one-shot serve()")
-    lat = rep["scheduler"]["latency_ms"]
-    print(f"    engine == one-shot serve()'s first {n_eng} prompts (tokens, "
-          f"arms, exits, preds); request latency ms p50 {lat['p50']:.1f}, "
-          f"p99 {lat['p99']:.1f}")
+            cfg, count, config.batch_size, mixed=mixed, tokens=tokens)
+    if full:
+        rep, _ = out["int8 feedback"]
+        wire = rep.decode["wire_bytes_per_sequence"].sum()
+        if rep.offload_bytes != wire:
+            fail(f"{arch} decode int8: offload bytes {rep.offload_bytes} != "
+                 f"the per-sequence ledger's {wire}")
+        decode_engine(torch, runs, rt, params, cost, cfg, samples, base,
+                      out["bandit"][0], tokens)
 
     for policy in ("bandit", "final"):
         config = dataclasses.replace(base, split_policy=policy,
@@ -2084,12 +2442,104 @@ def decode_phase(torch, dev, runs: Runs, arch: str, seed: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         busy, per_kernel = device_ms(call, iters=1, warmup=0)
-        print_busy(f"{arch} decode {policy} (one push of {B}, "
-                   f"{DECODE_PROFILE_TOKENS} new tokens)", busy, wall * 1e3,
-                   per_kernel)
+        label = (f"{arch} decode {policy} (one push of {B}, "
+                 f"{DECODE_PROFILE_TOKENS} new tokens)")
+        print_busy(label, busy, wall * 1e3, per_kernel)
+        if cfg.family in PROFILE_RANGES:
+            print_ranges(label, cfg.family, call)
     decode_pins(torch, dev, rt, params, cfg, prompts, out["final"][0],
-                out["bandit"][0], seed)
-    decode_agreement(torch, dev, params, cfg, prompts)
+                out["bandit"][0], seed, tokens)
+    decode_agreement(torch, dev, params, cfg, prompts, agree_layers)
+    del params
+    torch.cuda.empty_cache()
+
+
+def decode_engine(torch, runs, rt, params, cost, cfg, samples, base, ref,
+                  tokens: int):
+    """An `Engine` (fifo) fed the first prompts in DECODE_ENGINE_CHUNKS:
+    its launches as `decode_run` holds them, its tokens and decisions
+    equal to the one-shot run ``ref``'s first pushes."""
+    import numpy as np
+    from repro_torch.serving import Engine
+    engine_cfg = dataclasses.replace(base, scheduler="fifo")
+    n_eng = sum(DECODE_ENGINE_CHUNKS)
+    arch = cfg.arch_id
+
+    def engine():
+        eng = Engine(rt, params, cost, engine_cfg)
+        i = 0
+        for c in DECODE_ENGINE_CHUNKS:
+            eng.submit(samples[i:i + c])
+            i += c
+        return eng.close()
+
+    rep, _ = decode_run(torch, runs, f"{arch} decode engine fifo", engine,
+                        cfg, n_eng, base.batch_size, tokens=tokens)
+    # the controller folds a push's rounds step-major: the first n_eng
+    # prompts' rounds lead the one-shot run's history
+    rounds = n_eng * tokens
+    for key in ("arms", "exited", "preds"):
+        if not np.array_equal(rep[key], np.asarray(ref[key])[:rounds]):
+            fail(f"{arch} decode engine: {key} differ from one-shot serve()")
+    if not np.array_equal(rep.decode["tokens"],
+                          ref.decode["tokens"][:n_eng]):
+        fail(f"{arch} decode engine: tokens differ from one-shot serve()")
+    lat = rep["scheduler"]["latency_ms"]
+    print(f"    engine == one-shot serve()'s first {n_eng} prompts (tokens, "
+          f"arms, exits, preds); request latency ms p50 {lat['p50']:.1f}, "
+          f"p99 {lat['p99']:.1f}")
+
+
+def moe_phase(torch, dev, runs: Runs, seed: int):
+    """phi3.5-moe at its published widths and MOE_LAYERS layers (bf16,
+    weights from ``seed``, 42.1 GB): `serve()` bucketed and scan at B = 32
+    on MOE_SAMPLES imdb_like samples, each run's launches held against its
+    decisions, and the device time of the scan run inside the MoE blocks;
+    card vs CPU on the first MOE_AGREE_LAYERS layers in float32 (routing,
+    drops, exits); then the decode runs (bandit and forced-final at B = 8
+    on MOE_PROMPTS prompts, MOE_TOKENS new tokens) with their pins and
+    agreement. The weights are freed at the end."""
+    from repro_torch.data import OnlineStream
+    from repro_torch.serving import EdgeCloudRuntime, ServingConfig, serve
+
+    cfg = model_config(MOE, MOE_LAYERS)
+    params = init_full(torch, dev, cfg, seed)
+    params, cfg, data, cost = serve_setup(
+        torch, dev, MOE, MOE_LAYERS // 2, layers=MOE_LAYERS,
+        samples=MOE_SAMPLES, params=params)
+    prefix = f"{MOE} {MOE_LAYERS}L "
+    B = SERVE_BATCH
+    rt = EdgeCloudRuntime(cfg, device=dev)
+    configs = {"bucketed B=32": ServingConfig(batch_size=B),
+               "scan B=32": ServingConfig(batch_size=B, edge_mode="scan")}
+    for config in configs.values():                    # warm-up
+        serve(rt, params, OnlineStream(data, seed=0), cost,
+              dataclasses.replace(config, max_samples=2 * B))
+    out = {}
+    for name, config in configs.items():
+        out[name] = runs.run(
+            torch, prefix + name,
+            lambda c=config: serve(rt, params, OnlineStream(data, seed=0),
+                                   cost, c),
+            cfg, batch_size=B, edge_mode=config.edge_mode)
+    call = lambda: serve(rt, params, OnlineStream(data, seed=0), cost,  # noqa
+                         configs["scan B=32"])
+    busy, per_kernel = device_ms(call, iters=1, warmup=0)
+    print_busy(f"{prefix}scan B=32", busy, out["scan B=32"][1] * 1e3,
+               per_kernel)
+    print_ranges(f"{prefix}scan B=32, {RANGE_SAMPLES} samples", cfg.family,
+                 lambda: serve(rt, params, OnlineStream(data, seed=0), cost,
+                               dataclasses.replace(configs["scan B=32"],
+                                                   max_samples=RANGE_SAMPLES)))
+    (b_rep, b_wall, _), (s_rep, s_wall, _) = out["bucketed B=32"], \
+        out["scan B=32"]
+    print(f"  {prefix}B=32 scan vs bucketed: {s_rep['n'] / s_wall:.1f} vs "
+          f"{b_rep['n'] / b_wall:.1f} samples/s")
+    lm_agreement_phase(torch, dev, params, cfg, data,
+                       layers=MOE_AGREE_LAYERS, witness=False)
+    decode_phase(torch, dev, runs, MOE, seed, layers=MOE_LAYERS,
+                 params=params, n_prompts=MOE_PROMPTS, tokens=MOE_TOKENS,
+                 full=False, agree_layers=MOE_AGREE_LAYERS)
     del params
     torch.cuda.empty_cache()
 
@@ -2630,7 +3080,10 @@ def main(argv=None) -> int:
     runs = Runs()
     for arch, alpha_layer, prefix, agree in (
             ("elasticbert12", 6, "", agreement_phase),
-            (LM, 16, f"{LM} ", lm_agreement_phase)):
+            (LM, 16, f"{LM} ", lm_agreement_phase),
+            (HYBRID, HYBRID_ALPHA_LAYER, f"{HYBRID} ",
+             lambda *a: lm_agreement_phase(*a, layers=HYBRID_AGREE_LAYERS,
+                                           witness=False))):
         with phase(f"serve: {arch} (full width) on the card"):
             params, cfg, data, cost = serve_setup(torch, dev, arch,
                                                   alpha_layer)
@@ -2645,9 +3098,14 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
 
-    for arch in DECODE_ARCHS:
+    for arch, agree_layers in DECODE_ARCHS:
         with phase(f"decode: {arch} (full width) on the card"):
-            decode_phase(torch, dev, runs, arch, seed)
+            decode_phase(torch, dev, runs, arch, seed,
+                         agree_layers=agree_layers)
+
+    with phase(f"{MOE}: full width, {MOE_LAYERS} of 32 layers, on the "
+               f"card"):
+        moe_phase(torch, dev, runs, seed)
 
     with phase("agreement: offload codec, card vs CPU"):
         codec_agreement(torch, dev)

@@ -113,26 +113,38 @@ class ModelConfig:
         return 0
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense or rwkv6 (ssm) model
-        (embedding + layers + exits); other families are not ported yet."""
-        if self.family not in ("dense", "ssm"):
+        """Analytic parameter count of a dense, ssm (rwkv6), hybrid (zamba2)
+        or MoE model (embedding + layers + exits); the VLM and enc-dec
+        families are not ported yet."""
+        if self.family not in ("dense", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
                 f"param_count for family {self.family!r}: not ported yet")
         d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        q = self.num_heads * hd
+        kv = self.num_kv_heads * hd
+        attn = d * q + 2 * d * kv + q * d
+        mlp = 3 * d * f if self.activation == "swiglu" else 2 * d * f
         if self.family == "ssm" and self.ssm is not None:
             # rwkv6: time-mix (~4.5 d^2 with lora decays) + channel-mix 2*d*f
-            per_layer = int(5 * d * d) + 2 * d * f
+            total_layers = self.num_layers * (int(5 * d * d) + 2 * d * f)
+        elif self.family == "hybrid" and self.ssm is not None:
+            # every layer is a mamba block (no per-layer MLP); one shared
+            # attn+mlp block applied every k layers (weights counted once)
+            d_in = self.ssm.expand * d
+            conv_dim = d_in + 2 * self.ssm.state_size
+            mamba = d * (d_in + conv_dim + d_in // 64) + d_in * d
+            total_layers = self.num_layers * mamba + (attn + mlp)
+        elif self.family == "moe" and self.moe is not None:
+            moe_mlp = self.moe.num_experts * 3 * d * f \
+                + d * self.moe.num_experts
+            total_layers = self.num_layers * (attn + moe_mlp)
         else:
-            hd = self.resolved_head_dim
-            q = self.num_heads * hd
-            kv = self.num_kv_heads * hd
-            attn = d * q + 2 * d * kv + q * d
-            mlp = 3 * d * f if self.activation == "swiglu" else 2 * d * f
-            per_layer = attn + mlp
+            total_layers = self.num_layers * (attn + mlp)
         head_out = self.num_classes if self.num_classes else v
         n_heads_p = 1 if (not self.exits.enabled or self.exits.share_head) \
             else len(self.exit_layers)
-        return v * d + self.num_layers * per_layer + n_heads_p * d * head_out
+        return v * d + total_layers + n_heads_p * d * head_out
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

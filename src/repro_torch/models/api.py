@@ -1,5 +1,6 @@
-"""Model facade of the port: the dense and ssm families of the decoder
-stack behind one object, as the reference's ``models/api.py:Model``.
+"""Model facade of the port: the dense, ssm, hybrid and MoE families of
+the decoder stack behind one object, as the reference's
+``models/api.py:Model``.
 
 There is no ``backend`` string: every kernel dispatches by the device of
 its tensors (plain PyTorch versions on the CPU, the CUDA kernels on the

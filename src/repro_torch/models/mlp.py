@@ -1,4 +1,14 @@
-"""Dense feed-forward blocks: SwiGLU and GELU MLP (MoE is not ported yet)."""
+"""Feed-forward blocks: SwiGLU, GELU MLP, and top-k MoE.
+
+The MoE is the reference's sort-free dense dispatch: each token's top-k
+entries are scattered into per-expert capacity buffers (position in
+expert from a running one-hot cumsum over the token-major entries;
+overflow dropped), the experts run as one batched product over the
+expert axis, and the results are gathered back weighted by the
+renormalized router probabilities. The reference's expert FFN is a
+batched einsum outside any Pallas kernel, so this is plain PyTorch
+(``torch.bmm``) on every device.
+"""
 from __future__ import annotations
 
 import torch
@@ -28,3 +38,89 @@ def mlp_forward(p, x, activation: str):
         # jax.nn.gelu defaults to the tanh approximation; torch's to erf
         h = F.gelu(x @ p["wi"], approximate="tanh")
     return h @ p["wo"]
+
+
+# ----------------------------------------------------------------------- MoE
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int,
+             dtype: torch.dtype, device=None):
+    def stack(fan_in, fan_out):
+        return torch.stack([dense_init(gen, fan_in, fan_out, dtype, device)
+                            for _ in range(num_experts)])
+    return {
+        "router": dense_init(gen, d_model, num_experts, dtype, device),
+        "wi": stack(d_model, d_ff),              # (E, D, F)
+        "wg": stack(d_model, d_ff),
+        "wo": stack(d_ff, d_model),              # (E, F, D)
+    }
+
+
+def top_k_experts(probs, top_k: int):
+    """The ``top_k`` largest router probabilities of each row, largest
+    first, and their experts; equal probabilities go to the lower expert
+    index, as ``lax.top_k`` orders them (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :top_k], idx[:, :top_k]
+
+
+def moe_route(p, xf, *, num_experts: int, top_k: int,
+              capacity_factor: float):
+    """The router's decisions for the (T, D) tokens ``xf``: a dict of the
+    router probabilities ``probs`` (T, E) f32, each token's experts
+    ``top_e`` (T, K) and renormalized weights ``top_p`` (T, K), the
+    per-expert ``capacity``, and per token-major entry (T·K) its buffer
+    ``slot`` (expert · capacity + position in expert) and whether it is
+    kept (``keep``; an entry past its expert's capacity is dropped and
+    points at the expert's last slot)."""
+    t = xf.shape[0]
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    top_p, top_e = top_k_experts(probs, top_k)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    cap = int(max(top_k * t * capacity_factor / num_experts, top_k))
+    flat_e = top_e.reshape(-1)
+    onehot = F.one_hot(flat_e, num_experts)
+    # the running count of each expert over the entries, scanned along
+    # the rows of the (E, T·K) transpose (one row per expert in parallel)
+    running = torch.cumsum(onehot.t().contiguous(), dim=1).t()
+    pos = (running - onehot).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < cap
+    return {"probs": probs, "top_e": top_e, "top_p": top_p, "capacity": cap,
+            "slot": flat_e * cap + torch.where(keep, pos, cap - 1),
+            "keep": keep}
+
+
+def moe_forward(p, x, *, num_experts: int, top_k: int,
+                capacity_factor: float = 1.25):
+    """x: (B, S, D) -> ((B, S, D), aux), aux the Switch-style router
+    load-balance loss (float32). The capacity is that of the call's B·S
+    tokens."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    r = moe_route(p, xf, num_experts=num_experts, top_k=top_k,
+                  capacity_factor=capacity_factor)
+    cap, slot, keep = r["capacity"], r["slot"], r["keep"]
+    tok_id = torch.arange(t, device=x.device).repeat_interleave(top_k)
+
+    # dispatch: every kept entry owns its slot (the reference adds the
+    # dropped ones to their expert's last slot as zero rows, which leaves
+    # it as it is); here they go to one extra row, which is discarded
+    n_slots = num_experts * cap
+    buf = torch.zeros((n_slots + 1, d), dtype=x.dtype, device=x.device)
+    buf[torch.where(keep, slot, n_slots)] = xf[tok_id]
+    buf = buf[:n_slots].reshape(num_experts, cap, d)
+    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+    out_e = torch.bmm(h, p["wo"]).reshape(n_slots, d)
+
+    # combine, in the model dtype: each token's k contributions in order
+    gathered = torch.where(keep[:, None], out_e[slot], 0)
+    contrib = (gathered * r["top_p"].reshape(-1, 1).to(x.dtype)).reshape(
+        t, top_k, d)
+    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(top_k):
+        out = out + contrib[:, j]
+
+    me = r["probs"].mean(dim=0)                                  # (E,)
+    frac = F.one_hot(r["top_e"][:, 0], num_experts).float().mean(dim=0)
+    aux = num_experts * torch.sum(me * frac)
+    return out.reshape(b, s, d), aux

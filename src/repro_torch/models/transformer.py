@@ -1,5 +1,6 @@
-"""Multi-exit decoder stack, dense and ssm (RWKV6) families: the model
-the SplitEE policy runs on.
+"""Multi-exit decoder stack, dense, ssm (RWKV6), hybrid (Zamba2: a Mamba2
+backbone with one shared attention + MLP block after every k-th layer)
+and MoE families: the model the SplitEE policy runs on.
 
 Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names
 are the reference pytree's paths (``layers.attn.wq`` is
@@ -23,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.exit_confidence.ops import (exit_confidence,
                                                      exit_confidence_fused)
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import mlp as ff
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import (apply_norm, cross_entropy,
@@ -85,13 +87,28 @@ def _stack(trees):
             else torch.stack([t[k] for t in trees]) for k in first}
 
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch_id}): not ported yet")
 
 
 # ------------------------------------------------------------------- helpers
+
+def _is_attn_layer(cfg: ModelConfig, i: int) -> bool:
+    """Hybrid: the shared attention block runs after layers k, 2k, ...
+    (0-indexed layer i with (i+1) % k == 0)."""
+    k = cfg.hybrid_attn_every
+    return bool(k) and (i + 1) % k == 0
+
+
+def _occurrence(cfg: ModelConfig, i: int) -> int:
+    """Hybrid: which shared-attention cache slot layer ``i`` uses."""
+    return (i + 1) // cfg.hybrid_attn_every - 1
+
 
 def head_out_dim(cfg: ModelConfig) -> int:
     return cfg.num_classes if cfg.num_classes else cfg.vocab_size
@@ -121,6 +138,10 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
             "ln2": init_norm(d, cfg.norm, dt, dev),
             "cm": rk.init_channel_mix(gen, d, cfg.d_ff, dt, dev),
         }
+    elif cfg.family == "hybrid":
+        p = {"ln1": init_norm(d, cfg.norm, dt, dev),
+             "mamba": m2.init_mamba2(gen, d, cfg.ssm.state_size,
+                                     cfg.ssm.expand, dt, dev)}
     else:
         p = {
             "ln1": init_norm(d, cfg.norm, dt, dev),
@@ -129,12 +150,27 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
                 qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=dt,
                 device=dev),
             "ln2": init_norm(d, cfg.norm, dt, dev),
-            "mlp": ff.init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, dev),
         }
+        if cfg.family == "moe":
+            p["moe"] = ff.init_moe(gen, d, cfg.d_ff, cfg.moe.num_experts, dt,
+                                   dev)
+        else:
+            p["mlp"] = ff.init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, dev)
     p["exit_norm"] = init_norm(d, cfg.norm, dt, dev)
     if cfg.exits.enabled and not cfg.exits.share_head:
         p["exit_w"] = dense_init(gen, d, head_out_dim(cfg), dt, dev)
     return p
+
+
+def _init_stacked(make, n: int):
+    """``n`` draws of the tree ``make()`` stacked on a leading axis, each
+    copied into its row as it is drawn (peak memory: the stack and one
+    draw, not twice the stack)."""
+    first = make()
+    out = _map(lambda a: a.new_empty((n, *a.shape)), first)
+    for i in range(n):
+        _map(lambda o, a: o[i].copy_(a), out, first if i == 0 else make())
+    return out
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
@@ -145,15 +181,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.dtype)
+    d = cfg.d_model
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-        "layers": _stack([_init_layer(cfg, gen, dt, dev)
-                          for _ in range(cfg.num_layers)]),
-        "final_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
+        "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
+        "layers": _init_stacked(lambda: _init_layer(cfg, gen, dt, dev),
+                                cfg.num_layers),
+        "final_norm": init_norm(d, cfg.norm, dt, dev),
     }
     if cfg.exits.share_head or not cfg.exits.enabled:
-        params["exit_w"] = dense_init(gen, cfg.d_model, head_out_dim(cfg), dt,
-                                      dev)
+        params["exit_w"] = dense_init(gen, d, head_out_dim(cfg), dt, dev)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "ln1": init_norm(d, cfg.norm, dt, dev),
+            "attn": attn.init_attention(
+                gen, d, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                qk_norm=cfg.qk_norm, dtype=dt, device=dev),
+            "ln2": init_norm(d, cfg.norm, dt, dev),
+            "mlp": ff.init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, dev),
+        }
     return ParamTree(params)
 
 
@@ -173,12 +219,29 @@ def _positions(cfg: ModelConfig, b: int, s: int, device=None):
 
 # ------------------------------------------------------------ full-seq layer
 
-def _layer_prefill(cfg: ModelConfig, lp, x, positions, *, window: int):
-    """One layer over the full sequence from an empty state. Returns (x,
-    state): an ssm layer's final ``{tm_last, cm_last, wkv}`` (its token
-    shift and recurrence start from a zero state, and it ignores
-    ``positions`` and ``window``), or a dense layer's rotated (k, v),
-    (B, S, Hkv, hd) each."""
+def _shared_block(cfg: ModelConfig, sp, x, positions, *, window: int):
+    """Hybrid: the shared attention + MLP block over the full sequence.
+    Returns (x, (k, v)), the rotated keys/values (B, S, Hkv, hd)."""
+    h, kv = attn.attn_prefill(
+        sp["attn"], apply_norm(x, sp["ln1"], cfg.norm), positions,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, causal=cfg.causal, window=window,
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, return_kv=True)
+    x = x + h
+    h = ff.mlp_forward(sp["mlp"], apply_norm(x, sp["ln2"], cfg.norm),
+                       cfg.activation)
+    return x + h, kv
+
+
+def _layer_prefill(cfg: ModelConfig, params, lp, x, positions, i: int, *,
+                   window: int):
+    """Layer ``i`` over the full sequence from an empty state. Returns
+    (x, state, aux): an ssm layer's final ``{tm_last, cm_last, wkv}`` (its
+    token shift and recurrence start from a zero state, and it ignores
+    ``positions`` and ``window``); a dense or MoE layer's rotated (k, v),
+    (B, S, Hkv, hd) each; a hybrid layer's (Mamba2 state, the shared
+    block's (k, v) at an attention layer, else None). ``aux`` is the MoE
+    router's balance loss, 0.0 for the other families."""
     _check_family(cfg)
     if cfg.family == "ssm":
         heads = _ssm_heads(cfg)
@@ -191,7 +254,21 @@ def _layer_prefill(cfg: ModelConfig, lp, x, positions, *, window: int):
         x = x + h
         h, cm_last = rk.channel_mix(
             lp["cm"], apply_norm(x, lp["ln2"], cfg.norm), st["cm_last"])
-        return x + h, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv}
+        return (x + h, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv},
+                0.0)
+    if cfg.family == "hybrid":
+        st = m2.init_mamba2_state(x.shape[0], cfg.d_model,
+                                  cfg.ssm.state_size, cfg.ssm.expand,
+                                  device=x.device)
+        h, st = m2.mamba2_forward(
+            lp["mamba"], apply_norm(x, lp["ln1"], cfg.norm), st,
+            state_size=cfg.ssm.state_size, expand=cfg.ssm.expand,
+            chunk=cfg.ssm.chunk_size)
+        x, kv = x + h, None
+        if _is_attn_layer(cfg, i):
+            x, kv = _shared_block(cfg, params["shared_attn"], x, positions,
+                                  window=window)
+        return x, (st, kv), 0.0
     h, kv = attn.attn_prefill(
         lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), positions,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -199,15 +276,25 @@ def _layer_prefill(cfg: ModelConfig, lp, x, positions, *, window: int):
         window=window, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         mrope=cfg.mrope, return_kv=True)
     x = x + h
-    h = ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
-                       cfg.activation)
-    return x + h, kv
+    x2 = apply_norm(x, lp["ln2"], cfg.norm)
+    aux = 0.0
+    if cfg.family == "moe":
+        h, aux = ff.moe_forward(lp["moe"], x2,
+                                num_experts=cfg.moe.num_experts,
+                                top_k=cfg.moe.top_k,
+                                capacity_factor=cfg.moe.capacity_factor)
+    else:
+        h = ff.mlp_forward(lp["mlp"], x2, cfg.activation)
+    return x + h, kv, aux
 
 
-def _layer_full(cfg: ModelConfig, lp, x, positions, *, window: int):
-    """One layer over the full sequence (`_layer_prefill` without its
-    state)."""
-    return _layer_prefill(cfg, lp, x, positions, window=window)[0]
+def _layer_full(cfg: ModelConfig, params, lp, x, positions, i: int, *,
+                window: int):
+    """Layer ``i`` over the full sequence (`_layer_prefill` without its
+    state). Returns (x, aux)."""
+    x, _, aux = _layer_prefill(cfg, params, lp, x, positions, i,
+                               window=window)
+    return x, aux
 
 
 def _exit_w(params, lp):
@@ -220,8 +307,9 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
                remat: bool = True):
     """Joint multi-exit loss (paper/ElasticBERT style): mean CE over the
     exits + final-layer CE + ``0.01 * aux / L`` (aux, the MoE balance
-    loss, is 0 for the dense and ssm families). LM (shifted labels) when
-    ``cfg.num_classes == 0``, else classification on the pooled token.
+    loss summed over the layers, is 0 for the other families). LM
+    (shifted labels) when ``cfg.num_classes == 0``, else classification
+    on the pooled token.
 
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
@@ -244,28 +332,29 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
 
     def body(xx, i):
         lp = layer_params(params["layers"], i)
-        xx = _layer_full(cfg, lp, xx, positions, window=window)
+        xx, aux_i = _layer_full(cfg, params, lp, xx, positions, i,
+                                window=window)
         if not cfg.exits.enabled:
-            return xx, xx.new_zeros((), dtype=torch.float32)
+            return xx, xx.new_zeros((), dtype=torch.float32), aux_i
         # pooling precedes the exit norm for a classifier (they commute)
         src = xx[:, :1] if cfg.num_classes else xx
         hn = apply_norm(src, lp["exit_norm"], cfg.norm)
-        return xx, ce(logits_of(hn, _exit_w(params, lp)))
+        return xx, ce(logits_of(hn, _exit_w(params, lp))), aux_i
 
-    exit_losses = []
+    exit_losses, aux = [], 0.0
     for i in range(cfg.num_layers):
         if remat:
-            x, loss_i = checkpoint(body, x, i, use_reentrant=False)
+            x, loss_i, aux_i = checkpoint(body, x, i, use_reentrant=False)
         else:
-            x, loss_i = body(x, i)
+            x, loss_i, aux_i = body(x, i)
         exit_losses.append(loss_i)
+        aux = aux + aux_i
 
     xf = apply_norm(x[:, :1] if cfg.num_classes else x,
                     params["final_norm"], cfg.norm)
     w = params.get("exit_w")
     if w is None:  # per-exit heads: the final exit is the last layer's head
         w = params["layers"]["exit_w"][-1]
-    aux = 0.0      # no MoE layer in the ported families
     loss = ce(logits_of(xf, w)) + 0.01 * aux / cfg.num_layers
     if cfg.exits.enabled:
         loss = loss + torch.stack(exit_losses).mean()
@@ -284,8 +373,8 @@ def exit_hidden(params, cfg: ModelConfig, batch: Mapping[str, Any]):
     window = cfg.effective_window(s)
     pooled = []
     for i in range(cfg.num_layers):
-        x = _layer_full(cfg, layer_params(params["layers"], i), x, positions,
-                        window=window)
+        x, _ = _layer_full(cfg, params, layer_params(params["layers"], i), x,
+                           positions, i, window=window)
         pooled.append(pool_hidden(cfg, x))
     exit_norm = params["layers"]["exit_norm"]
     pooled_n = apply_norm(torch.stack(pooled),
@@ -355,9 +444,10 @@ def forward_exits_masked(params, cfg: ModelConfig, batch: Mapping[str, Any],
     hidden is each sample's activation at its own depth: the offload
     payload. Every layer's exit rows are pooled from the (frozen) carry
     and scored after the loop by one grouped confidence launch; rows past
-    a sample's depth are unused by serving. ``window`` overrides the
-    attention window (serving passes 0); None derives it from the
-    sequence length.
+    a sample's depth are unused by serving. As in the reference, a frozen
+    row still routes its tokens through an MoE layer, where they compete
+    for expert capacity. ``window`` overrides the attention window
+    (serving passes 0); None derives it from the sequence length.
 
     Returns dict with conf (L, B) f32, pred (L, B) i32 and hidden (B, S,
     D) at per-sample depth.
@@ -370,8 +460,8 @@ def forward_exits_masked(params, cfg: ModelConfig, batch: Mapping[str, Any],
     live = depths.to(x.device).reshape(b, 1, 1)
     pooled = []
     for i in range(cfg.num_layers):
-        x_new = _layer_full(cfg, layer_params(params["layers"], i), x,
-                            positions, window=window)
+        x_new, _ = _layer_full(cfg, params, layer_params(params["layers"], i),
+                               x, positions, i, window=window)
         x = torch.where(i <= live, x_new, x)
         pooled.append(pool_hidden(cfg, x))
     conf, pred = grouped_exits(params, cfg, torch.stack(pooled),
@@ -381,12 +471,15 @@ def forward_exits_masked(params, cfg: ModelConfig, batch: Mapping[str, Any],
 
 # ----------------------------------------------------------- prefill / decode
 #
-# Cache trees are nested dicts of tensors with a leading L axis:
-# {"attn": {k, v, pos}} (dense) or {"ssm": {tm_last, cm_last, wkv}} (ssm).
+# Cache trees are nested dicts of tensors with a leading layer axis:
+# {"attn": {k, v, pos}} (dense, MoE: L layers), {"ssm": {tm_last, cm_last,
+# wkv}} (ssm: L layers), or {"ssm": {conv, ssm}} (L Mamba2 layers) with
+# {"attn": {k, v, pos}} (L // k shared-attention occurrences) (hybrid).
 # Every function below returns a new tree and never writes into its input.
 
 def _cache_key(cfg: ModelConfig) -> str:
-    return "ssm" if cfg.family == "ssm" else "attn"
+    """The subtree that holds one entry per layer."""
+    return "ssm" if cfg.family in ("ssm", "hybrid") else "attn"
 
 
 def _map(fn, tree, *rest):
@@ -395,28 +488,39 @@ def _map(fn, tree, *rest):
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
-    """Stacked per-layer decode caches (window-sized for SWA archs) on
-    ``device`` (default cuda; ``"meta"`` gives shapes and dtypes without
-    allocating). Recurrent states are float32, as ``init_rwkv_state``
-    makes them."""
+    """Stacked decode caches (window-sized for SWA archs) on ``device``
+    (default cuda; ``"meta"`` gives shapes and dtypes without allocating).
+    Recurrent states are float32, as ``init_rwkv_state`` and
+    ``init_mamba2_state`` make them."""
     _check_family(cfg)
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
+
+    def stacked(one, n):
+        return _map(lambda a: a.expand(n, *a.shape).contiguous(), one)
+
+    window = cfg.effective_window(seq_len) or seq_len
+    kv = lambda: attn.init_cache(  # noqa: E731
+        batch, window, cfg.num_kv_heads, cfg.resolved_head_dim,
+        torch_dtype(cfg.dtype), device=dev)
     if cfg.family == "ssm":
-        one = rk.init_rwkv_state(batch, cfg.d_model, _ssm_heads(cfg),
-                                 device=dev)
-    else:
-        window = cfg.effective_window(seq_len) or seq_len
-        one = attn.init_cache(batch, window, cfg.num_kv_heads,
-                              cfg.resolved_head_dim, torch_dtype(cfg.dtype),
-                              device=dev)
-    return {_cache_key(cfg): _map(
-        lambda a: a.expand(cfg.num_layers, *a.shape).contiguous(), one)}
+        return {"ssm": stacked(rk.init_rwkv_state(
+            batch, cfg.d_model, _ssm_heads(cfg), device=dev),
+            cfg.num_layers)}
+    if cfg.family == "hybrid":
+        return {"ssm": stacked(m2.init_mamba2_state(
+                    batch, cfg.d_model, cfg.ssm.state_size, cfg.ssm.expand,
+                    device=dev), cfg.num_layers),
+                "attn": stacked(kv(),
+                                cfg.num_layers // cfg.hybrid_attn_every)}
+    return {"attn": stacked(kv(), cfg.num_layers)}
 
 
 def _layer_decode(cfg: ModelConfig, lp, x, st, cur_index: int, *,
                   window: int):
-    """One-token decode through one layer. Returns (x, new_cache_slice)."""
+    """One-token decode through one layer's own block (a hybrid layer's
+    Mamba2 block; its shared attention is `_shared_decode`). Returns (x,
+    new_cache_slice)."""
     if cfg.family == "ssm":
         heads = _ssm_heads(cfg)
         h, (tm_last, wkv) = rk.time_mix(
@@ -426,15 +530,82 @@ def _layer_decode(cfg: ModelConfig, lp, x, st, cur_index: int, *,
         h, cm_last = rk.channel_mix(
             lp["cm"], apply_norm(x, lp["ln2"], cfg.norm), st["cm_last"])
         return x + h, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv}
+    if cfg.family == "hybrid":
+        h, new_st = m2.mamba2_forward(
+            lp["mamba"], apply_norm(x, lp["ln1"], cfg.norm), st,
+            state_size=cfg.ssm.state_size, expand=cfg.ssm.expand)
+        return x + h, new_st
     h, new_cache = attn.attn_decode(
         lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), st, cur_index,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, window=window,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, mrope=cfg.mrope)
     x = x + h
-    h = ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
-                       cfg.activation)
+    x2 = apply_norm(x, lp["ln2"], cfg.norm)
+    if cfg.family == "moe":
+        # decode is drop-free: the capacity covers every token on one
+        # expert (a dropped token would corrupt the stream)
+        h, _ = ff.moe_forward(lp["moe"], x2, num_experts=cfg.moe.num_experts,
+                              top_k=cfg.moe.top_k,
+                              capacity_factor=float(cfg.moe.num_experts))
+    else:
+        h = ff.mlp_forward(lp["mlp"], x2, cfg.activation)
     return x + h, new_cache
+
+
+def _shared_decode(cfg: ModelConfig, sp, x, sl, cur_index: int, *,
+                   window: int):
+    """Hybrid: one-token decode through the shared attention + MLP block
+    against its occurrence's cache slot ``sl``. Returns (x, new slot)."""
+    h, new_sl = attn.attn_decode(
+        sp["attn"], apply_norm(x, sp["ln1"], cfg.norm), sl, cur_index,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, window=window,
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+    x = x + h
+    h = ff.mlp_forward(sp["mlp"], apply_norm(x, sp["ln2"], cfg.norm),
+                       cfg.activation)
+    return x + h, new_sl
+
+
+def _slices(caches):
+    """A cache tree as per-entry views ``{key: [slice, ...]}``, which the
+    decode steps replace entry by entry and `_restack` stacks again."""
+    out = {}
+    for key, tree in caches.items():
+        leaf = tree
+        while _is_tree(leaf):
+            leaf = next(iter(leaf.values()))
+        out[key] = [layer_params(tree, j) for j in range(leaf.shape[0])]
+    return out
+
+
+def _restack(slices):
+    return {key: _stack(entries) for key, entries in slices.items()}
+
+
+def _decode_layer(cfg: ModelConfig, params, slices, i: int, x,
+                  cur_index: int, *, window: int, mask=None):
+    """Advance layer ``i`` one token: its own cache entry and, at a hybrid
+    attention layer, the shared block's occurrence slot (both replaced in
+    ``slices``). With ``mask`` (B,) bool, only its rows advance: the
+    others keep their carry and cache entries bitwise. Returns x."""
+    key = _cache_key(cfg)
+    st = slices[key][i]
+    x2, st2 = _layer_decode(cfg, layer_params(params["layers"], i), x, st,
+                            cur_index, window=window)
+    if _is_attn_layer(cfg, i):
+        oi = _occurrence(cfg, i)
+        sl = slices["attn"][oi]
+        x2, sl2 = _shared_decode(cfg, params["shared_attn"], x2, sl,
+                                 cur_index, window=window)
+        slices["attn"][oi] = sl2 if mask is None else _mask_rows(mask, sl2,
+                                                                 sl)
+    if mask is None:
+        slices[key][i] = st2
+        return x2
+    slices[key][i] = _mask_rows(mask, st2, st)
+    return torch.where(mask[:, None, None], x2, x)
 
 
 def _step_input(params, cfg: ModelConfig, token_or_embed):
@@ -469,13 +640,10 @@ def decode_step(params, cfg: ModelConfig, caches, token_or_embed,
     conf, pred, new_caches); conf/pred are None with neither."""
     x = _step_input(params, cfg, token_or_embed)
     window = cfg.effective_window(window_seq_len)
-    key = _cache_key(cfg)
-    new, pooled = [], []
+    slices, pooled = _slices(caches), []
     for i in range(cfg.num_layers):
-        x, st = _layer_decode(cfg, layer_params(params["layers"], i), x,
-                              layer_params(caches[key], i), cur_index,
-                              window=window)
-        new.append(st)
+        x = _decode_layer(cfg, params, slices, i, x, cur_index,
+                          window=window)
         pooled.append(pool_hidden(cfg, x))
     if all_exits:
         conf, pred = grouped_exits(params, cfg, torch.stack(pooled))
@@ -486,17 +654,18 @@ def decode_step(params, cfg: ModelConfig, caches, token_or_embed,
             _exit_w(params, lp))
     else:
         conf = pred = None
-    return _final_logits(params, cfg, x), conf, pred, {key: _stack(new)}
+    return _final_logits(params, cfg, x), conf, pred, _restack(slices)
 
 
 def decode_step_masked(params, cfg: ModelConfig, caches, token_or_embed,
                        cur_index: int, depths, *, window_seq_len: int = 0):
     """Edge half of a decode-serving step: run layers ``0..depths[b]``
-    per sample (``torch.where`` freezes the carry and the cache slots of
-    a row above its depth; a layer above every row's depth is not run,
-    which leaves the same carry and cache). A skipped attention layer
-    leaves its ring slot for this step unwritten; the ``pos`` mask
-    excludes the hole at later reads, so ``cur_index`` stays global.
+    per sample (``torch.where`` freezes the carry and the cache entries
+    of a row above its depth, a hybrid's shared-attention slot included;
+    a layer above every row's depth is not run, which leaves the same
+    carry and cache). A skipped attention layer leaves its ring slot for
+    this step unwritten; the ``pos`` mask excludes the hole at later
+    reads, so ``cur_index`` stays global.
 
     Returns (logits, conf (L, B), pred (L, B), hidden (B, 1, D),
     new_caches): ``logits`` is the final head on the masked carry (it
@@ -506,22 +675,16 @@ def decode_step_masked(params, cfg: ModelConfig, caches, token_or_embed,
     """
     x = _step_input(params, cfg, token_or_embed)
     window = cfg.effective_window(window_seq_len)
-    key = _cache_key(cfg)
     live = depths.to(x.device)
     stop = int(depths.max()) + 1
-    new, pooled = [], []
+    slices, pooled = _slices(caches), []
     for i in range(cfg.num_layers):
-        st = layer_params(caches[key], i)
         if i < stop:
-            x2, st2 = _layer_decode(cfg, layer_params(params["layers"], i),
-                                    x, st, cur_index, window=window)
-            m = i <= live
-            x = torch.where(m[:, None, None], x2, x)
-            st = _mask_rows(m, st2, st)
-        new.append(st)
+            x = _decode_layer(cfg, params, slices, i, x, cur_index,
+                              window=window, mask=i <= live)
         pooled.append(pool_hidden(cfg, x))
     conf, pred = grouped_exits(params, cfg, torch.stack(pooled))
-    return _final_logits(params, cfg, x), conf, pred, x, {key: _stack(new)}
+    return _final_logits(params, cfg, x), conf, pred, x, _restack(slices)
 
 
 def decode_step_resume(params, cfg: ModelConfig, caches, hidden,
@@ -536,48 +699,54 @@ def decode_step_resume(params, cfg: ModelConfig, caches, hidden,
     Returns (logits, new_caches)."""
     x = hidden.to(torch_dtype(cfg.dtype))
     window = cfg.effective_window(window_seq_len)
-    key = _cache_key(cfg)
     resumed = depths[active.to(depths.device)]
     start = int(resumed.min()) + 1 if resumed.numel() else cfg.num_layers
     depths, active = depths.to(x.device), active.to(x.device)
-    new = []
-    for i in range(cfg.num_layers):
-        st = layer_params(caches[key], i)
-        if i >= start:
-            x2, st2 = _layer_decode(cfg, layer_params(params["layers"], i),
-                                    x, st, cur_index, window=window)
-            m = active & (i > depths)
-            x = torch.where(m[:, None, None], x2, x)
-            st = _mask_rows(m, st2, st)
-        new.append(st)
-    return _final_logits(params, cfg, x), {key: _stack(new)}
+    slices = _slices(caches)
+    for i in range(start, cfg.num_layers):
+        x = _decode_layer(cfg, params, slices, i, x, cur_index,
+                          window=window, mask=active & (i > depths))
+    return _final_logits(params, cfg, x), _restack(slices)
 
 
 def prefill(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
             cache_seq_len: int = 0):
     """Process the prompt (B, S), build the decode caches for a total
     length ``cache_seq_len`` (default S) and return the final logits.
-    Dense layers write their rotated K/V into ring slots (the last
-    window's worth when the window is shorter than the prompt); ssm
-    layers keep their final token-shift rows (in the model dtype) and
-    WKV state (float32)."""
+    Attention layers (and a hybrid's shared-attention occurrences) write
+    their rotated K/V into ring slots (the last window's worth when the
+    window is shorter than the prompt); ssm layers keep their final
+    token-shift rows (in the model dtype) and WKV state (float32), Mamba2
+    layers their conv and SSD states (float32)."""
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, device=x.device)
     seq_total = cache_seq_len or s
     window = cfg.effective_window(seq_total)
     cache_window = window or seq_total
-    states = []
+
+    def kv_cache(kv):
+        kk, vv = kv
+        return attn.fill_cache(
+            attn.init_cache(b, cache_window, cfg.num_kv_heads,
+                            cfg.resolved_head_dim, torch_dtype(cfg.dtype),
+                            device=x.device),
+            kk[:, -cache_window:], vv[:, -cache_window:],
+            start=max(0, s - cache_window))
+
+    states, occ = [], []
     for i in range(cfg.num_layers):
-        x, st = _layer_prefill(cfg, layer_params(params["layers"], i), x,
-                               positions, window=window)
-        if cfg.family != "ssm":
-            kk, vv = st
-            st = attn.fill_cache(
-                attn.init_cache(b, cache_window, cfg.num_kv_heads,
-                                cfg.resolved_head_dim,
-                                torch_dtype(cfg.dtype), device=x.device),
-                kk[:, -cache_window:], vv[:, -cache_window:],
-                start=max(0, s - cache_window))
+        x, st, _ = _layer_prefill(cfg, params,
+                                  layer_params(params["layers"], i), x,
+                                  positions, i, window=window)
+        if cfg.family == "hybrid":
+            st, kv = st
+            if kv is not None:
+                occ.append(kv_cache(kv))
+        elif cfg.family != "ssm":
+            st = kv_cache(st)
         states.append(st)
-    return _final_logits(params, cfg, x), {_cache_key(cfg): _stack(states)}
+    caches = {_cache_key(cfg): _stack(states)}
+    if cfg.family == "hybrid":
+        caches["attn"] = _stack(occ)
+    return _final_logits(params, cfg, x), caches

@@ -27,9 +27,10 @@ per-step logits and final cache.
 
 On the card each edge step makes one exit-confidence launch over the
 (L·B, D) exit rows and reads its observables back in one transfer; the
-prefill runs attention (dense) or WKV6 (ssm) once a layer, and the
-one-token layers and the cloud resume are plain PyTorch, as the
-reference's are plain XLA outside any Pallas kernel.
+prefill runs attention once a layer (dense, MoE) or once a shared-block
+occurrence (hybrid), or WKV6 once a layer (ssm); the one-token layers,
+Mamba2's SSD, the MoE dispatch and the cloud resume are plain PyTorch,
+as the reference's are plain XLA outside any Pallas kernel.
 
 Driven by `serving.api`: ``ServingConfig(workload="decode", ...)`` routes
 `serve()`/`Engine` here; `_DecodeSession` keeps `_BatchedSession`'s

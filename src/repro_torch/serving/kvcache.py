@@ -25,7 +25,9 @@ Wire accounting is closed-form: ``step_slice_bytes`` prices the per-step
 cache slice from a one-slot cache template built on the ``meta`` device
 (nothing is allocated: attention, one K/V slot + 4 pos bytes a layer;
 ssm, the whole recurrent state a layer, priced float32 as
-``init_rwkv_state`` makes it), and ``offload_scale_vec`` turns that into
+``init_rwkv_state`` makes it; hybrid, the Mamba2 state every layer plus
+one shared-attention slot at each k-th layer, the only layers that write
+one), and ``offload_scale_vec`` turns that into
 the per-arm wire/raw ratio the controller folds into the paper's
 communication term ``o``.
 """
@@ -51,12 +53,24 @@ def _leaves(tree) -> List[torch.Tensor]:
 def per_step_layer_bytes(cfg: ModelConfig) -> np.ndarray:
     """(L,) bytes each layer adds to its cache per decode step, from a
     one-token cache template on the meta device (``seq_len=1`` makes the
-    attention window exactly one slot)."""
+    attention window exactly one slot). Every layer writes its ``ssm``
+    entry; the ``attn`` slot is written by every layer, except in a
+    hybrid, where only the layers after which the shared block runs
+    (every k-th) write one."""
     from repro_torch.models import transformer
     tree = transformer.init_caches(cfg, 1, 1, device="meta")
-    per = sum(int(np.prod(leaf.shape[1:])) * leaf.element_size()
-              for leaf in _leaves(tree))
-    return np.full(cfg.num_layers, per, np.int64)
+
+    def per(key):
+        return sum(int(np.prod(leaf.shape[1:])) * leaf.element_size()
+                   for leaf in _leaves(tree.get(key, {})))
+
+    out = np.full(cfg.num_layers, per("ssm"), np.int64)
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        out[np.arange(cfg.num_layers) % k == k - 1] += per("attn")
+    else:
+        out += per("attn")
+    return out
 
 
 def step_slice_bytes(cfg: ModelConfig, depth: int) -> int:

@@ -10,10 +10,12 @@ The offload payload between them is the (B, S, D) activation after the
 split layer; its byte size is metered per sample and is what the paper's
 `o` abstracts. ``edge_fn_s`` (SplitEE-S) also returns the confidences of
 every exit below the split; ``edge_scan_fn`` runs a whole micro-batch
-with a per-sample depth through the masked forward. The layer loop is a Python loop over the
-stacked layer parameters; attention (dense family), the WKV6 recurrence
-(ssm family) and the exit heads run the port's CUDA kernels on a CUDA
-device and their plain versions on the CPU.
+with a per-sample depth through the masked forward. The layer loop is a
+Python loop over the stacked layer parameters; attention (dense and MoE
+layers, a hybrid's shared block), the WKV6 recurrence (ssm family) and
+the exit heads run the port's CUDA kernels on a CUDA device and their
+plain versions on the CPU; Mamba2's SSD and the MoE dispatch are plain
+PyTorch on both, as the reference's are plain XLA.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.core.rewards import CostModel
 from repro_torch.kernels.exit_confidence.ops import (exit_confidence,
                                                      exit_confidence_fused)
 from repro_torch.models.common import apply_norm
-from repro_torch.models.transformer import (_exit_w, _layer_full, _positions,
+from repro_torch.models.transformer import (_check_family, _exit_w,
+                                            _layer_full, _positions,
                                             embed_inputs,
                                             forward_exits_masked,
                                             grouped_exits, layer_params,
@@ -47,9 +50,7 @@ class EdgeCloudRuntime:
     fused_exit: bool = False
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "ssm"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r}: not ported yet")
+        _check_family(self.cfg)
         self.device = resolve_device(self.device)
 
     # ---------------------------------------------------------------- parts
@@ -70,8 +71,9 @@ class EdgeCloudRuntime:
 
     def _run_layers(self, params, x, positions, start: int, stop: int):
         for i in range(start, stop):
-            x = _layer_full(self.cfg, layer_params(params["layers"], i), x,
-                            positions, window=0)
+            x, _ = _layer_full(self.cfg, params,
+                               layer_params(params["layers"], i), x,
+                               positions, i, window=0)
         return x
 
     def _exit_at(self, params, x, depth: int):
@@ -123,8 +125,9 @@ class EdgeCloudRuntime:
         pooled = []
         for i in range(cfg.num_layers):
             if i <= depth:
-                x = _layer_full(cfg, layer_params(params["layers"], i), x,
-                                pos, window=0)
+                x, _ = _layer_full(cfg, params,
+                                   layer_params(params["layers"], i), x,
+                                   pos, i, window=0)
             pooled.append(pool_hidden(cfg, x))
         conf, pred = grouped_exits(params, cfg, torch.stack(pooled),
                                    fused=self.fused_exit)

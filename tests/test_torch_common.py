@@ -128,7 +128,7 @@ def test_configs_equal_reference():
     assert full.param_count() == get_config("elasticbert12").param_count()
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         t_get_config(arch)

@@ -395,7 +395,7 @@ def test_runtime_and_session_type_guards():
             NotImplementedError) == _raised(lambda: JDecodeRuntime(
                 dataclasses.replace(b["cfg"], **jbad)), NotImplementedError)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        DecodeRuntime(dataclasses.replace(cfg, family="hybrid"),
+        DecodeRuntime(dataclasses.replace(cfg, family="vlm"),
                       device="cpu")
     with pytest.raises(ValueError, match="params on"):
         DecodeRuntime(cfg, device="cpu").prefill_fn(

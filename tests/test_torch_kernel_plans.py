@@ -21,7 +21,7 @@ VARIANTS = exit_kernel.VARIANTS
 
 PLAN_CASES = [(variant, g, m, v)
               for variant in VARIANTS for g in (1, 12) for m in (1, 32, 1024)
-              for v in (2, 40, 64, 65, 65536, 151936)
+              for v in (2, 40, 64, 65, 32000, 32064, 65536, 151936)
               if variant != "small_head" or v <= exit_kernel.SMALL_VOCAB]
 
 
@@ -102,6 +102,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (224, 2048, 151936, "wgmma", 2),       # B = 8: 128 + a partial 96
     (32, 2560, 65536, "mma_sync", 1),      # rwkv6-3b, B = 1: 32 exits
     (256, 2560, 65536, "wgmma", 2),        # B = 8
+    (38, 2048, 32000, "wgmma", 1),         # zamba2-1.2b, B = 1: 38 > 32
+    (304, 2048, 32000, "wgmma", 3),        # B = 8: 128 + 128 + a partial 48
+    (16, 4096, 32064, "mma_sync", 1),      # phi3.5-moe at 16 layers, B = 1
+    (128, 4096, 32064, "wgmma", 1),        # B = 8
 ])
 def test_decode_step_exit_launch(rows, d, v, tile, row_tiles):
     """A decode edge step scores L x B exit rows at the LM head in one
@@ -116,6 +120,28 @@ def test_decode_step_exit_launch(rows, d, v, tile, row_tiles):
     assert (pl.splits - 1) * pl.cols_per_split < v <= \
         pl.splits * pl.cols_per_split
     assert exit_variant(F32, d, v, True) == "cuda_core"   # the f32 cut
+
+
+@pytest.mark.parametrize("m", [32, 38, 304, 512, 1216])
+@pytest.mark.parametrize("v,last_cols", [(32000, 128), (32064, 64)])
+def test_last_column_tile_of_the_new_vocabularies(m, v, last_cols):
+    """zamba2's vocabulary 32000 is 250 whole 128-column tiles;
+    phi3.5-moe's 32064 = 250 x 128 + 64, the first vocabulary whose last
+    column tile is partial: the last split ends at V and its last tile
+    holds 64 live columns (the source bounds columns by min(V, ...)),
+    and no split starts past V."""
+    assert exit_variant(BF16, 4096, v, True) == "tensor_core"
+    rows, cols, per_sm = tile_shape("tensor_core", m)
+    pl = plan(1, m, v, H100_SMS, rows, cols, per_sm)
+    col_tiles = -(-v // exit_kernel.TC_COLS)
+    assert col_tiles == 250 + (last_cols < exit_kernel.TC_COLS)
+    assert v - (col_tiles - 1) * exit_kernel.TC_COLS == last_cols
+    starts = [i * pl.cols_per_split for i in range(pl.splits)]
+    assert starts[-1] < v <= starts[-1] + pl.cols_per_split
+    tiles_in_last = -(-(v - starts[-1]) // exit_kernel.TC_COLS)
+    assert v - (starts[-1] + (tiles_in_last - 1) * exit_kernel.TC_COLS) == \
+        last_cols
+    assert sum(min(v, s + pl.cols_per_split) - s for s in starts) == v
 
 
 @pytest.mark.parametrize("dtype,aligned,want", [

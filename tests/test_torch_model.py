@@ -86,9 +86,9 @@ def test_layer_full_matches_reference(bridged):
     lp = jax.tree.map(lambda a: a[1], jp["layers"])
     ref, _ = jtf._layer_full(cfg, jp, lp, jnp.asarray(x), jnp.asarray(pos),
                              1, window=0, backend="pallas_interpret")
-    got = ttf._layer_full(tcfg, ttf.layer_params(tp["layers"], 1),
-                          torch.from_numpy(x), torch.from_numpy(pos),
-                          window=0)
+    got, _ = ttf._layer_full(tcfg, tp, ttf.layer_params(tp["layers"], 1),
+                             torch.from_numpy(x), torch.from_numpy(pos), 1,
+                             window=0)
     np.testing.assert_allclose(np.asarray(ref), got.numpy(), rtol=0,
                                atol=2e-5)
 
@@ -109,8 +109,7 @@ def test_forward_exits_matches_reference(bridged):
 
 
 def test_other_families_not_ported():
-    from repro_torch.configs.base import SSMConfig
     cfg = dataclasses.replace(t_get_smoke_config("elasticbert12"),
-                              family="hybrid", ssm=SSMConfig(kind="mamba2"))
+                              family="vlm", mrope=True)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttf.init_params(cfg, device="cpu")

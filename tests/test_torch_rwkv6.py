@@ -136,8 +136,8 @@ def test_layer_full_matches_reference(bridged):
     jl, tl = _layer(jp, tp, 1)
     ref, _ = jtf._layer_full(cfg, jp, jl, jnp.asarray(x), jnp.asarray(pos), 1,
                              window=0, backend="pallas_interpret")
-    got = ttf._layer_full(tcfg, tl, torch.from_numpy(x),
-                          torch.from_numpy(pos), window=0)
+    got, _ = ttf._layer_full(tcfg, tp, tl, torch.from_numpy(x),
+                             torch.from_numpy(pos), 1, window=0)
     _close(ref, got)
 
 

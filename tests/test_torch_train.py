@@ -319,7 +319,7 @@ def test_model_facade():
     assert torch.equal(step[0], edge[0])
     assert cloud[0].shape == step[0].shape
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(dataclasses.replace(tcfg, family="moe"))
+        build_model(dataclasses.replace(tcfg, family="audio"))
 
 
 def test_train_main_on_cpu(capsys):
