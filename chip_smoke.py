@@ -38,7 +38,15 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    tolerance scaled to its size that must reject a halved conf and one
    vocabulary split left out, and exact ties (the lowest index wins)
    within a thread's column pair, across a quad, n8 tiles, warps, column
-   tiles and vocabulary splits. It times kernel, plain version and one
+   tiles and vocabulary splits; qwen2-vl-2b's attention (32|8, 12/2,
+   64, 128) causal GQA and head (32|896|224, 1536) x (1536, 151936);
+   seamless-m4t-large-v2's encoder attention (1|8, 16, 4096, 64)
+   bidirectional, decoder (8, 16, 16, 64) causal, cross-attention (8,
+   16, 16|64, 64) against (8, 16, 4096, 64), and its head (8|32|192,
+   1024) x (1024, 256206), an even V off 8 that the tensor-core variant
+   stages in 4-byte pieces (the argmax and exact ties in the partial
+   last 8-column chunk, across the last full tile and across a
+   vocabulary split; held at SEAMLESS_CONF_TOL). It times kernel, plain version and one
    PyTorch library call (CUDA-graph replay) at every main-path shape. The
    WKV6 recurrence is held against its plain version at the serving
    shape (bf16 and f32), at dk = dv = 16, T in {1, 17, 100, 300}, dk !=
@@ -57,9 +65,10 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    `Engine` with the fifo scheduler fed in ragged chunks (its decisions
    must equal the one-shot scan run's; its p50/p99 latency is printed);
    then the same runs with full-width rwkv6-3b (32 layers, d 2560, vocab
-   65536, bfloat16) and full-width zamba2-1.2b (38 Mamba2 layers, d
-   2048, one shared attention + MLP block after every 6th, vocab 32000,
-   bfloat16; alpha its median layer-19 confidence). Each run has its
+   65536, bfloat16) and zamba2-1.2b at full width and 19 of its 38
+   Mamba2 layers (d 2048, one shared attention + MLP block after every
+   6th, vocab 32000, bfloat16; alpha its median layer-10 confidence; it
+   decodes at all 38 layers below). Each run has its
    own launch counts, per kernel, per variant and per tensor-core tile,
    reset just before it and read just after: they must equal the
    launches its decisions need (`expected_launches`: bucketed, one edge
@@ -106,7 +115,22 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    same dropped entries per MoE call, a top-2 flip printed and allowed
    only at a near-tie), decode bandit and forced-final at B = 8 on 16
    prompts x 16 new tokens with the same pins and agreement, every
-   run's launches held as above;
+   run's launches held as above; then qwen2-vl-2b as published over
+   seeded embeds (8 micro-batches of 32 x 64): `EdgeCloudRuntime`'s
+   edge at seeded depths with the cloud for the rows under alpha (plain
+   and fused exits), `edge_fn_s`, `edge_scan_fn` (its carry == the
+   edge's bitwise), decode of 8 embed prompts x 32 greedy tokens
+   through `prefill` + `decode_step(all_exits)` and through the masked
+   edge + resume, each run's launches held against its depths and
+   decisions (`counted_run`), and card vs CPU on 4 layers in float32;
+   then seamless-m4t-large-v2 as published (8 x 4096 seeded frames, a
+   16-token prefix): its encoder's and prefill's device ms, the
+   prefill's 24 bidirectional + 24 causal + 24 cross attention calls and
+   no exit, 32 greedy steps with every exit and with the exit at layer
+   12 (one exit launch a step, no attention; equal tokens), a step's
+   logits pinned to the prefill's over the prefix one token longer, and
+   card vs CPU on 2 encoder + 4 decoder layers and 256 frames in
+   float32;
 7. trains full-width ElasticBERT-12 (12 layers, d 768, the synthetic
    vocabulary of 512, 2 classes, float32) on the card: attention's
    gradient (the kernel's forward and `attention_backward`) against
@@ -161,6 +185,11 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}       # atol = rtol
 # about 1/V: scaled to its size, so that a conf halved or a vocabulary
 # split left out of the softmax sum fails (checked on every run)
 LM_CONF_TOL = {"float32": (1e-4, 1e-9), "bfloat16": (1e-3, 1e-7)}
+# the same at seamless-m4t-large-v2's head (V 256206), tighter: its last
+# vocabulary split holds 206 columns, 0.08 % of the softmax mass, which
+# LM_CONF_TOL's bf16 bound (about 0.13 % at conf 3e-4) would accept left
+# out
+SEAMLESS_CONF_TOL = (4e-4, 1e-8)
 # a pred may differ from the plain version's only on rows whose top-2
 # plain logits are closer than this (near-ties the rounding can flip)
 PRED_TIE_GAP = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -243,11 +272,15 @@ DECODE_ENGINE_CHUNKS = (5, 1, 7, 3, 8)
 DECODE_PROFILE_TOKENS = 8
 DECODE_AGREE_LAYERS = 4
 DECODE_AGREE_STEPS = 4
-# the hybrid served at full width and depth: alpha the median confidence
-# of its layer 19 of 38; its card-vs-CPU forward cut holds two shared
-# attention occurrences
+# the hybrid served at full width and HYBRID_SERVE_LAYERS of its 38 layers
+# (3 shared-attention occurrences; it decodes at all 38 below): the serve
+# runs are host-bound by the layer, and the cut keeps the whole smoke
+# inside its time limit now that the VLM and enc-dec phases run too; alpha
+# the median confidence of its layer 10; its card-vs-CPU forward cut holds
+# two shared attention occurrences
 HYBRID = "zamba2-1.2b"
-HYBRID_ALPHA_LAYER = 19
+HYBRID_SERVE_LAYERS = 19
+HYBRID_ALPHA_LAYER = 10
 HYBRID_AGREE_LAYERS = 12
 # the decoded archs and the layers of their card-vs-CPU cut (zamba2's must
 # hold its shared attention block, which follows the 6th layer)
@@ -263,6 +296,30 @@ MOE_SAMPLES = 256
 MOE_PROMPTS = 16
 MOE_TOKENS = 16
 MOE_AGREE_LAYERS = 2
+# the VLM (qwen2-vl-2b, as published) over seeded embeds: micro-batches of
+# VLM_BATCH rows of VLM_POSITIONS embeds, alpha the median confidence of
+# layer VLM_ALPHA_LAYER; decode of VLM_DECODE_PROMPTS embed prompts x
+# VLM_DECODE_TOKENS greedy text tokens; card vs CPU on VLM_AGREE_LAYERS
+VLM = "qwen2-vl-2b"
+VLM_BATCH = 32
+VLM_POSITIONS = 64
+VLM_MICRO_BATCHES = 8
+VLM_ALPHA_LAYER = 14
+VLM_DECODE_PROMPTS = 8
+VLM_DECODE_TOKENS = 32
+VLM_AGREE_LAYERS = 4
+# the enc-dec model (seamless-m4t-large-v2, as published): ENCDEC_BATCH
+# rows of seeded frames (its 4096-frame source), a prefix of
+# ENCDEC_PREFIX target tokens, ENCDEC_TOKENS greedy steps, the SplitEE
+# exit at ENCDEC_SPLIT; card vs CPU on (encoder layers, decoder layers,
+# frames) ENCDEC_AGREE over ENCDEC_AGREE_STEPS steps
+ENCDEC = "seamless-m4t-large-v2"
+ENCDEC_BATCH = 8
+ENCDEC_PREFIX = 16
+ENCDEC_TOKENS = 32
+ENCDEC_SPLIT = 12
+ENCDEC_AGREE = (2, 4, 256)
+ENCDEC_AGREE_STEPS = 4
 # the variant every launch of a decode run must take: attention at d 128
 # and the LM-head exits on the tensor cores, WKV6 on 16-byte rows
 DECODE_VARIANTS = {"dense": {"flash_attention": "tensor_core",
@@ -461,16 +518,16 @@ def check_close(name, got, want, dtype):
     return err
 
 
-def check_lm_conf(name, conf, want, logits, dtype, d):
-    """conf at an LM head against the plain version at LM_CONF_TOL; the
-    same comparison must reject the plain conf halved and the plain conf
-    with the smallest of the kernel's vocabulary splits (those of the
-    variant that ran, at feature width ``d``) left out of the softmax sum.
-    Returns the max relative error."""
+def check_lm_conf(name, conf, want, logits, dtype, d, tol=None):
+    """conf at an LM head against the plain version at ``tol`` (rtol,
+    atol; default LM_CONF_TOL); the same comparison must reject the plain
+    conf halved and the plain conf with the smallest of the kernel's
+    vocabulary splits (those of the variant that ran, at feature width
+    ``d``) left out of the softmax sum. Returns the max relative error."""
     import torch
     from repro_torch.kernels.exit_confidence.kernel import (exit_variant,
                                                             plan, tile_shape)
-    rtol, atol = LM_CONF_TOL[dtype]
+    rtol, atol = tol or LM_CONF_TOL[dtype]
 
     def ok(c):
         return bool(torch.allclose(c.float(), want.float(), rtol=rtol,
@@ -667,6 +724,24 @@ def attention_checks(torch, dev):
          "bfloat16"),
         ("phi35_prefill_bf16", tc, 8, 32, 8, 64, 64, 128, True, 0,
          "bfloat16"),
+        # qwen2-vl-2b (causal GQA 12/2, head dim 128) served at B = 32 and
+        # prefilled at B = 8; seamless-m4t-large-v2 (MHA 16 heads of 64):
+        # its encoder over 4096 frames (bidirectional; B = 1 keeps the
+        # plain version's f32 logits at 1.07 GB), its decoder's causal
+        # self-attention over a 16-token prefix and its cross-attention
+        # of 16 or 64 target tokens against 4096 frames (not causal)
+        ("qwen2vl_serve_bf16", tc, 32, 12, 2, 64, 64, 128, True, 0,
+         "bfloat16"),
+        ("qwen2vl_prefill_bf16", tc, 8, 12, 2, 64, 64, 128, True, 0,
+         "bfloat16"),
+        ("seamless_encoder_bf16", tc, 1, 16, 16, 4096, 4096, 64, False, 0,
+         "bfloat16"),
+        ("seamless_decoder_bf16", tc, 8, 16, 16, 16, 16, 64, True, 0,
+         "bfloat16"),
+        ("seamless_cross16_bf16", tc, 8, 16, 16, 16, 4096, 64, False, 0,
+         "bfloat16"),
+        ("seamless_cross64_bf16", tc, 8, 16, 16, 64, 4096, 64, False, 0,
+         "bfloat16"),
         ("suffix_q_f32", cc, 2, 4, 4, 7, 90, 32, True, 0, "float32"),
         ("d16_bf16", cc, 2, 4, 4, 70, 70, 16, False, 0, "bfloat16"),
         ("d48_causal_bf16", cc, 2, 4, 2, 70, 70, 48, True, 0, "bfloat16"),
@@ -734,7 +809,10 @@ def attention_checks(torch, dev):
                       ("at_zamba2_serve", "zamba2_serve_bf16"),
                       ("at_zamba2_prefill", "zamba2_prefill_bf16"),
                       ("at_phi35_serve", "phi35_serve_bf16"),
-                      ("at_phi35_prefill", "phi35_prefill_bf16")):
+                      ("at_phi35_prefill", "phi35_prefill_bf16"),
+                      ("at_qwen2vl_serve", "qwen2vl_serve_bf16"),
+                      ("at_qwen2vl_prefill", "qwen2vl_prefill_bf16"),
+                      ("at_seamless_decoder", "seamless_decoder_bf16")):
         q, k, v, err = out[case]
         b, h, s, d = q.shape
         gqa = k.shape[1] != h
@@ -751,7 +829,49 @@ def attention_checks(torch, dev):
                                                    enable_gqa=gqa),
             2 * (q.numel() + k.numel()) * q.element_size(),
             2.0 * b * h * s * s * d, "bfloat16", variant=tc)
+    # not causal, Sq queries against Skv keys: bytes q, out, k, v;
+    # operations the two products in full
+    for key, case in (("at_seamless_encoder", "seamless_encoder_bf16"),
+                      ("at_seamless_cross16", "seamless_cross16_bf16"),
+                      ("at_seamless_cross64", "seamless_cross64_bf16")):
+        q, k, v, err = out[case]
+        rec[key] = not_causal_record(torch, q, k, v, err)
+        del out[case]
+    # seamless's encoder at the decode phase's B = 8, held and timed (the
+    # plain version's f32 logits: 8.6 GB)
+    q, k, v = qkv(8, 16, 16, 4096, 4096, 64, torch.bfloat16)
+    got, want = run("seamless_encoder_b8_bf16", tc, q, k, v, False)
+    err = check_close("flash_attention[seamless_encoder_b8_bf16]", got, want,
+                      "bfloat16")
+    del got, want
+    print(f"  flash_attention[seamless_encoder_b8_bf16] ({tc}) max|err| "
+          f"{err:.3e} (tol {TOL['bfloat16']})")
+    rec["at_seamless_encoder_b8"] = not_causal_record(torch, q, k, v, err,
+                                                      calls=2, replays=2)
     return rec
+
+
+def not_causal_record(torch, q, k, v, err, **few):
+    """The JSON entry of attention at q (B, H, Sq, d) against k/v (B, H,
+    Skv, d), not causal, through the tensor-core variant."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import gqa_ref
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    tc = "tensor_core"
+    return record(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:80",
+        f"q ({b},{h},{sq},{d}), k/v ({b},{h},{skv},{d}) bfloat16, "
+        f"{'bidirectional' if sq == skv else 'cross-attention'}", err,
+        lambda: via("flash_attention", tc,
+                    lambda: attention(q, k, v, causal=False)),
+        lambda: gqa_ref(q, k, v, causal=False),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        2 * (q.numel() + k.numel()) * q.element_size(),
+        4.0 * b * h * sq * skv * d, "bfloat16", variant=tc, **few)
 
 
 def _exit_logits(h, w, bias=None):
@@ -772,11 +892,12 @@ def exit_checks(torch, dev):
 
     def held(name, conf, pred, wc, wp, logits_fn, dt, lm, d):
         """conf and pred against the plain version's; ``lm``: at an LM
-        head, conf at LM_CONF_TOL."""
+        head, conf at LM_CONF_TOL, or at the (rtol, atol) ``lm`` gives."""
         err = (conf.float() - wc.float()).abs().max().item()
         if lm:
-            rel = check_lm_conf(name, conf, wc, logits_fn(), dt, d)
-            tol = f"relative {rel:.3e}, (rtol, atol) {LM_CONF_TOL[dt]}"
+            lm_tol = lm if isinstance(lm, tuple) else LM_CONF_TOL[dt]
+            rel = check_lm_conf(name, conf, wc, logits_fn(), dt, d, lm_tol)
+            tol = f"relative {rel:.3e}, (rtol, atol) {lm_tol}"
         else:
             check_close(name, conf, wc, dt)
             tol = f"tol {TOL[dt]}"
@@ -1072,6 +1193,8 @@ def exit_checks(torch, dev):
     del w_q
     new_vocabulary_checks(torch, dev, rnd, plain_case, fused_case, rec_plain,
                           rec_fused, few)
+    vlm_encdec_exit_checks(torch, dev, rnd, plain_case, fused_case,
+                           rec_plain, rec_fused, few)
     return rec_plain, rec_fused
 
 
@@ -1167,6 +1290,115 @@ def new_vocabulary_checks(torch, dev, rnd, plain_case, fused_case, rec_plain,
     print(f"  exit_confidence(+fused) at V = {v} (250 x 128 + 64), M = 32 "
           f"(mma.sync) and 512 (wgmma): {', '.join(ties)}: the lowest index "
           f"wins")
+
+
+def vlm_encdec_exit_checks(torch, dev, rnd, plain_case, fused_case,
+                           rec_plain, rec_fused, few):
+    """The exit at qwen2-vl-2b's head (D 1536, V 151936) and at
+    seamless-m4t-large-v2's (D 1024, V 256206: even, not a multiple of 8,
+    so each row of w lies on 4 bytes only and the tensor-core variant
+    stages it in 4-byte pieces), at the shapes their phases give it:
+    qwen2-vl's bucketed edge (32 rows), its scan edge (28 x 32 = 896) and
+    a decode step (28 x 8 = 224), plain and fused (rmsnorm); seamless's
+    decode exit at split_layer (8 rows), a 32-row head and a step's
+    every exit (24 x 8 = 192), plain and fused (layernorm). At V = 256206
+    the argmax and exact ties are placed in the partial last 8-column
+    chunk (columns 256200..256205), across the last two chunks, in and
+    across the last full 128-column tile, and across a vocabulary split:
+    the lowest index must win, plain and fused, through mma.sync and
+    wgmma. Every shape is timed against its plain version and one
+    library call; its entries are ``at_*`` of the exit records."""
+    from repro_torch.kernels.exit_confidence.kernel import plan, tile_shape
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_confidence, exit_confidence_fused)
+    from repro_torch.kernels.exit_confidence.ref import (
+        exit_confidence_fused_ref, exit_confidence_ref)
+    bf16 = torch.bfloat16
+    src = "src/repro_torch/kernels/exit_confidence/csrc/exit_confidence.cu"
+    heads = {
+        "qwen2vl": (1536, 151936, "rmsnorm",
+                    [("at_qwen2vl_lm_head", 32, False),
+                     ("at_qwen2vl_scan", 28 * 32, True),
+                     ("at_decode_qwen2vl_b8", 28 * 8, None)]),
+        "seamless": (1024, 256206, "layernorm",
+                     [("at_seamless_b8", 8, False),
+                      ("at_seamless_b32", 32, None),
+                      ("at_decode_seamless_b8", 24 * 8, True)])}
+    for name, (d, v, kind, shapes) in heads.items():
+        w = rnd(d, v, scale=d ** -0.5).to(bf16)
+        lm = SEAMLESS_CONF_TOL if name == "seamless" else True
+        for key, m, per_row in shapes:
+            tile = "mma_sync" if m <= 32 else "wgmma"
+            h = rnd(m, d).to(bf16)
+            err = plain_case(f"{key[3:]}_bf16", h, w, "bfloat16", lm=lm,
+                             tile=tile)
+            rec_plain[key] = record(
+                "exit_confidence", src,
+                "src/repro/kernels/exit_confidence/kernel.py:100",
+                f"h ({m},{d}) @ w ({d},{v}) bfloat16", err,
+                lambda: exit_confidence(h, w),
+                lambda: exit_confidence_ref(h, w),
+                lambda: torch.softmax(h @ w, dim=-1).max(dim=-1),
+                h.numel() * 2 + w.numel() * 2 + m * 8, 2.0 * m * d * v,
+                "bfloat16", **few)
+            if per_row is None:
+                continue
+            x = (rnd(m, d, scale=2.0) + 0.5).to(bf16)
+            rows = (m,) if per_row else ()
+            norm = {"scale": (rnd(*rows, d, scale=0.1) + 1.0).to(bf16)}
+            if kind == "layernorm":
+                norm["bias"] = rnd(*rows, d, scale=0.1).to(bf16)
+            err = fused_case(f"{kind}_{key[3:]}_bf16", x, norm, w, None, kind,
+                             "bfloat16", lm=lm, tile=tile)
+            nbytes = sum(t.numel() * 2 for t in norm.values())
+            rec_fused[key] = record(
+                "exit_confidence_fused", src,
+                "src/repro/kernels/exit_confidence/kernel.py:186",
+                f"{kind} x ({m},{d}), "
+                f"{f'per-row ({m},{d})' if per_row else 'shared (D,)'} "
+                f"params, w ({d},{v}) bfloat16", err,
+                lambda: exit_confidence_fused(x, norm, w, kind=kind),
+                lambda: exit_confidence_fused_ref(x, norm, w, kind=kind),
+                None, x.numel() * 2 + w.numel() * 2 + m * 8 + nbytes,
+                2.0 * m * d * v + 8.0 * m * d, "bfloat16", **few)
+        del w
+
+    d, v = 64, 256206
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (8, 192):
+        split = plan(1, m, v, sms, *tile_shape("tensor_core", m)
+                     ).cols_per_split
+        ties = {"argmax at the last column": [256205],
+                "tie in the partial last 8-column chunk": [256200, 256205],
+                "tie across the last two chunks": [256199, 256200],
+                "tie in the last full tile": [256000, 256127],
+                "tie across the last full and the partial tile":
+                    [256127, 256128],
+                f"tie across a vocabulary split (at {split})":
+                    [split - 1, split],
+                "tie across the first and the last column": [0, 256205]}
+        h_tie = torch.ones((m, d), device=dev, dtype=bf16)
+        ones = {"scale": torch.ones(d, device=dev, dtype=bf16)}
+        for what, cols in ties.items():
+            w_tie = torch.zeros((d, v), device=dev, dtype=bf16)
+            w_tie[:, cols] = 2.0
+            want = exit_confidence_ref(h_tie, w_tie)[0]
+            for kname, call in (
+                    ("exit_confidence",
+                     lambda: exit_confidence(h_tie, w_tie)),
+                    ("exit_confidence_fused",
+                     lambda: exit_confidence_fused(h_tie, ones, w_tie,
+                                                   kind="rmsnorm"))):
+                conf, pred = via(kname, "tensor_core", call,
+                                 "mma_sync" if m <= 32 else "wgmma")
+                if not (pred == min(cols)).all():
+                    fail(f"{kname} at V = {v}, {what}, M = {m}: pred "
+                         f"{pred.unique().tolist()} != {min(cols)}")
+                check_close(f"{kname}[V {v}, {what}, M={m}]", conf, want,
+                            "float32")
+        print(f"  exit_confidence(+fused) at V = {v} (4-byte w pieces), "
+              f"M = {m} ({'mma.sync' if m <= 32 else 'wgmma'}): "
+              f"{', '.join(ties)}: the lowest index wins")
 
 
 def wkv6_checks(torch, dev):
@@ -1465,15 +1697,24 @@ def describe_heads(cfg) -> str:
         return (f"{heads}, {cfg.moe.num_experts} experts top-"
                 f"{cfg.moe.top_k} (capacity factor "
                 f"{cfg.moe.capacity_factor})")
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        return (f"decoder {heads} with cross-attention; encoder "
+                f"{e.num_layers} layers, d {e.d_model}, {e.num_heads}/"
+                f"{e.num_kv_heads} heads, d_ff {e.d_ff}, {e.source_len} "
+                f"frames")
+    if cfg.mrope:
+        return f"{heads}, M-RoPE, QKV bias"
     return heads
 
 
 def init_full(torch, dev, cfg, seed: int):
-    """``cfg``'s parameters from ``seed`` on the card; prints their count,
+    """``cfg``'s parameters from ``seed`` on the card (through the `Model`
+    facade: the decoder stack, or an enc-dec model); prints their count,
     bytes and the init time."""
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.api import build_model
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=seed, device=dev)
+    params = build_model(cfg).init(seed=seed, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
@@ -1775,14 +2016,15 @@ def lm_depths(torch, layers: int, rows: int = 8):
     return torch.linspace(0, layers - 1, rows).round().long()
 
 
-def lm_exit_runs(torch, tree, cut, toks, depths, device, dtype):
+def lm_exit_runs(torch, tree, cut, inputs, depths, device, dtype):
     """`forward_exits` and `forward_exits_masked` (at ``depths``) of the
-    parameter tree ``tree`` cast to ``dtype`` on ``device``; returns
-    ``{what: {"conf", "pred"} on the CPU}``."""
+    parameter tree ``tree`` cast to ``dtype`` on ``device`` over the batch
+    ``inputs`` (``{"tokens": ...}`` or a stub's ``{"embeds": ...}``);
+    returns ``{what: {"conf", "pred"} on the CPU}``."""
     from repro_torch.models.transformer import (ParamTree, forward_exits,
                                                 forward_exits_masked)
     p = ParamTree(_tree_to(tree, device, dtype))
-    batch = {"tokens": torch.as_tensor(toks).to(device)}
+    batch = {k: torch.as_tensor(v).to(device) for k, v in inputs.items()}
     out = {}
     for what, call in (
             ("forward_exits", lambda: forward_exits(p, cut, batch)),
@@ -1833,11 +2075,12 @@ def lm_depth_witness(torch, dev, params, cfg, data, layers: int,
     cut, tree = lm_cut(params, cfg, layers)
     toks = data["tokens"][:8]
     depths = lm_depths(torch, layers)
-    card = lm_exit_runs(torch, tree, cut, toks, depths, dev, torch.float32)
-    cpu32 = lm_exit_runs(torch, tree, cut, toks, depths, "cpu",
+    inputs = {"tokens": toks}
+    card = lm_exit_runs(torch, tree, cut, inputs, depths, dev, torch.float32)
+    cpu32 = lm_exit_runs(torch, tree, cut, inputs, depths, "cpu",
                          torch.float32)
     with float64_kept(torch):
-        cpu64 = lm_exit_runs(torch, tree, cut, toks, depths, "cpu",
+        cpu64 = lm_exit_runs(torch, tree, cut, inputs, depths, "cpu",
                              torch.float64)
     held = True
     for what in card:
@@ -1872,15 +2115,17 @@ def lm_depth_witness(torch, dev, params, cfg, data, layers: int,
 
 
 def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
-                       witness: bool = True):
-    """An LM at full width (rwkv6-3b, zamba2-1.2b, phi3.5-moe), cut to
-    its first ``layers`` layers of the serve phase's weights, in float32:
+                       witness: bool = True, inputs=None):
+    """An LM at full width (rwkv6-3b, zamba2-1.2b, phi3.5-moe, qwen2-vl),
+    cut to its first ``layers`` layers of the serve phase's weights (over
+    8 samples of ``data``, or the batch ``inputs``: a stub's embeds), in
+    float32:
     `forward_exits` and `forward_exits_masked` (depths spread over
     0..layers-1) on the card (the layer and exit kernels) against the CPU
     (plain versions), an MoE's routing held by `compare_routes`; then the
-    served decisions of the small float32 model of the arch. With
-    ``witness``, all layers are held by `lm_depth_witness`, against a
-    float64 CPU reading."""
+    served decisions of the small float32 model of the arch (for a token
+    batch). With ``witness``, all layers are held by `lm_depth_witness`,
+    against a float64 CPU reading."""
     from repro_torch.models.common import apply_norm
     from repro_torch.models.transformer import (ParamTree, exit_hidden,
                                                 _layer_full, _positions,
@@ -1889,20 +2134,22 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
 
     t0 = time.perf_counter()
     cut, tree = lm_cut(params, cfg, layers)
-    toks = data["tokens"][:8]
+    tokens = inputs is None
+    if tokens:
+        inputs = {"tokens": data["tokens"][:8]}
     depths = lm_depths(torch, layers)
     moe = cfg.family == "moe"
     with route_records(moe) as routes_gpu:
-        gpu = lm_exit_runs(torch, tree, cut, toks, depths, dev,
+        gpu = lm_exit_runs(torch, tree, cut, inputs, depths, dev,
                            torch.float32)
     with route_records(moe) as routes_cpu:
-        cpu = lm_exit_runs(torch, tree, cut, toks, depths, "cpu",
+        cpu = lm_exit_runs(torch, tree, cut, inputs, depths, "cpu",
                            torch.float32)
     if moe:
         compare_routes(f"full-width {cfg.arch_id} cut to {layers} layers",
                        routes_gpu, routes_cpu)
     cpu_p = ParamTree(_tree_to(tree, "cpu", torch.float32))
-    batch = {"tokens": torch.as_tensor(toks)}
+    batch = {k: torch.as_tensor(v).cpu() for k, v in inputs.items()}
 
     def masked_logits():
         """The CPU's logits of every masked exit row (for check_pred)."""
@@ -1943,7 +2190,8 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
     del cpu_p
     if witness:
         lm_depth_witness(torch, dev, params, cfg, data, cfg.num_layers)
-    small_serve_agreement(torch, dev, cfg.arch_id, data)
+    if tokens:
+        small_serve_agreement(torch, dev, cfg.arch_id, data)
 
 
 @contextlib.contextmanager
@@ -2544,6 +2792,452 @@ def moe_phase(torch, dev, runs: Runs, seed: int):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ VLM and enc-dec
+
+def counted_run(torch, runs: Runs, name, fn):
+    """``fn()``, with every launch count set to 0 just before it and read
+    just after; ``fn`` returns (out, launches by kernel, launches by exit
+    tile) that its own decisions need. The counts must equal them, and
+    every launch must have taken its kernel's tensor-core variant.
+    Records the counts under ``name``. Returns (out, wall seconds)."""
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     tile_launch_counts,
+                                     variant_launch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, want, want_tiles = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    variants = {k: n for k, n in variant_launch_counts().items() if n}
+    tiles = {k: n for k, n in tile_launch_counts().items() if n}
+    runs.counts[name], runs.variants[name] = counts, variants
+    runs.tiles[name] = tiles
+    want = {k: want.get(k, 0) for k in counts}
+    print(f"  {name}: {dt:.3f}s wall; launches {counts}; by variant "
+          f"{variants}; by tile {tiles}")
+    if counts != want or tiles != want_tiles:
+        fail(f"{name}: launches {counts} by tile {tiles}, but its decisions "
+             f"need {want} by tile {want_tiles}")
+    for kname, n in counts.items():
+        if variants.get(f"{kname}/tensor_core", 0) != n:
+            fail(f"{name}: {n} launches of {kname}, not all through its "
+                 f"tensor_core variant: {variants}")
+    return out, dt
+
+
+def _exit_launch(want, tiles, kernel, rows):
+    """Tally one tensor-core exit launch over ``rows`` rows."""
+    from repro_torch.kernels.exit_confidence.kernel import tc_tile
+    want[kernel] = want.get(kernel, 0) + 1
+    key = f"{kernel}/tensor_core/{tc_tile(rows)}"
+    tiles[key] = tiles.get(key, 0) + 1
+
+
+def vlm_phase(torch, dev, runs: Runs, seed: int):
+    """qwen2-vl-2b as published (bf16, weights from ``seed``) over seeded
+    embeds: `EdgeCloudRuntime` with each micro-batch's edge at a seeded
+    depth and `cloud_fn` for its rows under alpha (plain and fused exits),
+    `edge_fn_s` and `edge_scan_fn` at per-row depths, each run's
+    attention and exit launches held against its depths and decisions;
+    samples/s of the halves and device busy. Then decode: embed prompts
+    through `prefill` and greedy `decode_step(all_exits=True)`, and
+    through `decode_step_masked` / `decode_step_resume` at seeded
+    depths (28 attention launches a push; one exit launch a step, none
+    in a resume), with tokens/s and busy; card vs CPU in float32 on a
+    VLM_AGREE_LAYERS-layer cut."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import EdgeCloudRuntime
+
+    cfg = model_config(VLM)
+    L, B, S = cfg.num_layers, VLM_BATCH, VLM_POSITIONS
+    params = init_full(torch, dev, cfg, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    embeds = [torch.randn((B, S, cfg.d_model), generator=gen,
+                          device=dev).to(torch.bfloat16)
+              for _ in range(VLM_MICRO_BATCHES)]
+    conf0 = tf.forward_exits(params, cfg, {"embeds": embeds[0]})["conf"]
+    alpha = float(conf0[VLM_ALPHA_LAYER - 1].float().median())
+    rng = np.random.default_rng(seed)
+    depths = rng.integers(0, L, VLM_MICRO_BATCHES)
+    row_depths = rng.integers(0, L, (VLM_MICRO_BATCHES, B))
+    n = B * VLM_MICRO_BATCHES
+    print(f"  {n} seeded embed rows of {S} x {cfg.d_model} in "
+          f"{VLM_MICRO_BATCHES} micro-batches of {B}; alpha = median "
+          f"layer-{VLM_ALPHA_LAYER} confidence = {alpha:.6g}; edge depths "
+          f"{depths.tolist()}")
+
+    def halves(rt, fused):
+        want, tiles = {"flash_attention": 0}, {}
+        edge_s = cloud_s = 0.0
+        offloads = 0
+        for e, d in zip(embeds, depths.tolist()):
+            t0 = time.perf_counter()
+            conf, _, hidden = rt.edge_fn(params, {"embeds": e}, d)
+            low = torch.nonzero(conf < alpha).flatten()
+            n_low = int(low.numel())
+            edge_s += time.perf_counter() - t0
+            want["flash_attention"] += d + 1
+            _exit_launch(want, tiles, "exit_confidence_fused" if fused
+                         else "exit_confidence", B)
+            if n_low:
+                t0 = time.perf_counter()
+                conf_l, _ = rt.cloud_fn(params, hidden[low], d)
+                if not torch.isfinite(conf_l).all():
+                    fail(f"{VLM} cloud_fn: non-finite confidences")
+                cloud_s += time.perf_counter() - t0
+                offloads += n_low
+                want["flash_attention"] += L - d - 1
+                _exit_launch(want, tiles, "exit_confidence", n_low)
+        return (offloads, edge_s, cloud_s), want, tiles
+
+    rt = {fused: EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
+          for fused in (False, True)}
+    halves(rt[False], False)                                  # warm-up
+    walls = {}
+    for fused in (False, True):
+        name = f"{VLM} edge/cloud{' fused_exit' if fused else ''}"
+        (offloads, edge_s, cloud_s), wall = counted_run(
+            torch, runs, name, lambda f=fused: halves(rt[f], f))
+        walls[fused] = wall
+        print(f"    {n - offloads} exits, {offloads} offloads; edge half "
+              f"{n / edge_s:.1f} samples/s, cloud half "
+              f"{offloads / max(cloud_s, 1e-9):.1f} samples/s, "
+              f"{n / wall:.1f} samples/s end to end")
+        if not 0 < offloads < n:
+            fail(f"{name}: {offloads} offloads of {n}: need both")
+    busy, per_kernel = device_ms(lambda: halves(rt[False], False), iters=1,
+                                 warmup=0)
+    print_busy(f"{VLM} edge/cloud", busy, walls[False] * 1e3, per_kernel)
+
+    def side():
+        want, tiles = {"flash_attention": 0}, {}
+        for e, d in zip(embeds, depths.tolist()):
+            conf, _, _ = rt[False].edge_fn_s(params, {"embeds": e}, d)
+            if tuple(conf.shape) != (L, B):
+                fail(f"{VLM} edge_fn_s: conf {tuple(conf.shape)}")
+            want["flash_attention"] += d + 1
+            _exit_launch(want, tiles, "exit_confidence", L * B)
+        return None, want, tiles
+
+    def scan():
+        want, tiles, hidden = {"flash_attention": 0}, {}, []
+        for e, dd in zip(embeds, row_depths):
+            _, _, h = rt[False].edge_scan_fn(params, {"embeds": e}, dd)
+            hidden.append(h)
+            want["flash_attention"] += L
+            _exit_launch(want, tiles, "exit_confidence", L * B)
+        return hidden, want, tiles
+
+    _, wall = counted_run(torch, runs, f"{VLM} edge_fn_s", side)
+    print(f"    edge_fn_s: {n / wall:.1f} samples/s")
+    hidden, wall = counted_run(torch, runs, f"{VLM} edge_scan_fn", scan)
+    print(f"    edge_scan_fn: {n / wall:.1f} samples/s")
+    for d in np.unique(row_depths[0]).tolist():
+        rows = torch.as_tensor(np.nonzero(row_depths[0] == d)[0],
+                               device=dev)
+        h = rt[False].edge_fn(params, {"embeds": embeds[0]}, d)[2]
+        if not torch.equal(hidden[0][rows], h[rows]):
+            fail(f"{VLM}: edge_scan_fn's carry at depth {d} differs from "
+                 f"edge_fn's")
+    print("    edge_scan_fn's per-row carry == edge_fn's at each row's "
+          "depth, bitwise (first micro-batch)")
+    vlm_decode(torch, dev, runs, params, cfg, embeds[0][:VLM_DECODE_PROMPTS],
+               seed)
+    lm_agreement_phase(torch, dev, params, cfg, None, layers=VLM_AGREE_LAYERS,
+                       witness=False, inputs={"embeds": embeds[0][:8]})
+    del params, embeds
+    torch.cuda.empty_cache()
+
+
+def vlm_decode(torch, dev, runs: Runs, params, cfg, prompts, seed: int):
+    """Embed prompts decoded greedily through `prefill` and
+    `decode_step(all_exits=True)`, then at seeded depths through
+    `decode_step_masked` with `decode_step_resume` for the rows under
+    alpha (the median layer-L/2 confidence of the first step)."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    L, b = cfg.num_layers, prompts.shape[0]
+    P, T = prompts.shape[1], VLM_DECODE_TOKENS
+    total = P + T
+    rows = torch.arange(b, device=dev)
+    first = {}
+
+    def greedy():
+        lg, caches = tf.prefill(params, cfg, {"embeds": prompts},
+                                cache_seq_len=total)
+        tok, out = lg.argmax(-1), []
+        for t in range(T):
+            lg, conf, _, caches = tf.decode_step(
+                params, cfg, caches, tok, P + t, all_exits=True,
+                window_seq_len=total)
+            first.setdefault("conf", conf)
+            tok = lg.argmax(-1)
+            out.append(tok)
+        want, tiles = {"flash_attention": L}, {}
+        for _ in range(T):
+            _exit_launch(want, tiles, "exit_confidence", L * b)
+        return torch.stack(out, 1).cpu(), want, tiles
+
+    def masked():
+        lg, caches = tf.prefill(params, cfg, {"embeds": prompts},
+                                cache_seq_len=total)
+        tok, offloads = lg.argmax(-1), 0
+        drng = np.random.default_rng(seed + 2)
+        for t in range(T):
+            d = torch.as_tensor(drng.integers(0, L, b), device=dev)
+            lg, conf, pred, hidden, caches = tf.decode_step_masked(
+                params, cfg, caches, tok, P + t, d, window_seq_len=total)
+            active = (conf[d, rows] < alpha) & (d < L - 1)
+            nxt = torch.where(d == L - 1, lg.argmax(-1), pred[d, rows].long())
+            if bool(active.any()):
+                lg_c, caches = tf.decode_step_resume(
+                    params, cfg, caches, hidden, P + t, d, active,
+                    window_seq_len=total)
+                nxt = torch.where(active, lg_c.argmax(-1), nxt)
+                offloads += int(active.sum())
+            tok = nxt
+        want, tiles = {"flash_attention": L}, {}
+        for _ in range(T):
+            _exit_launch(want, tiles, "exit_confidence", L * b)
+        return offloads, want, tiles
+
+    greedy()                                                  # warm-up
+    toks, wall = counted_run(torch, runs, f"{VLM} decode all_exits", greedy)
+    if toks.shape != (b, T) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_size:
+        fail(f"{VLM} decode: tokens {tuple(toks.shape)}")
+    busy, per_kernel = device_ms(greedy, iters=1, warmup=0)
+    print(f"    {b} embed prompts of {P} x {T} greedy tokens: "
+          f"{b * T / wall:.1f} tokens/s")
+    print_busy(f"{VLM} decode all_exits", busy, wall * 1e3, per_kernel)
+    alpha = float(first["conf"][L // 2 - 1].float().median())
+    offloads, wall = counted_run(torch, runs, f"{VLM} decode masked+resume",
+                                 masked)
+    print(f"    masked edge + resume at seeded depths (alpha = median "
+          f"layer-{L // 2} confidence of the first step = {alpha:.6g}): "
+          f"{offloads} of {b * T} token steps offloaded, "
+          f"{b * T / wall:.1f} tokens/s")
+    if not 0 < offloads < b * T:
+        fail(f"{VLM} decode masked: {offloads} offloads: need exits and "
+             f"offloads")
+
+
+@contextlib.contextmanager
+def attention_calls():
+    """Records (causal, Sq, Skv) of every block-attention call the models
+    make (the name `models.attention` calls), passing each on."""
+    from repro_torch.models import attention as attn_mod
+    orig = attn_mod.flash_attention
+    seen = []
+
+    def wrapped(q, k, v, *, causal=True, window=0):
+        seen.append((bool(causal), q.shape[2], k.shape[2]))
+        return orig(q, k, v, causal=causal, window=window)
+    attn_mod.flash_attention = wrapped
+    try:
+        yield seen
+    finally:
+        attn_mod.flash_attention = orig
+
+
+def encdec_phase(torch, dev, runs: Runs, seed: int):
+    """seamless-m4t-large-v2 as published (bf16, weights from ``seed``):
+    seeded frames (ENCDEC_BATCH x 4096 x 1024), a prefix of
+    ENCDEC_PREFIX target tokens, then ENCDEC_TOKENS greedy steps with
+    every exit (`all_exits`) and with the exit at ENCDEC_SPLIT. A prefill
+    launches attention 24 times bidirectional (encoder), 24 causal
+    (decoder) and 24 as cross-attention, and no exit; a step one exit
+    and no attention. Prints the encoder's, the prefill's and a step's
+    device ms, tokens/s and busy; pins a step's logits to `prefill`'s
+    over the prefix one token longer; card vs CPU in float32 on a cut."""
+    from collections import Counter
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.api import build_model
+
+    cfg = model_config(ENCDEC)
+    e = cfg.encoder
+    L, B, P, T = cfg.num_layers, ENCDEC_BATCH, ENCDEC_PREFIX, ENCDEC_TOKENS
+    model = build_model(cfg)
+    params = init_full(torch, dev, cfg, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randn((B, e.source_len, e.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    prefix = torch.randint(0, cfg.vocab_size, (B, P + 1), generator=gen,
+                           device=dev)
+    batch = {"frames": frames, "tokens": prefix[:, :P]}
+    total = P + T
+    model.prefill(params, batch, cache_seq_len=total)         # warm-up
+    enc_ms, _ = device_ms(lambda: ed.encode(params, cfg, frames), iters=3,
+                          warmup=1)
+    pre_ms, _ = device_ms(lambda: model.prefill(params, batch,
+                                                cache_seq_len=total),
+                          iters=3, warmup=0)
+
+    def prefill_run():
+        with attention_calls() as calls:
+            out = model.prefill(params, batch, cache_seq_len=total)
+            torch.cuda.synchronize()
+        kinds = Counter(calls)
+        want_kinds = {(False, e.source_len, e.source_len): e.num_layers,
+                      (True, P, P): L, (False, P, e.source_len): L}
+        if kinds != want_kinds:
+            fail(f"{ENCDEC} prefill: attention calls {dict(kinds)}, want "
+                 f"{want_kinds}")
+        return out, {"flash_attention": e.num_layers + 2 * L}, {}
+
+    (lg0, caches), wall_pre = counted_run(torch, runs, f"{ENCDEC} prefill",
+                                          prefill_run)
+    print(f"    encoder {enc_ms:.3f} ms, prefill {pre_ms:.3f} ms of device "
+          f"time (torch.profiler); the prefill's attention calls: "
+          f"{e.num_layers} bidirectional ({e.source_len} frames), {L} "
+          f"causal ({P} tokens), {L} cross ({P} x {e.source_len})")
+    ckv = {"cross_kv": caches["cross_kv"]}
+
+    def steps(all_exits, split_layer):
+        def run():
+            c, tok, out = {"self": caches["self"]}, lg0.argmax(-1), []
+            for t in range(T):
+                lg, conf, _, c = model.decode_step(
+                    params, c, tok, P + t, extras=ckv, all_exits=all_exits,
+                    split_layer=split_layer, window_seq_len=total)
+                tok = lg.argmax(-1)
+                out.append(tok)
+            want, tiles = {}, {}
+            for _ in range(T):
+                _exit_launch(want, tiles, "exit_confidence",
+                             L * B if all_exits else B)
+            return (torch.stack(out, 1).cpu(), conf), want, tiles
+        return run
+
+    steps(True, None)()                                       # warm-up
+    (toks, conf), wall = counted_run(torch, runs,
+                                     f"{ENCDEC} decode all_exits",
+                                     steps(True, None))
+    if tuple(conf.shape) != (L, B) or not torch.isfinite(conf).all():
+        fail(f"{ENCDEC} decode all_exits: conf {tuple(conf.shape)}")
+    (toks_s, conf_s), wall_s = counted_run(
+        torch, runs, f"{ENCDEC} decode split_layer={ENCDEC_SPLIT}",
+        steps(False, ENCDEC_SPLIT))
+    if tuple(conf_s.shape) != (B,) or not torch.equal(toks, toks_s):
+        fail(f"{ENCDEC}: the split_layer run's tokens differ from the "
+             f"all_exits run's (the exits do not feed the stream)")
+    busy, per_kernel = device_ms(steps(True, None), iters=1, warmup=0)
+    step_ms, _ = device_ms(lambda: model.decode_step(
+        params, {"self": caches["self"]}, lg0.argmax(-1), P, extras=ckv,
+        all_exits=True, window_seq_len=total), iters=5, warmup=1)
+    print(f"    {B} sequences x {T} greedy tokens: all_exits "
+          f"{B * T / wall:.1f} tokens/s, split_layer={ENCDEC_SPLIT} "
+          f"{B * T / wall_s:.1f} tokens/s (tokens equal); a step "
+          f"{step_ms:.3f} ms of device time")
+    print_busy(f"{ENCDEC} decode all_exits", busy, wall * 1e3, per_kernel)
+
+    want_lg, _ = model.prefill(params, {"frames": frames, "tokens": prefix},
+                               cache_seq_len=P + 1)
+    _, c1 = model.prefill(params, batch, cache_seq_len=P + 1)
+    got_lg = model.decode_step(params, {"self": c1["self"]}, prefix[:, P], P,
+                               extras={"cross_kv": c1["cross_kv"]},
+                               window_seq_len=P + 1)[0]
+    err = ((got_lg.float() - want_lg.float()).abs().max()
+           / want_lg.float().abs().max()).item()
+    if not err <= TOL["bfloat16"]:
+        fail(f"{ENCDEC}: a step's logits vs prefill's over the longer prefix"
+             f" max|err| / max|logit| {err:.3e} > {TOL['bfloat16']}")
+    flips = check_pred(f"{ENCDEC} step vs prefill", got_lg.argmax(-1),
+                       want_lg.argmax(-1), lambda: want_lg, "bfloat16")
+    print(f"    pin: a decode step's logits vs prefill's last position over "
+          f"the prefix one token longer (bf16: flash kernel vs the step's "
+          f"f32 einsums): max|err| / max|logit| {err:.3e} (tol "
+          f"{TOL['bfloat16']}), argmax differing at near-ties {flips}")
+    del caches, ckv, want_lg, c1
+    encdec_agreement(torch, dev, params, cfg, frames, prefix)
+    del params, frames
+    torch.cuda.empty_cache()
+
+
+def encdec_agreement(torch, dev, params, cfg, frames, prefix):
+    """The full-width weights cut to ENCDEC_AGREE (encoder layers, decoder
+    layers, frames) in float32, B = 2, on the card and on the CPU: a
+    prefill and ENCDEC_AGREE_STEPS steps with every exit, both sides fed
+    the CPU's tokens. Logits within LM_FORWARD_RTOL of the CPU's largest,
+    exit confidences within LM_FORWARD_RTOL relative, tokens equal but at
+    near-ties. On the card, the phase's pin in float32: the first step's
+    logits within TOL["float32"] of the card's own prefill over the
+    prefix one token longer."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import ParamTree
+    t0 = time.perf_counter()
+    ne, nd, src = ENCDEC_AGREE
+    P, n_steps = ENCDEC_PREFIX, ENCDEC_AGREE_STEPS
+    cut = dataclasses.replace(
+        cfg, num_layers=nd, dtype="float32",
+        encoder=dataclasses.replace(cfg.encoder, num_layers=ne,
+                                    source_len=src))
+    rows = {"enc_layers": ne, "dec_layers": nd}
+    tree = {key: (_first_rows(params[key], rows[key]) if key in rows
+                  else params[key]) for key in params.keys()}
+    batch = {"frames": frames[:2, :src], "tokens": prefix[:2, :P]}
+    total = P + n_steps
+    inputs = []
+
+    def run(device):
+        p = ParamTree(_tree_to(tree, device, torch.float32))
+        m = build_model(cut)
+        lg, c = m.prefill(p, {k: t.to(device) for k, t in batch.items()},
+                          cache_seq_len=total)
+        out = {"logits": [lg.cpu()], "conf": []}
+        tok = lg.argmax(-1)
+        for t in range(n_steps):
+            if device == "cpu":
+                inputs.append(tok)
+            lg, conf, _, new = m.decode_step(
+                p, {"self": c["self"]}, inputs[t].to(device), P + t,
+                extras={"cross_kv": c["cross_kv"]}, all_exits=True,
+                window_seq_len=total)
+            c = {"self": new["self"], "cross_kv": c["cross_kv"]}
+            out["logits"].append(lg.cpu())
+            out["conf"].append(conf.cpu())
+            tok = lg.argmax(-1)
+        if device != "cpu":
+            longer = torch.cat([batch["tokens"].cpu(), inputs[0][:, None]], 1)
+            out["pin"] = m.prefill(p, {"frames": batch["frames"].to(device),
+                                       "tokens": longer.to(device)},
+                                   cache_seq_len=P + 1)[0].cpu()
+        del p
+        return out
+
+    cpu = run("cpu")
+    card = run(dev)
+    lg_err = max(((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(card["logits"], cpu["logits"]))
+    conf_err = max(((a - b).abs() / b).max().item()
+                   for a, b in zip(card["conf"], cpu["conf"]))
+    if not (lg_err <= LM_FORWARD_RTOL and conf_err <= LM_FORWARD_RTOL):
+        fail(f"{cfg.arch_id} card vs CPU ({ne}+{nd} layers, {src} frames, "
+             f"f32): logits {lg_err:.3e}, conf {conf_err:.3e} > "
+             f"{LM_FORWARD_RTOL}")
+    flips = sum(check_pred(f"{cfg.arch_id} token step {t}", a.argmax(-1),
+                           b.argmax(-1), lambda b=b: b, "float32")
+                for t, (a, b) in enumerate(zip(card["logits"],
+                                               cpu["logits"])))
+    step, pin = card["logits"][1], card["pin"]
+    pin_err = ((step - pin).abs().max() / pin.abs().max()).item()
+    if not pin_err <= TOL["float32"]:
+        fail(f"{cfg.arch_id} f32 cut: a step's logits vs prefill's over the "
+             f"longer prefix max|err| / max|logit| {pin_err:.3e} > "
+             f"{TOL['float32']}")
+    print(f"  full-width {cfg.arch_id} cut to {ne} encoder + {nd} decoder "
+          f"layers and {src} frames, float32, B = 2, a {P}-token prefill "
+          f"and {n_steps} steps with every exit: card vs CPU logits "
+          f"max|err| / max|logit| {lg_err:.3e}, exit conf max relative err "
+          f"{conf_err:.3e} (tol {LM_FORWARD_RTOL}), tokens differing at "
+          f"near-ties {flips}; pin on the card: step vs prefill over the "
+          f"longer prefix max|err| / max|logit| {pin_err:.3e} (tol "
+          f"{TOL['float32']}) [{time.perf_counter() - t0:.1f} s wall]")
+
+
 # ------------------------------------------------------------- train phase
 
 def attention_grad_checks(torch, dev):
@@ -3059,8 +3753,9 @@ def main(argv=None) -> int:
                   if "_tc_kernel" in fn or "_wgmma_kernel" in fn}
         for fn, n in sorted(hmma.items()):
             print(f"  {n:5d} HMMA/HGMMA  {fn}")
-        # exit: mma.sync (M <= 32) and wgmma (M > 32); attention: d 64, 128
-        if len(tc_fns) != 4 or min(tc_fns.values()) == 0:
+        # exit: mma.sync (M <= 32) and wgmma (M > 32), each with w in
+        # 16-byte and in 4-byte pieces; attention: d 64, 128
+        if len(tc_fns) != 6 or min(tc_fns.values()) == 0:
             fail(f"tensor-core kernels without HMMA/HGMMA in their SASS: "
                  f"{tc_fns}")
         # the WKV6 recurrence stays on the CUDA cores (exact rank-1 steps)
@@ -3078,15 +3773,17 @@ def main(argv=None) -> int:
         rec_wkv6 = wkv6_checks(torch, dev)
 
     runs = Runs()
-    for arch, alpha_layer, prefix, agree in (
-            ("elasticbert12", 6, "", agreement_phase),
-            (LM, 16, f"{LM} ", lm_agreement_phase),
-            (HYBRID, HYBRID_ALPHA_LAYER, f"{HYBRID} ",
+    for arch, layers, alpha_layer, prefix, agree in (
+            ("elasticbert12", None, 6, "", agreement_phase),
+            (LM, None, 16, f"{LM} ", lm_agreement_phase),
+            (HYBRID, HYBRID_SERVE_LAYERS, HYBRID_ALPHA_LAYER,
+             f"{HYBRID} {HYBRID_SERVE_LAYERS}L ",
              lambda *a: lm_agreement_phase(*a, layers=HYBRID_AGREE_LAYERS,
                                            witness=False))):
-        with phase(f"serve: {arch} (full width) on the card"):
+        with phase(f"serve: {arch} (full width"
+                   f"{f', {layers} layers' if layers else ''}) on the card"):
             params, cfg, data, cost = serve_setup(torch, dev, arch,
-                                                  alpha_layer)
+                                                  alpha_layer, layers=layers)
             bucketed = serve_phase(torch, dev, runs, params, cfg, data, cost,
                                    prefix)
         with phase(f"serve(): {arch} scan, auto, offload codec, Engine"):
@@ -3106,6 +3803,13 @@ def main(argv=None) -> int:
     with phase(f"{MOE}: full width, {MOE_LAYERS} of 32 layers, on the "
                f"card"):
         moe_phase(torch, dev, runs, seed)
+
+    with phase(f"{VLM}: full width on the card, over seeded embeds"):
+        vlm_phase(torch, dev, runs, seed)
+
+    with phase(f"{ENCDEC}: full width on the card (encoder, "
+               f"cross-attention, decode)"):
+        encdec_phase(torch, dev, runs, seed)
 
     with phase("agreement: offload codec, card vs CPU"):
         codec_agreement(torch, dev)

@@ -1,10 +1,9 @@
-"""Architecture/config registry of the port.
-
-The dense (``elasticbert12``, ``qwen3-1.7b``, ``granite-3-2b``,
-``qwen1.5-32b``, ``deepseek-coder-33b``), ssm (``rwkv6-3b``), hybrid
-(``zamba2-1.2b``) and MoE (``phi3.5-moe-42b-a6.6b``, ``mixtral-8x22b``)
-archs are ported; the VLM and enc-dec arch ids of the reference registry
-raise ``NotImplementedError``.
+"""Architecture/config registry of the port: every arch id of the
+reference registry. The dense (``elasticbert12``, ``qwen3-1.7b``,
+``granite-3-2b``, ``qwen1.5-32b``, ``deepseek-coder-33b``), ssm
+(``rwkv6-3b``), hybrid (``zamba2-1.2b``), MoE (``phi3.5-moe-42b-a6.6b``,
+``mixtral-8x22b``), VLM (``qwen2-vl-2b``) and enc-dec
+(``seamless-m4t-large-v2``) archs.
 """
 from __future__ import annotations
 
@@ -25,18 +24,16 @@ _MODULES = {"elasticbert12": "elasticbert12", "qwen3-1.7b": "qwen3_1_7b",
             "deepseek-coder-33b": "deepseek_coder_33b",
             "rwkv6-3b": "rwkv6_3b", "zamba2-1.2b": "zamba2_1_2b",
             "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
-            "mixtral-8x22b": "mixtral_8x22b"}
+            "mixtral-8x22b": "mixtral_8x22b",
+            "qwen2-vl-2b": "qwen2_vl_2b",
+            "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
 PORTED_ARCHS = tuple(_MODULES)
-NOT_PORTED_ARCHS = ("qwen2-vl-2b", "seamless-m4t-large-v2")
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in _MODULES:
         return importlib.import_module(
             f"repro_torch.configs.{_MODULES[arch_id]}").CONFIG
-    if arch_id in NOT_PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch_id!r}: not ported yet; ported: {PORTED_ARCHS}")
     raise KeyError(f"unknown arch {arch_id!r}; ported: {PORTED_ARCHS}")
 
 

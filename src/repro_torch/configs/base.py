@@ -113,12 +113,8 @@ class ModelConfig:
         return 0
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense, ssm (rwkv6), hybrid (zamba2)
-        or MoE model (embedding + layers + exits); the VLM and enc-dec
-        families are not ported yet."""
-        if self.family not in ("dense", "ssm", "hybrid", "moe"):
-            raise NotImplementedError(
-                f"param_count for family {self.family!r}: not ported yet")
+        """Analytic parameter count (embedding + decoder + exits +
+        encoder); the norms are not counted."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         q = self.num_heads * hd
@@ -139,12 +135,21 @@ class ModelConfig:
             moe_mlp = self.moe.num_experts * 3 * d * f \
                 + d * self.moe.num_experts
             total_layers = self.num_layers * (attn + moe_mlp)
-        else:
+        else:   # dense, vlm (the text backbone), audio (the decoder)
             total_layers = self.num_layers * (attn + mlp)
         head_out = self.num_classes if self.num_classes else v
         n_heads_p = 1 if (not self.exits.enabled or self.exits.share_head) \
             else len(self.exit_layers)
-        return v * d + total_layers + n_heads_p * d * head_out
+        enc = 0
+        if self.encoder is not None:
+            e = self.encoder
+            eq = e.num_heads * (e.d_model // e.num_heads)
+            ekv = e.num_kv_heads * (e.d_model // e.num_heads)
+            e_attn = e.d_model * eq + 2 * e.d_model * ekv + eq * e.d_model
+            e_mlp = 2 * e.d_model * e.d_ff
+            # each decoder layer adds a cross-attention block
+            enc = e.num_layers * (e_attn + e_mlp) + self.num_layers * attn
+        return v * d + total_layers + n_heads_p * d * head_out + enc
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -27,11 +27,15 @@
 //
 // The variants (kernel.py picks one as a pure function of dtype, D, V and
 // the 16-byte alignment of the rows; nothing here falls back):
-//   * tensor_core (bf16, D % 8 == 0, V % 8 == 0, aligned rows): a skinny
+//   * tensor_core (bf16, D % 8 == 0, even V, aligned rows): a skinny
 //     GEMM with an online-softmax epilogue. A ring of 3 shared-memory
 //     stages, fed by 16-byte cp.async, holds the h tile (BM x 64) and the W
 //     tile (64 x 128); the next tiles load while the tensor cores multiply
-//     the current one (bf16 in, f32 accumulate). After each 128-column tile
+//     the current one (bf16 in, f32 accumulate). When V % 8 != 0 (seamless's
+//     256206) a row of W starts on 4 bytes only, so W is staged in 4-byte
+//     cp.async pieces (NARROW), one column pair each, zero-filled past V;
+//     the epilogue masks every column >= V on its own, so a zero-filled
+//     column adds nothing to the sum and cannot win the argmax. After each 128-column tile
 //     the logits (+ bias) fold into per-row (max, sum, argmax) in
 //     registers; quad shuffles (and, for mma.sync, a shared-memory pass
 //     over the warps) finish each split. bf16 x bf16 products are exact in
@@ -411,8 +415,9 @@ struct TcShape {
   static constexpr int kStageBytes = kABytes + kTcBK * BN * 2;   // h tile, W tile
 };
 
-// MIN_BLOCKS blocks an SM bound the registers a thread may take
-template <int WARPS_M, int WARPS_N, int MT, int BN, int MIN_BLOCKS>
+// MIN_BLOCKS blocks an SM bound the registers a thread may take; NARROW
+// stages W in 4-byte pieces (V % 8 != 0)
+template <int WARPS_M, int WARPS_N, int MT, int BN, int MIN_BLOCKS, bool NARROW>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
 exit_confidence_tc_kernel(const Params p) {
   using S = TcShape<WARPS_M, WARPS_N, MT, BN>;
@@ -452,11 +457,21 @@ exit_confidence_tc_kernel(const Params p) {
       const bool ok = r0 + r < p.b && k0 + c * 8 < p.d;
       cp_async16(stage + a_off(r, c), ok ? hp + (r0 + r) * p.h_sb + k0 + c * 8 : hp, ok);
     }
-    for (int i = tid; i < kTcBK * (BN / 8); i += S::kThreads) {
-      const int r = i / (BN / 8), c = i % (BN / 8);
-      const bool ok = k0 + r < p.d && n0 + c * 8 < p.v;
-      cp_async16(stage + S::kABytes + b_off<BN>(r, c),
-                 ok ? wp + static_cast<int64_t>(k0 + r) * p.v + n0 + c * 8 : wp, ok);
+    if (NARROW) {
+      // piece c: columns 2c, 2c + 1 of the tile, bytes 4 (c % 4) of word c / 4
+      for (int i = tid; i < kTcBK * (BN / 2); i += S::kThreads) {
+        const int r = i / (BN / 2), c = i % (BN / 2);
+        const bool ok = k0 + r < p.d && n0 + c * 2 < p.v;
+        cp_async4(stage + S::kABytes + b_off<BN>(r, c / 4) + (c % 4) * 4,
+                  ok ? wp + static_cast<int64_t>(k0 + r) * p.v + n0 + c * 2 : wp, ok);
+      }
+    } else {
+      for (int i = tid; i < kTcBK * (BN / 8); i += S::kThreads) {
+        const int r = i / (BN / 8), c = i % (BN / 8);
+        const bool ok = k0 + r < p.d && n0 + c * 8 < p.v;
+        cp_async16(stage + S::kABytes + b_off<BN>(r, c),
+                   ok ? wp + static_cast<int64_t>(k0 + r) * p.v + n0 + c * 8 : wp, ok);
+      }
     }
   };
 
@@ -584,6 +599,7 @@ __device__ __forceinline__ int w_atom_off(int r, int c) {
   return (c >> 3) * (kTcBK * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
+template <bool NARROW>
 __global__ void __launch_bounds__(kWgThreads, 2)
 exit_confidence_wgmma_kernel(const Params p) {
   static_assert(kTcBK == 64, "the h tile's rows are one 128-byte swizzle atom wide");
@@ -621,6 +637,12 @@ exit_confidence_wgmma_kernel(const Params p) {
   const __nv_bfloat16* b_src = wp + static_cast<int64_t>(b_r) * p.v + b_c;
   const uint32_t a_dst = a_off(a_r, a_c / 8);
   const uint32_t b_dst = kWgABytes + w_atom_off(b_r, (tid % (BN / 8)));
+  // NARROW: kBW4 4-byte pieces of W a thread, rows kBRows4 apart (4, so
+  // the swizzle differs between them), always the same column pair
+  constexpr int kBW4 = kTcBK * (BN / 2) / kWgThreads;
+  constexpr int kBRows4 = kWgThreads / (BN / 2);
+  const int n_r = tid / (BN / 2), n_p = tid % (BN / 2);
+  const __nv_bfloat16* n_src = wp + static_cast<int64_t>(n_r) * p.v + c_begin + n_p * 2;
   auto load_stage = [&](int t) {
     const int k0 = (t % kt_n) * kTcBK;
     const int dn = (t / kt_n) * BN;
@@ -631,11 +653,21 @@ exit_confidence_wgmma_kernel(const Params p) {
       cp_async16(stage + a_dst + j * kARows * 128,
                  ok ? a_src + j * kARows * p.h_sb + k0 : hp, ok);
     }
+    if (NARROW) {
 #pragma unroll
-    for (int j = 0; j < kBW; ++j) {
-      const bool ok = k0 + b_r + j * kBRows < p.d && b_c + dn < p.v;
-      cp_async16(stage + b_dst + j * kBRows * 128,
-                 ok ? b_src + static_cast<int64_t>(k0 + j * kBRows) * p.v + dn : wp, ok);
+      for (int j = 0; j < kBW4; ++j) {
+        const int r = n_r + j * kBRows4;
+        const bool ok = k0 + r < p.d && c_begin + dn + n_p * 2 < p.v;
+        cp_async4(stage + kWgABytes + w_atom_off(r, n_p / 4) + (n_p % 4) * 4,
+                  ok ? n_src + static_cast<int64_t>(k0 + j * kBRows4) * p.v + dn : wp, ok);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBW; ++j) {
+        const bool ok = k0 + b_r + j * kBRows < p.d && b_c + dn < p.v;
+        cp_async16(stage + b_dst + j * kBRows * 128,
+                   ok ? b_src + static_cast<int64_t>(k0 + j * kBRows) * p.v + dn : wp, ok);
+      }
     }
   };
 
@@ -812,12 +844,12 @@ int launch_small(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int WARPS_M, int WARPS_N, int MT, int BN, int MIN_BLOCKS>
+template <int WARPS_M, int WARPS_N, int MT, int BN, int MIN_BLOCKS, bool NARROW>
 int launch_tc_shape(const Params& p, cudaStream_t stream) {
   using S = TcShape<WARPS_M, WARPS_N, MT, BN>;
   if (p.cols_per_split % BN) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(kTcStages) * S::kStageBytes;
-  const auto kernel = exit_confidence_tc_kernel<WARPS_M, WARPS_N, MT, BN, MIN_BLOCKS>;
+  const auto kernel = exit_confidence_tc_kernel<WARPS_M, WARPS_N, MT, BN, MIN_BLOCKS, NARROW>;
   const cudaError_t e = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.b + S::kBM - 1) / S::kBM, p.splits, p.g);
@@ -825,21 +857,23 @@ int launch_tc_shape(const Params& p, cudaStream_t stream) {
   return launch_combine(p, stream);
 }
 
+template <bool NARROW>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   if (p.cols_per_split % kWgBN) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(kTcStages) * kWgStageBytes + 1024;   // + alignment
-  const cudaError_t e =
-      set_smem(reinterpret_cast<const void*>(exit_confidence_wgmma_kernel), smem);
+  const auto kernel = exit_confidence_wgmma_kernel<NARROW>;
+  const cudaError_t e = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.b + kWgBM - 1) / kWgBM, p.splits, p.g);
-  exit_confidence_wgmma_kernel<<<grid, kWgThreads, smem, stream>>>(p);
+  kernel<<<grid, kWgThreads, smem, stream>>>(p);
   return launch_combine(p, stream);
 }
 
-// fused (NORM != none): the rows are normalised into ``normed`` first
+// fused (NORM != none): the rows are normalised into ``normed`` first; W
+// starts on 16 bytes and V is even, so every row of W lies on 4 bytes
 template <int NORM>
 int launch_tc(const Params& p, __nv_bfloat16* normed, cudaStream_t stream) {
-  if (!rows_on16(p, 8) || reinterpret_cast<uintptr_t>(p.w) % 16 || p.v % 8 ||
+  if (!rows_on16(p, 8) || reinterpret_cast<uintptr_t>(p.w) % 16 || p.v % 2 ||
       (NORM != kNormNone && (normed == nullptr || reinterpret_cast<uintptr_t>(normed) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params q = p;
@@ -852,10 +886,13 @@ int launch_tc(const Params& p, __nv_bfloat16* normed, cudaStream_t stream) {
     q.h_sg = static_cast<int64_t>(p.b) * p.d;
     q.h_sb = p.d;
   }
-  // M <= 32: 4 warps of 32 x 32 (60 KB of stages); else 4 warps of 64 x 64
-  // (96 KB), 2 blocks an SM
-  if (q.b <= kTcSmallRows) return launch_tc_shape<1, 4, 2, 128, 4>(q, stream);
-  return launch_wgmma(q, stream);
+  // M <= 32: 4 warps of 32 x 32 (60 KB of stages); else the wgmma tile,
+  // 2 blocks an SM; 4-byte W pieces where a row of W may miss 16 bytes
+  const bool narrow = q.v % 8 != 0;
+  if (q.b <= kTcSmallRows)
+    return narrow ? launch_tc_shape<1, 4, 2, 128, 4, true>(q, stream)
+                  : launch_tc_shape<1, 4, 2, 128, 4, false>(q, stream);
+  return narrow ? launch_wgmma<true>(q, stream) : launch_wgmma<false>(q, stream);
 }
 
 template <int NORM>

@@ -74,7 +74,10 @@ def exit_variant(dtype: torch.dtype, d: int, v: int, aligned: bool) -> str:
     vec = 16 // dtype.itemsize
     if aligned and v <= SMALL_VOCAB and d % vec == 0:
         return "small_head"
-    if dtype == torch.bfloat16 and aligned and d % 8 == 0 and v % 8 == 0:
+    # an even V keeps every row of a 16-byte-aligned bf16 w on 4 bytes: the
+    # tensor-core kernel stages w in 16-byte pieces when V % 8 == 0, else
+    # in 4-byte ones
+    if dtype == torch.bfloat16 and aligned and d % 8 == 0 and v % 2 == 0:
         return "tensor_core"
     return "cuda_core"
 

@@ -40,6 +40,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(n));
 }
+// 4 bytes through L1 (.cg takes 16 only): rows of an even-length bf16
+// axis lie on 4 bytes but not always on 16
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -1,5 +1,6 @@
 """GQA attention: prefill (full-sequence causal, sliding-window or
-bidirectional) and ring-buffer KV-cache decode.
+bidirectional), ring-buffer KV-cache decode, and cross-attention
+(enc-dec).
 
 Layout conventions (as in the reference twin):
   hidden x           : (B, S, D)
@@ -9,14 +10,16 @@ where W is the cache window (the total sequence length, or the sliding
 window). "pos" holds the absolute position in each ring slot (-1 =
 empty), so the ring-buffer mask is exact from the first token. The
 one-token decode is plain PyTorch, as the reference's is plain einsum
-outside any Pallas kernel.
+outside any Pallas kernel. Under M-RoPE (``mrope``) positions are the
+(3, B, S) (t, h, w) streams.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
+                                       rmsnorm)
 
 
 def init_attention(gen: torch.Generator, d_model: int, num_heads: int,
@@ -41,9 +44,7 @@ def init_attention(gen: torch.Generator, d_model: int, num_heads: int,
 
 def _project_qkv(p, x, num_heads, num_kv_heads, head_dim, *,
                  qk_norm: bool, rope_theta: float, mrope: bool, positions):
-    """Project and rotate. positions: (B, S)."""
-    if mrope:
-        raise NotImplementedError("M-RoPE: not ported yet")
+    """Project and rotate. positions: (B, S), or (3, B, S) under M-RoPE."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -57,8 +58,9 @@ def _project_qkv(p, x, num_heads, num_kv_heads, head_dim, *,
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     if rope_theta and positions is not None:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        rotate = apply_mrope if mrope else apply_rope
+        q = rotate(q, positions, rope_theta)
+        k = rotate(k, positions, rope_theta)
     return q, k, v
 
 
@@ -66,9 +68,9 @@ def attn_prefill(p, x, positions, *, num_heads, num_kv_heads, head_dim,
                  causal: bool = True, window: int = 0,
                  rope_theta: float = 10000.0, qk_norm: bool = False,
                  mrope: bool = False, return_kv: bool = False):
-    """Full-sequence self-attention (cross-attention is not ported yet).
-    ``return_kv`` also returns the rotated (k, v), (B, S, Hkv, hd) each,
-    that a prefill writes into the decode cache."""
+    """Full-sequence self-attention (cross-attention is `cross_attn_kv`
+    + `cross_attn_apply`). ``return_kv`` also returns the rotated (k, v),
+    (B, S, Hkv, hd) each, that a prefill writes into the decode cache."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            qk_norm=qk_norm, rope_theta=rope_theta,
@@ -117,7 +119,8 @@ def attn_decode(p, x, cache, cur_index: int, *, num_heads, num_kv_heads,
     written."""
     b = x.shape[0]
     w = cache["k"].shape[1]
-    pos1 = torch.full((b, 1), cur_index, dtype=torch.int32, device=x.device)
+    pos1 = torch.full((3, b, 1) if mrope else (b, 1), cur_index,
+                      dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(
         p, x, num_heads, num_kv_heads, head_dim, qk_norm=qk_norm,
         rope_theta=rope_theta, mrope=mrope, positions=pos1)
@@ -143,3 +146,26 @@ def attn_decode(p, x, cache, cur_index: int, *, num_heads, num_kv_heads,
     out = torch.einsum("bngw,bwnd->bngd", probs, vf)
     out = out.reshape(b, 1, num_heads * head_dim).to(x.dtype)
     return out @ p["wo"], new_cache
+
+
+def cross_attn_kv(p, enc_out, *, num_kv_heads, head_dim):
+    """Cross-attention K/V from the encoder output, (B, S, Hkv, hd) each
+    (no RoPE)."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(b, s, num_kv_heads, head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, s, num_kv_heads, head_dim)
+    return k, v
+
+
+def cross_attn_apply(p, x, kv, *, num_heads, num_kv_heads, head_dim):
+    """Decoder cross-attention of ``x`` (B, Sq, D) against precomputed
+    encoder (k, v) (B, Skv, Hkv, hd), Hkv = ``num_kv_heads``: the block
+    attention kernel, not causal."""
+    b, s, _ = x.shape
+    k, v = kv
+    assert k.shape[2] == v.shape[2] == num_kv_heads, (k.shape, num_kv_heads)
+    q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=False, window=0)
+    out = out.transpose(1, 2).reshape(b, s, num_heads * head_dim)
+    return out @ p["wo"]

@@ -1,8 +1,10 @@
-"""Shared building blocks: norms, RoPE, init helpers, cross-entropy.
+"""Shared building blocks: norms, RoPE / M-RoPE, init helpers,
+cross-entropy.
 
 Numerics follow the reference twin: norms reduce in float32 with eps 1e-6
 and the population variance, and cast back to the input dtype; RoPE is
-the half-split rotation.
+the half-split rotation, M-RoPE the same rotation with each frequency's
+position taken from one of three (t, h, w) streams.
 """
 from __future__ import annotations
 
@@ -73,6 +75,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)         # (hd/2,)
     ang = positions[..., None].float() * freqs              # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int):
+    """Qwen2-VL style (t, h, w) sections over the half-dim: hd 128 ->
+    (16, 24, 24), as in the Qwen2-VL config; proportionally smaller at
+    smaller head dims."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """M-RoPE: x (B, S, H, hd); positions3 (3, B, S) int, the (t, h, w)
+    streams. Frequency slot j of the half-dim takes its position from the
+    stream of the section j falls in."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)         # (hd/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(mrope_sections(hd), device=x.device))  # (hd/2,)
+    pos = positions3[sec_id].permute(1, 2, 0).float()       # (B, S, hd/2)
+    ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -1,6 +1,8 @@
 """Multi-exit decoder stack, dense, ssm (RWKV6), hybrid (Zamba2: a Mamba2
-backbone with one shared attention + MLP block after every k-th layer)
-and MoE families: the model the SplitEE policy runs on.
+backbone with one shared attention + MLP block after every k-th layer),
+MoE and VLM (Qwen2-VL: M-RoPE over a stub's ``embeds``) families: the
+model the SplitEE policy runs on. The enc-dec family wraps it
+(`repro_torch.models.encdec`).
 
 Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names
 are the reference pytree's paths (``layers.attn.wq`` is
@@ -81,19 +83,22 @@ def layer_params(layers, i: int) -> Dict[str, Any]:
             for k, v in layers.items()}
 
 
-def _stack(trees):
+def stack_trees(trees):
     first = trees[0]
-    return {k: _stack([t[k] for t in trees]) if _is_tree(first[k])
+    return {k: stack_trees([t[k] for t in trees]) if _is_tree(first[k])
             else torch.stack([t[k] for t in trees]) for k in first}
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+# "audio" is a decoder-only stack here, as the reference's transformer
+# takes it; with an encoder it runs through models/encdec.py
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
-def _check_family(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}): not ported yet")
+            f"family {cfg.family!r} ({cfg.arch_id}) is unknown; the "
+            f"families are {PORTED_FAMILIES}")
 
 
 # ------------------------------------------------------------------- helpers
@@ -162,14 +167,14 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
     return p
 
 
-def _init_stacked(make, n: int):
+def init_stacked(make, n: int):
     """``n`` draws of the tree ``make()`` stacked on a leading axis, each
     copied into its row as it is drawn (peak memory: the stack and one
     draw, not twice the stack)."""
     first = make()
-    out = _map(lambda a: a.new_empty((n, *a.shape)), first)
+    out = map_tree(lambda a: a.new_empty((n, *a.shape)), first)
     for i in range(n):
-        _map(lambda o, a: o[i].copy_(a), out, first if i == 0 else make())
+        map_tree(lambda o, a: o[i].copy_(a), out, first if i == 0 else make())
     return out
 
 
@@ -177,14 +182,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default ``cuda``). The draws differ from ``jax.random``'s; parity
     with the reference goes through `repro_torch.bridge`."""
-    _check_family(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.dtype)
     d = cfg.d_model
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
-        "layers": _init_stacked(lambda: _init_layer(cfg, gen, dt, dev),
+        "layers": init_stacked(lambda: _init_layer(cfg, gen, dt, dev),
                                 cfg.num_layers),
         "final_norm": init_norm(d, cfg.norm, dt, dev),
     }
@@ -206,15 +211,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
 # -------------------------------------------------------------- embed inputs
 
 def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, Any]):
-    """tokens (B, S) int -> (B, S, D). (The reference's modality stubs,
-    which pass 'embeds', are not ported yet.)"""
-    return params["embed"][batch["tokens"].long()]
+    """tokens (B, S) int -> (B, S, D); a modality stub's batch passes its
+    ``embeds`` (B, S, D) instead, cast to the model dtype on the
+    parameters' device."""
+    emb = params["embed"]
+    if "embeds" in batch:
+        return batch["embeds"].to(device=emb.device,
+                                  dtype=torch_dtype(cfg.dtype))
+    return emb[batch["tokens"].long()]
 
 
 def _positions(cfg: ModelConfig, b: int, s: int, device=None):
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE positions: not ported yet")
-    return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
+    """(B, S) positions 0..S-1; under M-RoPE the (3, B, S) text stream
+    (t = h = w)."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    return pos.expand(3, b, s) if cfg.mrope else pos[None, :].expand(b, s)
 
 
 # ------------------------------------------------------------ full-seq layer
@@ -242,7 +253,7 @@ def _layer_prefill(cfg: ModelConfig, params, lp, x, positions, i: int, *,
     (B, S, Hkv, hd) each; a hybrid layer's (Mamba2 state, the shared
     block's (k, v) at an attention layer, else None). ``aux`` is the MoE
     router's balance loss, 0.0 for the other families."""
-    _check_family(cfg)
+    check_family(cfg)
     if cfg.family == "ssm":
         heads = _ssm_heads(cfg)
         st = rk.init_rwkv_state(x.shape[0], cfg.d_model, heads,
@@ -482,8 +493,8 @@ def _cache_key(cfg: ModelConfig) -> str:
     return "ssm" if cfg.family in ("ssm", "hybrid") else "attn"
 
 
-def _map(fn, tree, *rest):
-    return {k: _map(fn, v, *(r[k] for r in rest)) if _is_tree(v)
+def map_tree(fn, tree, *rest):
+    return {k: map_tree(fn, v, *(r[k] for r in rest)) if _is_tree(v)
             else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
@@ -492,12 +503,12 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
     (default cuda; ``"meta"`` gives shapes and dtypes without allocating).
     Recurrent states are float32, as ``init_rwkv_state`` and
     ``init_mamba2_state`` make them."""
-    _check_family(cfg)
+    check_family(cfg)
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
 
     def stacked(one, n):
-        return _map(lambda a: a.expand(n, *a.shape).contiguous(), one)
+        return map_tree(lambda a: a.expand(n, *a.shape).contiguous(), one)
 
     window = cfg.effective_window(seq_len) or seq_len
     kv = lambda: attn.init_cache(  # noqa: E731
@@ -568,9 +579,9 @@ def _shared_decode(cfg: ModelConfig, sp, x, sl, cur_index: int, *,
     return x + h, new_sl
 
 
-def _slices(caches):
+def cache_slices(caches):
     """A cache tree as per-entry views ``{key: [slice, ...]}``, which the
-    decode steps replace entry by entry and `_restack` stacks again."""
+    decode steps replace entry by entry and `restack` stacks again."""
     out = {}
     for key, tree in caches.items():
         leaf = tree
@@ -580,8 +591,8 @@ def _slices(caches):
     return out
 
 
-def _restack(slices):
-    return {key: _stack(entries) for key, entries in slices.items()}
+def restack(slices):
+    return {key: stack_trees(entries) for key, entries in slices.items()}
 
 
 def _decode_layer(cfg: ModelConfig, params, slices, i: int, x,
@@ -628,7 +639,7 @@ def _mask_rows(mask, new, old):
     ``old``. Every cache leaf is batch-leading."""
     def sel(nw, od):
         return torch.where(mask.reshape(-1, *([1] * (nw.ndim - 1))), nw, od)
-    return _map(sel, new, old)
+    return map_tree(sel, new, old)
 
 
 def decode_step(params, cfg: ModelConfig, caches, token_or_embed,
@@ -640,7 +651,7 @@ def decode_step(params, cfg: ModelConfig, caches, token_or_embed,
     conf, pred, new_caches); conf/pred are None with neither."""
     x = _step_input(params, cfg, token_or_embed)
     window = cfg.effective_window(window_seq_len)
-    slices, pooled = _slices(caches), []
+    slices, pooled = cache_slices(caches), []
     for i in range(cfg.num_layers):
         x = _decode_layer(cfg, params, slices, i, x, cur_index,
                           window=window)
@@ -654,7 +665,7 @@ def decode_step(params, cfg: ModelConfig, caches, token_or_embed,
             _exit_w(params, lp))
     else:
         conf = pred = None
-    return _final_logits(params, cfg, x), conf, pred, _restack(slices)
+    return _final_logits(params, cfg, x), conf, pred, restack(slices)
 
 
 def decode_step_masked(params, cfg: ModelConfig, caches, token_or_embed,
@@ -677,14 +688,14 @@ def decode_step_masked(params, cfg: ModelConfig, caches, token_or_embed,
     window = cfg.effective_window(window_seq_len)
     live = depths.to(x.device)
     stop = int(depths.max()) + 1
-    slices, pooled = _slices(caches), []
+    slices, pooled = cache_slices(caches), []
     for i in range(cfg.num_layers):
         if i < stop:
             x = _decode_layer(cfg, params, slices, i, x, cur_index,
                               window=window, mask=i <= live)
         pooled.append(pool_hidden(cfg, x))
     conf, pred = grouped_exits(params, cfg, torch.stack(pooled))
-    return _final_logits(params, cfg, x), conf, pred, x, _restack(slices)
+    return _final_logits(params, cfg, x), conf, pred, x, restack(slices)
 
 
 def decode_step_resume(params, cfg: ModelConfig, caches, hidden,
@@ -702,11 +713,11 @@ def decode_step_resume(params, cfg: ModelConfig, caches, hidden,
     resumed = depths[active.to(depths.device)]
     start = int(resumed.min()) + 1 if resumed.numel() else cfg.num_layers
     depths, active = depths.to(x.device), active.to(x.device)
-    slices = _slices(caches)
+    slices = cache_slices(caches)
     for i in range(start, cfg.num_layers):
         x = _decode_layer(cfg, params, slices, i, x, cur_index,
                           window=window, mask=active & (i > depths))
-    return _final_logits(params, cfg, x), _restack(slices)
+    return _final_logits(params, cfg, x), restack(slices)
 
 
 def prefill(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
@@ -746,7 +757,7 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
         elif cfg.family != "ssm":
             st = kv_cache(st)
         states.append(st)
-    caches = {_cache_key(cfg): _stack(states)}
+    caches = {_cache_key(cfg): stack_trees(states)}
     if cfg.family == "hybrid":
-        caches["attn"] = _stack(occ)
+        caches["attn"] = stack_trees(occ)
     return _final_logits(params, cfg, x), caches

@@ -101,7 +101,7 @@ class DecodeRuntime:
             raise NotImplementedError(
                 "decode serving is token-in/token-out; stub-modality archs"
                 " are not supported")
-        transformer._check_family(cfg)
+        transformer.check_family(cfg)
         self.device = resolve_device(self.device)
 
     def _check(self, params):

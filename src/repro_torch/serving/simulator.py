@@ -3,7 +3,8 @@
 Two halves of the split, on one device:
 
   edge_fn(params, batch, depth)  — embed + layers 1..depth+1 + the exit
-      at ``depth`` (0-indexed arm);
+      at ``depth`` (0-indexed arm); the batch holds ``tokens`` (B, S), or
+      a modality stub's ``embeds`` (B, S, D);
   cloud_fn(params, hidden, depth) — layers depth+2..L + the final head.
 
 The offload payload between them is the (B, S, D) activation after the
@@ -32,7 +33,7 @@ from repro_torch.core.rewards import CostModel
 from repro_torch.kernels.exit_confidence.ops import (exit_confidence,
                                                      exit_confidence_fused)
 from repro_torch.models.common import apply_norm
-from repro_torch.models.transformer import (_check_family, _exit_w,
+from repro_torch.models.transformer import (check_family, _exit_w,
                                             _layer_full, _positions,
                                             embed_inputs,
                                             forward_exits_masked,
@@ -50,22 +51,26 @@ class EdgeCloudRuntime:
     fused_exit: bool = False
 
     def __post_init__(self):
-        _check_family(self.cfg)
+        check_family(self.cfg)
         self.device = resolve_device(self.device)
 
     # ---------------------------------------------------------------- parts
 
-    def _tokens(self, params, batch):
+    def _inputs(self, params, batch):
+        """The batch on the runtime's device: its token ids, or a modality
+        stub's ``embeds`` (B, S, D)."""
         emb = params["embed"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params on {emb.device}, runtime on "
                              f"{self.device}")
-        return torch.as_tensor(np.asarray(batch["tokens"]),
-                               device=self.device)
+        if "embeds" in batch:
+            return {"embeds": torch.as_tensor(batch["embeds"],
+                                              device=self.device)}
+        return {"tokens": torch.as_tensor(np.asarray(batch["tokens"]),
+                                          device=self.device)}
 
     def _embed(self, params, batch):
-        x = embed_inputs(params, self.cfg,
-                         {"tokens": self._tokens(params, batch)})
+        x = embed_inputs(params, self.cfg, self._inputs(params, batch))
         return x, _positions(self.cfg, x.shape[0], x.shape[1],
                              device=self.device)
 
@@ -138,8 +143,8 @@ class EdgeCloudRuntime:
         each sample's 0-indexed arm. Returns conf (L, B) f32 and pred (L,
         B) i32 of every exit, and hidden (B, S, D) at each row's own
         depth. The launch sequence depends only on the batch shape."""
-        tokens = self._tokens(params, batch)
-        out = forward_exits_masked(params, self.cfg, {"tokens": tokens},
+        out = forward_exits_masked(params, self.cfg,
+                                   self._inputs(params, batch),
                                    torch.as_tensor(depths,
                                                    device=self.device),
                                    window=0, fused_exit=self.fused_exit)

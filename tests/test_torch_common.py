@@ -130,8 +130,16 @@ def test_configs_equal_reference():
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
 def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_get_config(arch)
+    """The VLM and enc-dec archs, once refused, are ported: full and smoke
+    configs equal the reference's field by field."""
+    from repro.configs import get_config
+    assert dataclasses.asdict(t_get_config(arch)) == \
+        dataclasses.asdict(get_config(arch))
+    assert dataclasses.asdict(t_get_smoke_config(arch)) == \
+        dataclasses.asdict(get_smoke_config(arch))
+    assert t_get_config(arch).param_count() == get_config(arch).param_count()
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_get_config(arch + "-x")
 
 
 @pytest.mark.parametrize("domain", ["imdb_like", "snli_like"])

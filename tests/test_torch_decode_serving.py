@@ -394,9 +394,16 @@ def test_runtime_and_session_type_guards():
             dataclasses.replace(cfg, **bad), device="cpu"),
             NotImplementedError) == _raised(lambda: JDecodeRuntime(
                 dataclasses.replace(b["cfg"], **jbad)), NotImplementedError)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DecodeRuntime(dataclasses.replace(cfg, family="vlm"),
-                      device="cpu")
+    # a VLM config with text modality is served, as the reference serves
+    # it: the same prefill over token prompts
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 4)).astype(np.int32)
+    jl, _ = JDecodeRuntime(dataclasses.replace(b["cfg"], family="vlm")
+                           ).prefill_fn(b["jp"], jnp.asarray(prompts), 6)
+    tl, _ = DecodeRuntime(dataclasses.replace(cfg, family="vlm"),
+                          device="cpu").prefill_fn(b["tp"], prompts, 6)
+    np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl),
+                               rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="params on"):
         DecodeRuntime(cfg, device="cpu").prefill_fn(
             {"embed": torch.zeros(1, device="meta")}, np.zeros((1, 2)), 3)

@@ -192,7 +192,7 @@ def test_init_stacks_each_draw_in_place():
     gen = torch.Generator().manual_seed(3)
     dt = torch.float32
     ttf.embed_init(gen, tcfg.vocab_size, tcfg.d_model, dt, "cpu")
-    want = ttf._stack([ttf._init_layer(tcfg, gen, dt, "cpu")
+    want = ttf.stack_trees([ttf._init_layer(tcfg, gen, dt, "cpu")
                        for _ in range(tcfg.num_layers)])
     got_layers = dict(got["layers"].named_parameters())
     assert sorted(got_layers) == sorted(_leaves(want))
@@ -449,11 +449,11 @@ def test_edge_shortcut_equals_the_masked_loop():
         lg, _, _, h, got = ttf.decode_step_masked(
             tp, tcfg, tc, tok, S, depths, window_seq_len=S + T)
         x = ttf._step_input(tp, tcfg, tok)
-        slices = ttf._slices(tc)
+        slices = ttf.cache_slices(tc)
         for i in range(tcfg.num_layers):
             x = ttf._decode_layer(tcfg, tp, slices, i, x, S, window=0,
                                   mask=i <= depths)
-        want = ttf._restack(slices)
+        want = ttf.restack(slices)
     assert torch.equal(h, x)
     assert torch.equal(lg, ttf._final_logits(tp, tcfg, x))
     g, w = _leaves(got), _leaves(want)

@@ -159,7 +159,7 @@ def test_qwen3_prefill_attention_variant(dtype, aligned, want):
     (BF16, 768, 2, True, "small_head"),          # ElasticBERT exits
     (F32, 768, 2, True, "small_head"),
     (BF16, 768, 64, True, "small_head"),
-    (BF16, 768, 65, True, "cuda_core"),          # V % 8
+    (BF16, 768, 65, True, "cuda_core"),          # odd V
     (BF16, 2560, 65536, True, "tensor_core"),    # the rwkv6-3b LM head
     (BF16, 2560, 151936, True, "tensor_core"),
     (BF16, 64, 40, True, "small_head"),
@@ -179,9 +179,46 @@ def test_exit_variant(dtype, d, v, aligned, want):
     assert exit_variant(dtype, d, v, aligned) == want
 
 
+@pytest.mark.parametrize("dtype,d,v,aligned,want", [
+    (BF16, 1024, 256206, True, "tensor_core"),   # seamless: even, V % 8 = 6
+    (F32, 1024, 256206, True, "cuda_core"),
+    (BF16, 1024, 256206, False, "cuda_core"),
+    (BF16, 1024, 256205, True, "cuda_core"),     # odd V: rows off 4 bytes
+    (BF16, 1024, 256207, True, "cuda_core"),
+    (BF16, 1536, 151936, True, "tensor_core"),   # qwen2-vl-2b's head
+    (F32, 1536, 151936, True, "cuda_core"),
+    (BF16, 1024, 66, True, "tensor_core"),       # past the small head, even
+    (BF16, 1024, 62, True, "small_head"),
+])
+def test_exit_variant_at_an_even_vocabulary_off_8(dtype, d, v, aligned, want):
+    """An even V that is not a multiple of 8 takes the tensor-core variant
+    in bf16 (w staged in 4-byte pieces); an odd V, f32 or unaligned rows
+    keep the CUDA-core walk."""
+    assert exit_variant(dtype, d, v, aligned) == want
+
+
+@pytest.mark.parametrize("m", [8, 32, 192, 1536])
+def test_plan_at_v_256206_covers_every_column_once(m):
+    """seamless's head: 2002 column tiles, the last holding 78 columns
+    (256206 = 2001 x 128 + 78): every column lands in exactly one split,
+    the last split ends at V, and no split starts past it."""
+    v = 256206
+    rows, cols, per_sm = tile_shape("tensor_core", m)
+    pl = plan(1, m, v, H100_SMS, rows, cols, per_sm)
+    assert pl.cols_per_split % exit_kernel.TC_COLS == 0
+    owner = torch.zeros(v, dtype=torch.int64)
+    for i in range(pl.splits):
+        owner[i * pl.cols_per_split:min(v, (i + 1) * pl.cols_per_split)] += 1
+    assert (owner == 1).all()
+    assert (pl.splits - 1) * pl.cols_per_split < v
+    assert -(-v // exit_kernel.TC_COLS) == 2002
+    assert v - 2001 * exit_kernel.TC_COLS == 78
+    assert exit_kernel.tc_tile(m) == ("mma_sync" if m <= 32 else "wgmma")
+
+
 @pytest.mark.parametrize("dtype,d,aligned,want", [
-    (BF16, 64, True, "tensor_core"),             # ElasticBERT-12
-    (BF16, 128, True, "tensor_core"),
+    (BF16, 64, True, "tensor_core"),             # ElasticBERT-12, seamless
+    (BF16, 128, True, "tensor_core"),            # qwen2-vl-2b (12/2 GQA)
     (BF16, 64, False, "cuda_core"),
     (BF16, 128, False, "cuda_core"),
     (BF16, 16, True, "cuda_core"),

@@ -108,8 +108,30 @@ def test_forward_exits_matches_reference(bridged):
                                got["hidden"].numpy(), rtol=0, atol=1e-4)
 
 
-def test_other_families_not_ported():
-    cfg = dataclasses.replace(t_get_smoke_config("elasticbert12"),
-                              family="vlm", mrope=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttf.init_params(cfg, device="cpu")
+def test_other_families_not_ported(bridged):
+    """The VLM family, once refused, is ported: ElasticBERT's smoke stack
+    as a VLM with M-RoPE gives the reference's exits on the same weights
+    (token ids and an embeds batch), and an unknown family raises."""
+    cfg, tcfg, jp, tp = bridged
+    jcfg = dataclasses.replace(cfg, family="vlm", mrope=True)
+    vcfg = dataclasses.replace(tcfg, family="vlm", mrope=True)
+    toks = np.asarray(make_dataset("sst2_like", 4, seed=1)["tokens"])
+    emb = np.random.default_rng(2).normal(
+        0, 1, toks.shape + (cfg.d_model,)).astype(np.float32)
+    for jb, tb in (({"tokens": jnp.asarray(toks)},
+                    {"tokens": torch.from_numpy(toks)}),
+                   ({"embeds": jnp.asarray(emb)},
+                    {"embeds": torch.from_numpy(emb)})):
+        ref = jtf.forward_exits(jp, jcfg, jb)
+        with torch.no_grad():
+            got = ttf.forward_exits(tp, vcfg, tb)
+        np.testing.assert_allclose(got["conf"].numpy(),
+                                   np.asarray(ref["conf"]), rtol=0,
+                                   atol=CONF_ATOL)
+        np.testing.assert_array_equal(got["pred"].numpy(),
+                                      np.asarray(ref["pred"]))
+    assert sorted(dict(ttf.init_params(vcfg, device="cpu")
+                       .named_parameters())) == sorted(_paths(jp))
+    with pytest.raises(NotImplementedError, match="is unknown"):
+        ttf.init_params(dataclasses.replace(tcfg, family="vision"),
+                        device="cpu")

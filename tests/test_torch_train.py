@@ -318,8 +318,19 @@ def test_model_facade():
                                          torch.ones(4, dtype=torch.bool))
     assert torch.equal(step[0], edge[0])
     assert cloud[0].shape == step[0].shape
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(dataclasses.replace(tcfg, family="audio"))
+    # an audio config without an encoder is a decoder-only stack, as the
+    # reference's facade takes it: the same prefill on the bridged weights
+    cfg = dataclasses.replace(_cfgs("dense-cls")[0], family="audio")
+    audio = build_model(dataclasses.replace(tcfg, family="audio"))
+    assert not audio.is_encdec
+    jaudio = j_build_model(cfg)
+    jp = jaudio.init(jax.random.PRNGKey(2))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    want = jaudio.prefill(jp, {"tokens": jnp.asarray(toks.numpy())})[0]
+    with torch.no_grad():
+        got = audio.prefill(tp, {"tokens": toks})[0]
+    torch.testing.assert_close(got, torch.from_numpy(np.array(want)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_train_main_on_cpu(capsys):
