@@ -63,12 +63,20 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    "auto", int8 offloads (bucketed), int4 with sparsity 0.5 (scan), the
    sequential path with int8, a 17-sample tail micro-batch, and an
    `Engine` with the fifo scheduler fed in ragged chunks (its decisions
-   must equal the one-shot scan run's; its p50/p99 latency is printed);
+   must equal the one-shot scan run's; its p50/p99 latency is printed),
+   and the sharded runtime (`serve(path="sharded")`) at one replica:
+   overlap off, bucketed and scan (each bit for bit the batched path's
+   run: arms, exits, preds, rewards, offload bytes, cost, controller
+   state), the depth-K offload pipeline at K = 1 and 2 and K = 1 with
+   fused exits (all but the last batch overlapped), and an `Engine` (K =
+   2) fed in ragged chunks (bit for bit the one-shot run), with samples/s,
+   wall and device busy of sync, K = 1 and K = 2; one more replica than
+   the visible cards must raise;
    then the same runs with full-width rwkv6-3b (32 layers, d 2560, vocab
    65536, bfloat16) and zamba2-1.2b at full width and 19 of its 38
    Mamba2 layers (d 2048, one shared attention + MLP block after every
    6th, vocab 32000, bfloat16; alpha its median layer-10 confidence; it
-   decodes at all 38 layers below). Each run has its
+   decodes at all 38 layers below; no sharded runs). Each run has its
    own launch counts, per kernel, per variant and per tensor-core tile,
    reset just before it and read just after: they must equal the
    launches its decisions need (`expected_launches`: bucketed, one edge
@@ -87,9 +95,9 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    shared blocks; rwkv6-3b at all 32 layers against a float64 CPU
    reading, WITNESS_FACTOR), the offload codec bitwise in every mode,
    and the served decisions of a small float32 model of each family
-   (bucketed, scan, auto, int8); for zamba2 and an MoE it prints the
-   device time inside the plain-PyTorch blocks (Mamba2 and its SSD, the
-   MoE dispatch) beside the run's busy time;
+   (bucketed, scan, auto, int8, sharded K = 1); for zamba2 and an MoE it
+   prints the device time inside the plain-PyTorch blocks (Mamba2 and
+   its SSD, the MoE dispatch) beside the run's busy time;
 6. serves autoregressive decode (``workload="decode"``) with full-width
    qwen3-1.7b, rwkv6-3b and zamba2-1.2b (bfloat16, weights and 64
    prompts of 64 tokens from ``--seed``, 32 new tokens each, alpha the
@@ -362,12 +370,19 @@ def phase(name: str):
     print(f"  [{name}: {time.perf_counter() - t0:.1f} s wall]")
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5):
+def device_ms(fn, iters: int = 50, warmup: int = 5, check: bool = False):
     """Device time per call of ``fn``: the summed durations of every
     kernel (and copy) it puts on the card, from a torch.profiler (CUPTI)
     trace over ``iters`` calls, without the host's launch overhead.
-    Returns (ms, {kernel name: ms per call})."""
+    Returns (ms, {kernel name: ms per call}).
+
+    The durations are read from the trace's raw device events:
+    ``key_averages()`` builds a Python object per event first, which
+    costs tens of seconds of host time for a served rwkv6-3b run. With
+    ``check`` the ``key_averages()`` total is computed too, and the two
+    must agree."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -377,15 +392,20 @@ def device_ms(fn, iters: int = 50, warmup: int = 5):
             fn()
         torch.cuda.synchronize()
     per_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0:
-            per_kernel[ev.key] = us / iters / 1e3
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            per_kernel[ev.name()] = per_kernel.get(ev.name(), 0.0) + \
+                ev.duration_ns() / iters / 1e6
     total = sum(per_kernel.values())
     if total <= 0:
         fail("torch.profiler recorded no device time")
+    if check:
+        averaged = sum(ev.self_device_time_total
+                       for ev in prof.key_averages()) / iters / 1e3
+        print(f"  device time by raw events {total:.4f} ms, by "
+              f"key_averages() {averaged:.4f} ms")
+        if abs(total - averaged) > 1e-3 * averaged:
+            fail("device time by raw events and by key_averages() differ")
     return total, per_kernel
 
 
@@ -1790,7 +1810,8 @@ def serve_phase(torch, dev, runs: Runs, params, cfg, data, cost,
     traced = []
     busy, per_kernel = device_ms(lambda: traced.append(_serve_stream_batched(
         rt, params, OnlineStream(data, seed=0), cost,
-        batch_size=SERVE_BATCH, record_trace=True)), iters=1, warmup=0)
+        batch_size=SERVE_BATCH, record_trace=True)), iters=1, warmup=0,
+        check=cfg.family == "dense")
     report, wall, _ = out["batched B=32"]
     print_busy(f"{prefix}batched B=32", busy, wall * 1e3, per_kernel)
     if cfg.family in PROFILE_RANGES:
@@ -1937,6 +1958,139 @@ def front_end_phase(torch, dev, runs: Runs, params, cfg, data, cost,
           f"{b_rep['n'] / b_wall:.1f} samples/s, device busy {busy:.3f} vs "
           f"{b_busy:.3f} ms")
     decision_difference(prefix, b_traced, traced[0], cost.alpha)
+    return rep
+
+
+def same_run(name, got, ref):
+    """``got`` equals ``ref`` bit for bit: arms, exits, preds, rewards,
+    offload bytes, cost and the controller state."""
+    import numpy as np
+    for key in ("arms", "exited", "preds", "rewards"):
+        if not np.array_equal(np.asarray(got[key]), np.asarray(ref[key])):
+            fail(f"{name}: {key} differ")
+    for key in ("offload_bytes", "cost_total"):
+        if got[key] != ref[key]:
+            fail(f"{name}: {key} {got[key]} != {ref[key]}")
+    for key, want in ref["state"].items():
+        if not np.array_equal(np.asarray(got["state"][key]),
+                              np.asarray(want)):
+            fail(f"{name}: controller state {key} differs")
+
+
+def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
+                  scan, prefix: str = ""):
+    """The sharded runtime (`serve(path="sharded")`) at R = 1 on the card:
+    overlap off (bucketed and scan, each bitwise the batched path's run:
+    ``bucketed`` from `serve_phase`, ``scan`` from `front_end_phase`),
+    the depth-K offload pipeline at K = 1 and 2 and K = 1 with fused
+    exits, and an `Engine` fed in ragged chunks (bitwise the one-shot
+    K = 2 run); each run's launches held against its decisions. Prints
+    samples/s, wall and device busy (torch.profiler over one more run) of
+    sync, K = 1 and K = 2. R above the visible cards must raise."""
+    import numpy as np
+    from repro_torch.data import OnlineStream
+    from repro_torch.serving import (EdgeCloudRuntime, Engine, ServingConfig,
+                                     serve)
+
+    B = SERVE_BATCH
+    base = ServingConfig(path="sharded", batch_size=B)
+    runs_cfg = [
+        # name, config, fused, the batched run it must equal bitwise
+        ("sharded R=1 sync", dataclasses.replace(base, overlap=False),
+         False, bucketed[0]),
+        ("sharded R=1 sync scan", dataclasses.replace(
+            base, overlap=False, edge_mode="scan"), False, scan),
+        ("sharded R=1 K=1", base, False, None),
+        ("sharded R=1 K=2", dataclasses.replace(base, overlap_depth=2),
+         False, None),
+        ("sharded R=1 K=1 fused_exit", base, True, None),
+    ]
+    out = {}
+    for name, config, fused, equal_to in runs_cfg:
+        rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=fused)
+        rep, dt, _ = out[name] = runs.run(
+            torch, prefix + name,
+            lambda: serve(rt, params, OnlineStream(data, seed=0), cost,
+                          config),
+            cfg, batch_size=B, fused=fused, edge_mode=config.edge_mode)
+        ov = rep.overlap
+        if rep.path != "sharded" or rep.replicas != 1:
+            fail(f"{name}: served by {rep.path} with {rep.replicas} "
+                 f"replicas")
+        want = ov["batches"] - 1 if config.overlap else 0
+        if ov["batches_overlapped"] != want:
+            fail(f"{name}: {ov['batches_overlapped']} of {ov['batches']} "
+                 f"batches overlapped, want {want}")
+        print(f"    overlap {ov}")
+        if equal_to is not None:
+            same_run(prefix + name, rep, equal_to)
+            print(f"    == the batched path's {config.edge_mode} run bit "
+                  f"for bit (arms, exits, preds, rewards, offload bytes, "
+                  f"cost, controller state)")
+
+    samples = list(OnlineStream(data, seed=0))
+    rt = EdgeCloudRuntime(cfg, device=dev)
+
+    def engine():
+        eng = Engine(rt, params, cost,
+                     dataclasses.replace(base, overlap_depth=2))
+        i, chunks = 0, (5, 1, 7, 3, 16, 2, 30, 20, 12, 64, 33)
+        while i < len(samples):
+            for c in chunks:
+                eng.submit(samples[i:i + c])
+                i += c
+        return eng.close()
+
+    rep, _, _ = runs.run(torch, prefix + "sharded engine K=2", engine, cfg,
+                         batch_size=B)
+    same_run(prefix + "sharded engine K=2", rep, out["sharded R=1 K=2"][0])
+    print("    engine == one-shot serve() K=2 bit for bit")
+
+    def timed(config):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = serve(rt, params, OnlineStream(data, seed=0), cost, config)
+        torch.cuda.synchronize()
+        return rep["n"] / (time.perf_counter() - t0)
+
+    # R = 1 sync against the batched path in turns (batched, sharded,
+    # sharded, batched): the host's rate drifts between runs of one call
+    sync = runs_cfg[0][1]
+    batched = ServingConfig(batch_size=B)
+    abba = [timed(c) for c in (batched, sync, sync, batched)]
+    print(f"  {prefix}batched vs sharded R=1 sync, in turns: batched "
+          f"{abba[0]:.1f}, {abba[3]:.1f}; sharded {abba[1]:.1f}, "
+          f"{abba[2]:.1f} samples/s")
+
+    # where the time goes: device busy (torch.profiler) of one more run
+    # of each beside the unprofiled run's wall, and the port's launches
+    for name in ("sharded R=1 sync", "sharded R=1 K=1", "sharded R=1 K=2"):
+        config = next(c for n, c, _, _ in runs_cfg if n == name)
+        busy, _ = device_ms(lambda: serve(
+            rt, params, OnlineStream(data, seed=0), cost, config),
+            iters=1, warmup=0)
+        rep, wall, _ = out[name]
+        launched = sum(runs.counts[prefix + name].values())
+        print(f"  {prefix}{name}: {rep['n'] / wall:.1f} samples/s, wall "
+              f"{wall * 1e3:.1f} ms, device busy {busy:.3f} ms "
+              f"({busy / (wall * 1e3):.1%}); {launched} launches of the "
+              f"port's kernels ({wall * 1e3 / launched:.3f} ms wall a "
+              f"launch)")
+    b_rep, b_wall, b_busy, _ = bucketed
+    print(f"  {prefix}batched B=32 (serve phase): {b_rep['n'] / b_wall:.1f} "
+          f"samples/s, busy {b_busy:.3f} ms over 512 samples")
+
+    # no fallback: more replicas than visible cards raise
+    over = torch.cuda.device_count() + 1
+    try:
+        serve(rt, params, OnlineStream(data, seed=0), cost,
+              ServingConfig(batch_size=B, replicas=over))
+    except ValueError as err:
+        if "local device(s) visible" not in str(err):
+            raise
+        print(f"  replicas={over} on {over - 1} card(s) raises: {err}")
+    else:
+        fail(f"replicas={over} served on {over - 1} card(s)")
 
 
 def decision_difference(prefix, a, b, alpha, names=("bucketed", "scan")):
@@ -2309,8 +2463,8 @@ def _bits(t):
 def small_serve_agreement(torch, dev, arch: str, data):
     """The small float32 model of ``arch`` served on the card and on the
     CPU (plain exits; fused exits with SplitEE-S; through `serve()` the
-    scan and auto edge phases and int8 offloads): identical decisions and
-    accounting."""
+    scan and auto edge phases, int8 offloads and the sharded path at
+    K = 1): identical decisions and accounting."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import CostModel
@@ -2342,6 +2496,9 @@ def small_serve_agreement(torch, dev, arch: str, data):
     runs.append(("serve() int8", False, lambda rt, p: serve(
         rt, p, OnlineStream(sub, seed=0), cost,
         ServingConfig(batch_size=8, offload_quant="int8"))))
+    runs.append(("serve() sharded K=1", False, lambda rt, p: serve(
+        rt, p, OnlineStream(sub, seed=0), cost,
+        ServingConfig(path="sharded", batch_size=8, overlap_depth=1))))
     for name, fused, call in runs:
         a, b = (call(EdgeCloudRuntime(small, device=d, fused_exit=fused), p)
                 for p, d in ((sp_gpu, dev), (sp_cpu, "cpu")))
@@ -3787,8 +3944,13 @@ def main(argv=None) -> int:
             bucketed = serve_phase(torch, dev, runs, params, cfg, data, cost,
                                    prefix)
         with phase(f"serve(): {arch} scan, auto, offload codec, Engine"):
-            front_end_phase(torch, dev, runs, params, cfg, data, cost,
-                            bucketed, prefix)
+            scan = front_end_phase(torch, dev, runs, params, cfg, data,
+                                   cost, bucketed, prefix)
+        if arch != HYBRID:
+            with phase(f"sharded: {arch} serve(path='sharded') at R=1, "
+                       f"sync and overlap K=1/2, Engine"):
+                sharded_phase(torch, dev, runs, params, cfg, data, cost,
+                              bucketed, scan, prefix)
         with phase(f"agreement: {arch}, card kernel path vs CPU plain "
                    f"path"):
             agree(torch, dev, params, cfg, data)

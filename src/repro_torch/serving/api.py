@@ -6,13 +6,14 @@
   reference's ``to_json()`` wrote loads here unchanged, and the reverse.
 * `serve(runtime, params, stream, cost, config)` — the facade. Resolves
   the cheapest serving path that satisfies the config (`resolved_path`)
-  and returns a typed `ServeReport`. The port runs the sequential and
-  batched paths (bucketed, scan or auto edge phase, any offload codec)
-  and the decode runtime (``workload="decode"``, serving/decode.py); a
-  config that resolves to the sharded or distributed runtime, or an
-  explicit ``mesh``/``exchange``/``init_state``, passes validation and
-  then raises ``NotImplementedError`` — it never falls back to another
-  path.
+  and returns a typed `ServeReport`. The port runs the sequential,
+  batched and sharded paths (bucketed, scan or auto edge phase, any
+  offload codec; the sharded runtime over R replicas of a ``mesh`` with
+  the depth-K offload pipeline) and the decode runtime
+  (``workload="decode"``, serving/decode.py); a config that resolves to
+  the distributed runtime, or an ``exchange``/``init_state``/
+  ``stream_offset``, passes validation and then raises
+  ``NotImplementedError`` — it never falls back to another path.
 * `Engine` — a push-session over the same controller/queue machinery:
   `submit(samples)` / `drain()` / `close()`. A push-session over the same
   samples is bit-identical to the one-shot `serve()` call; with
@@ -42,6 +43,8 @@ from repro_torch.serving.offload_codec import (QUANT_MODES, OffloadCodec,
                                                codec_from_fields)
 from repro_torch.serving.scheduler import (SCHEDULERS, SHED_POLICIES,
                                            RequestScheduler)
+from repro_torch.serving.sharded import (_ShardedSession,
+                                         _serve_stream_sharded)
 from repro_torch.serving.simulator import (EdgeCloudRuntime,
                                            _serve_stream_sequential)
 
@@ -557,13 +560,13 @@ def _controller_kwargs(config: ServingConfig) -> Optional[Dict[str, Any]]:
         record_history=config.record_history)
 
 
-NOT_PORTED_PATHS = ("sharded", "distributed")
+NOT_PORTED_PATHS = ("distributed",)
 
 
 def _not_ported(path: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {path} serving path: not ported yet (the port serves the "
-        f"sequential and batched paths)")
+        f"sequential, batched and sharded paths)")
 
 
 def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
@@ -574,15 +577,19 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
 
     Resolves the config to a runtime (see `ServingConfig.resolved_path`)
     and returns a `ServeReport`. ``samples_per_sec`` is wall time around
-    the driver; every micro-batch reads its decisions back, so the device
-    work is inside it.
+    the driver; every micro-batch reads its decisions back (the sharded
+    path reads its last flushes back at its drain), so the device work is
+    inside it.
 
-    ``mesh``, ``exchange``, ``init_state`` and ``stream_offset`` are the
-    reference's runtime resources of the sharded and distributed paths,
-    which are not ported: passing one raises ``NotImplementedError``, as
-    does a config that resolves to those paths. A `DecodeRuntime` needs
-    a decode config (``workload="decode"``), and a decode config needs
-    a `DecodeRuntime`.
+    ``mesh`` is an explicit `launch.mesh.ServingMesh` with a "data" axis
+    for the sharded path (without one, the sharded path builds a 1-D mesh
+    of ``config.replicas`` replicas on the runtime's device); a mesh on
+    another path raises the reference's ``ValueError``. ``exchange``,
+    ``init_state`` and ``stream_offset`` are runtime resources of the
+    distributed path, which is not ported: passing one raises
+    ``NotImplementedError``, as does a config that resolves to it. A
+    `DecodeRuntime` needs a decode config (``workload="decode"``), and a
+    decode config needs a `DecodeRuntime`.
 
     Any extra keyword arguments are `ServingConfig` field overrides:
     ``serve(rt, p, s, c, batch_size=32)`` replaces the field on the
@@ -598,18 +605,22 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
             f"runtime is a DecodeRuntime but the config resolves to "
             f"path={path!r}; set ServingConfig(workload='decode', "
             f"max_new_tokens=...)")
-    if mesh is not None or exchange is not None or init_state is not None \
-            or stream_offset:
+    if mesh is not None and path not in ("sharded", "distributed"):
+        raise ValueError(
+            f"an explicit mesh applies to the sharded/distributed paths; "
+            f"this config resolves to {path!r} (set replicas/mesh/"
+            f"distributed on the config)")
+    if exchange is not None or init_state is not None or stream_offset:
         raise NotImplementedError(
-            "mesh/exchange/init_state/stream_offset belong to the sharded "
-            "and distributed paths: not ported yet")
+            "exchange/init_state/stream_offset belong to the distributed "
+            "path: not ported yet")
     if path in NOT_PORTED_PATHS:
         raise _not_ported(path)
     if config.scheduler != "none":
         # the request scheduler lives behind the Engine session; replay
         # the offline stream through one (over a steady trace with no
         # deadlines it closes only full batches: the unscheduled schedule)
-        eng = Engine(runtime, params, cost, config)
+        eng = Engine(runtime, params, cost, config, mesh=mesh)
         for sample in itertools.islice(iter(stream),
                                        config.max_samples or None):
             eng.submit(sample)
@@ -636,9 +647,18 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
     if path == "sequential":
         raw = _serve_stream_sequential(runtime, params, stream, cost,
                                        **common)
-    else:
+    elif path == "batched":
         raw = _serve_stream_batched(runtime, params, stream, cost,
                                     batch_size=config.batch_size,
+                                    record_trace=config.record_trace,
+                                    edge_mode=config.edge_mode,
+                                    **common)
+    else:
+        raw = _serve_stream_sharded(runtime, params, stream, cost,
+                                    batch_size=config.batch_size,
+                                    replicas=config.replicas, mesh=mesh,
+                                    overlap=config.overlap,
+                                    overlap_depth=config.overlap_depth,
                                     record_trace=config.record_trace,
                                     edge_mode=config.edge_mode,
                                     **common)
@@ -649,34 +669,55 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
 
 # ----------------------------------------------------------------- engine
 
-def _build_session(runtime, params, cost: CostModel, config: ServingConfig):
+def _build_session(runtime, params, cost: CostModel, config: ServingConfig,
+                   *, mesh=None):
     """Construct the push-session a config selects (shared by `Engine`
-    and `MultiTenantEngine`). Returns (session, path_label). Sequential
-    configs ride the batched machinery at B=1, which makes the same
-    decisions."""
+    and `MultiTenantEngine`). Returns (session, path_label)."""
     c = config
     path = c.resolved_path()
-    if path in NOT_PORTED_PATHS:
-        raise _not_ported(path)
+    if path == "distributed":
+        raise ValueError(
+            "Engine does not drive the distributed runtime: every "
+            "host must consume the same logical stream, which a "
+            "single-process push-session cannot guarantee; call "
+            "serve() with the distributed ServingConfig on each host")
     ctl_kw = _controller_kwargs(c)
     codec = _codec_from_config(c)
     if path == "decode":
+        if mesh is not None:
+            raise ValueError(
+                "an explicit mesh applies to the sharded path; this "
+                "config resolves to 'decode'")
         sess = _DecodeSession(
             runtime, params, cost, batch_size=c.batch_size,
             max_new_tokens=c.max_new_tokens, split_policy=c.split_policy,
             beta=c.beta, controller_kwargs=ctl_kw, codec=codec)
-        return sess, path
-    if isinstance(runtime, DecodeRuntime):
-        raise ValueError(
-            f"runtime is a DecodeRuntime but the config resolves to "
-            f"path={path!r}; set ServingConfig(workload='decode', "
-            f"max_new_tokens=...)")
-    sess = _BatchedSession(
-        runtime, params, cost, batch_size=c.batch_size,
-        side_info=c.side_info, beta=c.beta,
-        labels_for_accounting=c.labels_for_accounting,
-        record_trace=c.record_trace, edge_mode=c.edge_mode,
-        controller_kwargs=ctl_kw, codec=codec)
+    elif path == "sharded":
+        sess = _ShardedSession(
+            runtime, params, cost, batch_size=c.batch_size,
+            replicas=c.replicas, mesh=mesh, overlap=c.overlap,
+            overlap_depth=c.overlap_depth, side_info=c.side_info,
+            beta=c.beta, labels_for_accounting=c.labels_for_accounting,
+            record_trace=c.record_trace, edge_mode=c.edge_mode,
+            controller_kwargs=ctl_kw, codec=codec)
+    else:
+        if mesh is not None:
+            raise ValueError(
+                f"an explicit mesh applies to the sharded path; this "
+                f"config resolves to {path!r}")
+        if isinstance(runtime, DecodeRuntime):
+            raise ValueError(
+                f"runtime is a DecodeRuntime but the config resolves to "
+                f"path={path!r}; set ServingConfig(workload='decode', "
+                f"max_new_tokens=...)")
+        # sequential configs ride the batched machinery at B=1, which
+        # makes the same decisions
+        sess = _BatchedSession(
+            runtime, params, cost, batch_size=c.batch_size,
+            side_info=c.side_info, beta=c.beta,
+            labels_for_accounting=c.labels_for_accounting,
+            record_trace=c.record_trace, edge_mode=c.edge_mode,
+            controller_kwargs=ctl_kw, codec=codec)
     return sess, path
 
 
@@ -693,16 +734,19 @@ class Engine:
         final = eng.close()
 
     Internally this is a thin incremental driver: submitted samples are
-    buffered and pushed through the batched micro-batch schedule
-    (`_BatchedSession`) as soon as a full micro-batch accumulates;
-    `drain()` serves the ragged tail. Because the pushes reproduce exactly
-    the batch sequence `microbatches()` would have produced, a session
-    that submits the same samples (with `drain` called once, at the end)
-    is **bit-identical** to the one-shot `serve()` call. Sequential
-    configs are served through the batched machinery at ``B=1``; decode
-    configs through `_DecodeSession` (a push prefills and generates one
-    micro-batch). Configs of the unported paths raise
-    ``NotImplementedError``.
+    buffered and pushed through the batched (`_BatchedSession`) or
+    sharded (`_ShardedSession`) micro-batch schedule as soon as a full
+    micro-batch accumulates; `drain()` serves the ragged tail and
+    resolves any in-flight overlapped cloud flushes. Because the pushes
+    reproduce exactly the batch sequence `microbatches()` would have
+    produced, a session that submits the same samples (with `drain`
+    called once, at the end) is **bit-identical** to the one-shot
+    `serve()` call. Sequential configs are served through the batched
+    machinery at ``B=1``; decode configs through `_DecodeSession` (a push
+    prefills and generates one micro-batch). Distributed configs are
+    rejected with the reference's ``ValueError``: every host of a cluster
+    must consume the same logical stream, which push traffic into one
+    process cannot guarantee.
 
     With ``config.scheduler="fifo"`` submits are routed through a
     `RequestScheduler` (serving/scheduler.py) instead of the plain
@@ -714,21 +758,17 @@ class Engine:
     call between arrivals. The report gains a ``scheduler`` section
     (p50/p99 latency, shed counts by reason, batch fill). ``clock``
     injects a monotonic time source for the scheduler. ``mesh`` is the
-    reference's sharded-runtime resource: not ported, so passing one
-    raises.
+    sharded session's explicit `ServingMesh`.
     """
 
     def __init__(self, runtime: EdgeCloudRuntime, params, cost: CostModel,
                  config: Optional[ServingConfig] = None, *, mesh=None,
                  clock: Optional[Callable[[], float]] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "an explicit mesh belongs to the sharded path: not ported "
-                "yet")
         self.config = config if config is not None else ServingConfig()
         self.cost = cost
         c = self.config
-        self._sess, self._path = _build_session(runtime, params, cost, c)
+        self._sess, self._path = _build_session(runtime, params, cost, c,
+                                                mesh=mesh)
         self._clock = clock if clock is not None else time.monotonic
         self._sched: Optional[RequestScheduler] = None
         if c.scheduler != "none":
@@ -859,9 +899,8 @@ class Engine:
         return served
 
     def drain(self) -> ServeReport:
-        """Serve everything submitted so far (including a ragged tail)
-        and report (every cloud flush is resolved at its own batch
-        boundary, so nothing stays in flight). With a
+        """Serve everything submitted so far (including a ragged tail),
+        resolve all in-flight cloud flushes, and report. With a
         scheduler, expired requests are shed — never served — and the
         rest goes out in priority order."""
         if self._closed:
@@ -873,6 +912,7 @@ class Engine:
         elif self._buf:
             self._sess.push(self._buf)
             self._buf = []
+        self._sess.drain()
         return self._report()
 
     def close(self) -> ServeReport:
@@ -1036,8 +1076,8 @@ class MultiTenantEngine:
         return served
 
     def close(self) -> Dict[str, ServeReport]:
-        """Flush the shared queue (batches stay tenant-pure) and return
-        per-tenant reports. Idempotent."""
+        """Flush the shared queue (batches stay tenant-pure), drain every
+        session, and return per-tenant reports. Idempotent."""
         if self._closed:
             return self._final
         for reqs in self._sched.flush():
@@ -1048,6 +1088,7 @@ class MultiTenantEngine:
         per_tenant = snap.get("tenants", {})
         out = {}
         for name, sess in self._sessions.items():
+            sess.drain()
             raw = sess.result()
             raw["tenant"] = name
             raw["scheduler"] = {**snap,

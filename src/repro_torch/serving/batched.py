@@ -15,7 +15,9 @@ The stream is served in micro-batches of B samples:
   4. **cloud** — non-exiting rows land in an `OffloadQueue`, kept on the
      device as tensors; at the batch boundary the queue flushes one
      `cloud_fn` call per depth bucket (again pow2-padded), through the
-     offload codec when one is set;
+     offload codec when one is set. `flush_async` only queues the calls;
+     the sharded runtime (serving/sharded.py) reads them back up to K
+     batches later;
   5. **update** — `SplitEEController.update_batch` folds the batch.
 
 With B = 1 the pipeline makes the same decisions as the sequential
@@ -38,8 +40,25 @@ from repro_torch.serving.simulator import EdgeCloudRuntime
 
 
 def _pow2(k: int) -> int:
-    """Smallest power of two >= k: a bucket's row capacity."""
+    """Smallest power of two >= k."""
     return 1 << (k - 1).bit_length() if k > 1 else 1
+
+
+def _bucket_cap(k: int, multiple: int = 1) -> int:
+    """Bucket row capacity: pow2-padded, rounded up to `multiple`.
+
+    `multiple` is the sharded runtime's replica count: the cap must
+    divide over the mesh's data axis or `sanitize_spec` falls back to
+    one call on one replica. With `multiple` = 1 this is `_pow2`.
+    """
+    cap = max(_pow2(k), multiple)
+    return -(-cap // multiple) * multiple
+
+
+def _as_is(x):
+    """Default placement of a launch's input: none (the runtime moves its
+    inputs to its device)."""
+    return x
 
 
 def _offload_scale(codec: Optional[OffloadCodec],
@@ -78,6 +97,15 @@ class PendingFlush:
         self._result: Optional[Dict[int, tuple]] = None
         self.slot_bytes: Dict[int, int] = slot_bytes or {}
 
+    def __len__(self):
+        if self._result is not None:
+            return len(self._result)
+        return sum(len(slots) for slots, _, _ in self._launches)
+
+    @property
+    def resolved(self) -> bool:
+        return self._result is not None
+
     def resolve(self) -> Dict[int, tuple]:
         if self._result is None:
             out: Dict[int, tuple] = {}
@@ -99,16 +127,25 @@ class OffloadQueue:
     half runs on the same device). `flush_async()` issues one `cloud_fn`
     call per distinct depth with its rows stacked and pow2-padded; with a
     ``codec`` the padded stack is encoded to the wire format and the cloud
-    gets the lossy decode. ``flush()`` is ``flush_async().resolve()``.
+    gets the lossy decode. It returns a `PendingFlush` without reading the
+    results back; with ``depth=K`` the queue keeps a ring of in-flight
+    flushes and resolves the oldest once more than K are outstanding.
+    ``flush()`` is ``flush_async().resolve()``.
+
+    ``put`` places each padded stack for its call: the sharded runtime
+    passes a split of the rows over its replicas (`sharded._data_put`);
+    by default the stack goes as it is.
     """
 
-    def __init__(self, runtime: EdgeCloudRuntime, params, *,
+    def __init__(self, runtime: EdgeCloudRuntime, params, *, put=None,
                  codec: Optional[OffloadCodec] = None):
         self.runtime = runtime
         self.params = params
+        self.put = put if put is not None else _as_is
         self.codec = codec
         self.rows: Dict[int, List[torch.Tensor]] = {}   # depth -> [(S, D)]
         self.slots: Dict[int, List[int]] = {}
+        self.inflight: List[PendingFlush] = []        # flush_async ring
 
     def add_rows(self, depth: int, hidden_rows: torch.Tensor,
                  slots: List[int]):
@@ -119,26 +156,50 @@ class OffloadQueue:
     def __len__(self):
         return sum(len(v) for v in self.slots.values())
 
-    def flush_async(self) -> PendingFlush:
-        """Queue one `cloud_fn` call per queued depth; don't read back."""
+    def flush_async(self, *, min_rows: int = 1,
+                    depth: Optional[int] = None) -> PendingFlush:
+        """Queue one `cloud_fn` call per queued depth; don't read back.
+
+        ``min_rows`` sets the pad floor and rounding multiple (the sharded
+        runtime passes its replica count). ``depth`` bounds the flush
+        pipeline: the returned `PendingFlush` joins a ring of in-flight
+        flushes, and once more than ``depth`` are unresolved the oldest is
+        resolved, FIFO (``resolve`` is idempotent, so that is the one the
+        caller would have resolved next). ``None`` leaves the ring
+        unbounded (the caller owns resolution).
+        """
+        if depth is not None and depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
         launches = []
         slot_bytes: Dict[int, int] = {}
         for d in sorted(self.rows):
-            slots = self.slots[d]
-            hidden = _pad_rows(torch.stack(self.rows[d]), _pow2(len(slots)))
+            slots, rows = self.slots[d], self.rows[d]
+            # rows made by several replicas' devices meet on the first's
+            dev = rows[0].device
+            if any(r.device != dev for r in rows):
+                rows = [r.to(dev) for r in rows]
+            hidden = _pad_rows(torch.stack(rows),
+                               _bucket_cap(len(slots), min_rows))
             if self.codec is not None:
                 enc = self.codec.encode(hidden)
                 hidden = self.codec.decode(enc)
                 rb = enc.row_bytes
             else:
                 rb = hidden[0].numel() * hidden.element_size()
-            conf_L, pred_L = self.runtime.cloud_fn(self.params, hidden, d)
+            conf_L, pred_L = self.runtime.cloud_fn(self.params,
+                                                   self.put(hidden), d)
             launches.append((list(slots), conf_L, pred_L))
             for s in slots:
                 slot_bytes[s] = rb
         self.rows.clear()
         self.slots.clear()
-        return PendingFlush(launches, slot_bytes)
+        pending = PendingFlush(launches, slot_bytes)
+        if depth is not None:
+            self.inflight = [p for p in self.inflight if not p.resolved]
+            self.inflight.append(pending)
+            while len(self.inflight) > depth:
+                self.inflight.pop(0).resolve()
+        return pending
 
     def flush(self) -> Dict[int, tuple]:
         return self.flush_async().resolve()
@@ -146,18 +207,22 @@ class OffloadQueue:
 
 def _edge_phase(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
                 arms: np.ndarray, cost: CostModel, queue: OffloadQueue, *,
-                side_info: bool):
+                side_info: bool, put=_as_is, replicas: int = 1):
     """One micro-batch's edge pass: one call per distinct depth. Samples
     that don't exit are queued on ``queue``; returns (conf_paths,
-    batch_preds) indexed by batch slot."""
+    batch_preds) indexed by batch slot.
+
+    Shared by the batched and sharded runtimes, which differ only in the
+    placement of each call's rows (``put``) and the bucket-cap rounding
+    multiple (``replicas``)."""
     B = len(arms)
     conf_paths: List[Optional[np.ndarray]] = [None] * B
     batch_preds = [0] * B
     for arm in np.unique(arms):
         arm = int(arm)
         idx = np.nonzero(arms == arm)[0]
-        toks = _pad_rows(tokens[idx], _pow2(len(idx)))
-        jb = {"tokens": toks}
+        toks = _pad_rows(tokens[idx], _bucket_cap(len(idx), replicas))
+        jb = {"tokens": put(toks)}
         if side_info:
             conf_all, pred_all, hidden = runtime.edge_fn_s(params, jb, arm)
             conf_np = conf_all.cpu().numpy()                 # (L, cap)
@@ -250,6 +315,10 @@ class _BatchedSession:
                     self.correct.append(
                         int(batch_preds[s] == int(sample["labels"])))
         self.n += B
+
+    def drain(self):
+        """Nothing is in flight: every flush resolves at its own batch
+        boundary (the sharded session's drain resolves its ring)."""
 
     def result(self) -> Dict[str, Any]:
         ctl = self.ctl

@@ -289,6 +289,9 @@ class _DecodeSession:
             "wire_bytes_per_seq": mgr.wire_bytes_per_seq,
         })
 
+    def drain(self):
+        """The cloud resume blocks inside push — nothing is in flight."""
+
     def result(self) -> Dict[str, Any]:
         ctl = self.ctl
         hist = {k: np.asarray(v) for k, v in ctl.history.items()}

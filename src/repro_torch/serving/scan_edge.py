@@ -15,17 +15,22 @@ flushes are the same launches.
 
 The launch sequence depends only on the batch shape, never on the depth
 values; the price is that every row runs (a masked no-op through) all L
-layers. One replica: the batch is launched as it is, unpadded.
+layers.
+
+Padding: rows are padded to a multiple of `replicas` (ceil, no pow2) by
+repeating the last row, so the sharded runtime's calls divide its data
+axis; with one replica a batch is launched as it is. The masked forward
+keeps rows independent, so padded rows cannot change live ones.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.rewards import CostModel
-from repro_torch.serving.batched import OffloadQueue, _edge_phase
+from repro_torch.serving.batched import (OffloadQueue, _as_is, _edge_phase,
+                                         _pad_rows)
 from repro_torch.serving.simulator import EdgeCloudRuntime
 
 EDGE_MODES = ("bucketed", "scan", "auto")
@@ -33,16 +38,19 @@ EDGE_MODES = ("bucketed", "scan", "auto")
 
 def _edge_phase_scan(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
                      arms: np.ndarray, cost: CostModel, queue: OffloadQueue,
-                     *, side_info: bool):
+                     *, side_info: bool, put=_as_is, replicas: int = 1):
     """One micro-batch's edge pass as a single masked forward.
 
     Twin of `batched._edge_phase`: the same (conf_paths, batch_preds)
-    contract and the same queue insertion order."""
+    contract and the same queue insertion order; ``put`` and
+    ``replicas`` as there."""
     B = len(arms)
     arms_np = np.asarray(arms, dtype=np.int64)
+    cap = -(-B // replicas) * replicas
     conf_all, pred_all, hidden = runtime.edge_scan_fn(
-        params, {"tokens": tokens}, torch.as_tensor(arms_np))
-    conf_np = conf_all.cpu().numpy()                   # (L, B)
+        params, {"tokens": put(_pad_rows(tokens, cap))},
+        put(_pad_rows(arms_np, cap)))
+    conf_np = conf_all.cpu().numpy()                   # (L, cap)
     pred_np = pred_all.cpu().numpy()
     conf_paths: List[Optional[np.ndarray]] = [None] * B
     batch_preds = [0] * B
@@ -65,14 +73,14 @@ def _edge_phase_scan(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
 
 def _edge_phase_auto(runtime: EdgeCloudRuntime, params, tokens: np.ndarray,
                      arms: np.ndarray, cost: CostModel, queue: OffloadQueue,
-                     *, side_info: bool):
+                     *, side_info: bool, put=_as_is, replicas: int = 1):
     """Per-micro-batch pick: a batch mixing >= 2 distinct depths takes the
     masked forward; a uniform-depth batch takes the bucketed phase (one
     call there too, without the scan's all-L layers)."""
     phase = (_edge_phase_scan if len(np.unique(np.asarray(arms))) >= 2
              else _edge_phase)
     return phase(runtime, params, tokens, arms, cost, queue,
-                 side_info=side_info)
+                 side_info=side_info, put=put, replicas=replicas)
 
 
 def select_edge_phase(edge_mode: str):

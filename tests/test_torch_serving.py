@@ -142,17 +142,19 @@ def test_offload_bytes_follow_activation_dtype():
 
 def test_unported_options_raise():
     """The options that stay unported raise through `serve()` rather than
-    fall back: the sharded path, distributed serving and an explicit
-    mesh. (The scan edge phase, the offload codec and decode are ported:
-    tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py,
-    tests/test_torch_decode_serving.py.)"""
+    fall back: distributed serving and its runtime resources (``exchange``,
+    ``init_state``, ``stream_offset``). (The scan edge phase, the offload
+    codec, decode and the sharded path with ``replicas``/``mesh`` are
+    ported: tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py,
+    tests/test_torch_decode_serving.py, tests/test_torch_sharded.py.)"""
     tcfg = t_get_smoke_config("elasticbert12")
     rt = EdgeCloudRuntime(tcfg, device="cpu")
     cost = CostModel(num_layers=tcfg.num_layers)
     for config, resources in (
-            (ServingConfig(batch_size=8, replicas=2), {}),
             (ServingConfig(distributed=True), {}),
-            (ServingConfig(batch_size=8), {"mesh": object()})):
+            (ServingConfig(batch_size=8), {"exchange": object()}),
+            (ServingConfig(batch_size=8, replicas=2), {"init_state": {}}),
+            (ServingConfig(batch_size=8), {"stream_offset": 3})):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             serve(rt, None, [], cost, config, **resources)
 

@@ -14,7 +14,9 @@
   rwkv6) equals the reference's, scheduler section included, under the
   same fake clock; `RequestScheduler` equals the reference's over a
   random trace of offers, polls and flushes;
-* the unported paths raise "not ported yet".
+* the unported distributed path and its resources raise "not ported
+  yet" (the sharded path is held in tests/test_torch_sharded.py); a mesh
+  on the batched path raises the reference's error.
 """
 import dataclasses
 import itertools
@@ -340,14 +342,19 @@ def test_request_scheduler_matches_reference():
 
 NOT_PORTED = (NotImplementedError, "not ported yet")
 UNPORTED = [
-    (dict(replicas=2), {}, NOT_PORTED), (dict(mesh=True), {}, NOT_PORTED),
-    (dict(path="sharded"), {}, NOT_PORTED),
+    # the sharded path runs; the distributed path's resources do not
+    (dict(replicas=2), dict(exchange=object()), NOT_PORTED),
+    (dict(mesh=True), dict(init_state={}), NOT_PORTED),
+    (dict(path="sharded"), dict(stream_offset=4), NOT_PORTED),
     (dict(distributed=True), {}, NOT_PORTED),
     # decode is ported: a classifier runtime under a decode config raises
     # the reference's type error
     (dict(workload="decode", max_new_tokens=2), {},
      (TypeError, "workload='decode' needs a DecodeRuntime")),
-    (dict(batch_size=8), dict(mesh=object()), NOT_PORTED),
+    # a mesh on the batched path: the reference's error
+    (dict(batch_size=8), dict(mesh=object()),
+     (ValueError, "an explicit mesh applies to the sharded/distributed "
+                  "paths; this config resolves to 'batched'")),
     (dict(batch_size=8), dict(exchange=object()), NOT_PORTED),
     (dict(batch_size=8), dict(init_state={}), NOT_PORTED),
     (dict(batch_size=8), dict(stream_offset=4), NOT_PORTED),
