@@ -71,7 +71,21 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    fused exits (all but the last batch overlapped), and an `Engine` (K =
    2) fed in ragged chunks (bit for bit the one-shot run), with samples/s,
    wall and device busy of sync, K = 1 and K = 2; one more replica than
-   the visible cards must raise;
+   the visible cards must raise; and, for ElasticBERT-12, the
+   distributed runtime (`serve(path="distributed")`): in this process
+   over the loopback exchange (sync and K = 1, each bit for bit the
+   sharded R = 1 run), then worker processes sharing this card (fresh
+   interpreters loading the kernels built here, one intra-op thread
+   each): a 3-process fault-tolerant cluster over a FileKV directory
+   (host 1 killed at round 2 and respawned: detection within the
+   heartbeat timeout plus a slack, exactly its slice of round 2 lost,
+   the rejoined worker's mirror equal to the survivors') and a 2-process
+   lockstep cluster over the TCPStore (sync, K = 1, K = 1 fused: mirrors
+   bit for bit, decisions equal to the one-process run's up to a first
+   exit flipped near alpha, each worker's launches those of its own
+   slices; then a run seeded with the merged state of the failure
+   round, which the survivors equal bit for bit until the rejoin), with
+   samples/s of each;
    then the same runs with full-width rwkv6-3b (32 layers, d 2560, vocab
    65536, bfloat16) and zamba2-1.2b at full width and 19 of its 38
    Mamba2 layers (d 2048, one shared attention + MLP block after every
@@ -328,6 +342,22 @@ ENCDEC_TOKENS = 32
 ENCDEC_SPLIT = 12
 ENCDEC_AGREE = (2, 4, 256)
 ENCDEC_AGREE_STEPS = 4
+# the distributed runtime on one card (`distributed_phase`): worker
+# processes of full-width ElasticBERT-12, each with its own CUDA context;
+# the fault-tolerant cluster kills host 1 at round DIST_KILL_EPOCH, paces
+# every round with a DIST_PACE_S sleep (so the respawned worker rejoins
+# before the stream ends), must detect the death within DIST_HB_TIMEOUT +
+# DIST_DETECT_SLACK_S, and respawns host 1, which asks to rejoin
+# DIST_REJOIN_DELAY_S after its model is up (so that some rounds run on
+# the two survivors alone); each cluster launch is cut at
+# DIST_CLUSTER_TIMEOUT_S
+DIST_HB_TIMEOUT = 3.0
+DIST_DETECT_SLACK_S = 2.0
+DIST_KILL_EPOCH = 2
+DIST_FT_HOSTS = 3
+DIST_PACE_S = 1.0
+DIST_REJOIN_DELAY_S = 4 * DIST_PACE_S
+DIST_CLUSTER_TIMEOUT_S = 150.0
 # the variant every launch of a decode run must take: attention at d 128
 # and the LM-head exits on the tensor cores, WKV6 on 16-byte rows
 DECODE_VARIANTS = {"dense": {"flash_attention": "tensor_core",
@@ -1986,7 +2016,8 @@ def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
     exits, and an `Engine` fed in ragged chunks (bitwise the one-shot
     K = 2 run); each run's launches held against its decisions. Prints
     samples/s, wall and device busy (torch.profiler over one more run) of
-    sync, K = 1 and K = 2. R above the visible cards must raise."""
+    sync, K = 1 and K = 2. R above the visible cards must raise. Returns
+    {run name: (report, wall seconds, wgmma rows)} of the five runs."""
     import numpy as np
     from repro_torch.data import OnlineStream
     from repro_torch.serving import (EdgeCloudRuntime, Engine, ServingConfig,
@@ -2091,6 +2122,383 @@ def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
         print(f"  replicas={over} on {over - 1} card(s) raises: {err}")
     else:
         fail(f"replicas={over} served on {over - 1} card(s)")
+    return out
+
+
+# one worker of `distributed_phase`'s clusters: a fresh interpreter that
+# loads the kernels the parent built, makes full-width ElasticBERT-12 from
+# the seed on cuda:0, warms up on its own batched path (no exchange round
+# spent) and serves each run of SPLITEE_SMOKE, printing a RESULT line
+DIST_WORKER = r'''
+import base64, itertools, json, os, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import get_config
+from repro_torch.core import CostModel
+from repro_torch.core.controller import state_from_bytes, state_to_bytes
+from repro_torch.data import OnlineStream, make_dataset
+from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                 variant_launch_counts)
+from repro_torch.models.api import build_model
+from repro_torch.serving import EdgeCloudRuntime, ServingConfig, serve
+from repro_torch.serving.distributed import (ft_serving_context,
+                                             init_distributed_from_env)
+
+spec = json.loads(os.environ["SPLITEE_SMOKE"])
+ft = spec["fault_tolerant"]
+if not ft:
+    init_distributed_from_env()
+dev = torch.device("cuda", 0)
+cfg = get_config("elasticbert12")
+params = build_model(cfg).init(seed=spec["seed"], device=dev)
+digest = sum(float(p.double().sum()) for p in params.parameters())
+data = make_dataset("imdb_like", spec["samples"], seed=1)
+cost = CostModel(num_layers=cfg.num_layers, alpha=spec["alpha"], offload=3.0)
+B = spec["batch_size"]
+serve(EdgeCloudRuntime(cfg, device=dev), params, OnlineStream(data, seed=0),
+      cost, ServingConfig(batch_size=B, max_samples=4 * B))
+torch.cuda.synchronize()
+exchange, init_state, skip = None, None, 0
+if ft:
+    # after the model is up: a respawned worker asks to rejoin only once
+    # it can serve, so no CUDA start-up stalls its first admitted round;
+    # and only after the survivors served some rounds without it
+    time.sleep(float(os.environ.get("SPLITEE_SMOKE_REJOIN_DELAY", "0")))
+    exchange, init_state, skip = ft_serving_context(
+        heartbeat_timeout=spec["heartbeat_timeout"])
+for run in spec["runs"]:
+    state, offset = init_state, skip
+    if "init_state_b64" in run:
+        state = state_from_bytes(base64.b64decode(run["init_state_b64"]))
+        offset = run["skip"]
+    config = ServingConfig(path="distributed", batch_size=B,
+                           overlap=run["overlap"], record_states=True,
+                           max_samples=spec["samples"] - offset)
+    rt = EdgeCloudRuntime(cfg, device=dev, fused_exit=run["fused"])
+    stream = itertools.islice(OnlineStream(data, seed=0), offset, None)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve(rt, params, stream, cost, config, exchange=exchange,
+                init_state=state, stream_offset=offset)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = out["distributed"]
+    print("RESULT " + json.dumps({
+        "name": run["name"], "host": d["host_id"], "hosts": d["num_hosts"],
+        "digest": digest, "n": out["n"], "skip": offset, "wall": wall,
+        "arms": out["arms"].tolist(), "exited": out["exited"].tolist(),
+        "samples_per_s": out["n"] / wall,
+        "preds": out["preds"].tolist(), "rewards": out["rewards"].tolist(),
+        "q": out["state"]["q"].tolist(), "n_state": out["state"]["n"].tolist(),
+        "t": out["state"]["t"], "offload_bytes": out["offload_bytes"],
+        "cost_total": out["cost_total"],
+        "states": [base64.b64encode(state_to_bytes(s)).decode()
+                   for s in out["states"]],
+        "state_walls": [s["wall"] for s in out["states"]],
+        "lost": d.get("lost_samples"), "reconf": d.get("reconfigurations"),
+        "members_final": d.get("members_final"),
+        "launches": launch_counts(),
+        "variants": {k: v for k, v in variant_launch_counts().items() if v},
+    }), flush=True)
+'''
+
+
+def run_cluster(name, hosts: int, spec, extra_env=None, **supervisor):
+    """One launch of `DIST_WORKER` as a ``hosts``-process cluster
+    (`run_supervised_cluster`, cut at DIST_CLUSTER_TIMEOUT_S). Returns
+    the report, {slot: [RESULT dicts]} of the final incarnations and the
+    launch's wall seconds; fails on a worker that exited non-zero."""
+    from repro_torch.serving.distributed import run_supervised_cluster
+    env = {"PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
+           "SPLITEE_SMOKE": json.dumps(spec)}
+    env.update(extra_env or {})
+    t0 = time.perf_counter()
+    rep = run_supervised_cluster(DIST_WORKER, hosts, env=env, cwd=str(ROOT),
+                                 timeout=DIST_CLUSTER_TIMEOUT_S, **supervisor)
+    wall = time.perf_counter() - t0
+    results = {}
+    for slot, proc in enumerate(rep.completed):
+        if proc.returncode != 0:
+            fail(f"{name}: worker {slot} exited {proc.returncode}:\n"
+                 f"{proc.stderr[-4000:]}")
+        results[slot] = [json.loads(line[len("RESULT "):])
+                         for line in proc.stdout.splitlines()
+                         if line.startswith("RESULT ")]
+        if len(results[slot]) != len(spec["runs"]):
+            fail(f"{name}: worker {slot} printed {len(results[slot])} "
+                 f"results for {len(spec['runs'])} runs:\n"
+                 f"{proc.stdout[-2000:]}")
+    print(f"  {name}: {hosts} processes in {wall:.1f} s wall (start-up, "
+          f"model build and warm-up included); incidents "
+          f"{[(i.kind, i.slot, i.returncode, i.at) for i in rep.incidents]}")
+    return rep, results, wall
+
+
+def same_mirrors(name, a, b):
+    """Two workers' results of one run: the same global result bit for
+    bit (every host folds the identical gathered summaries)."""
+    for key in ("arms", "exited", "preds", "rewards", "q", "n_state", "t",
+                "states", "offload_bytes", "cost_total"):
+        if a[key] != b[key]:
+            fail(f"{name}: hosts {a['host']} and {b['host']} differ in "
+                 f"{key}")
+
+
+def check_slice_launches(name, res, cfg, fused: bool):
+    """A worker's launches equal what its own slices' decisions need
+    (`expected_launches` over each micro-batch's slice), all through the
+    variants SERVE_VARIANTS names."""
+    import numpy as np
+    from repro_torch.serving.sharded import _shard_sizes
+    want = {k: 0 for k in MAIN_PATH}
+    hosts, host = res["hosts"], res["host"]
+    for i in range(0, len(res["arms"]), SERVE_BATCH):
+        arms = np.asarray(res["arms"][i:i + SERVE_BATCH])
+        exited = np.asarray(res["exited"][i:i + SERVE_BATCH])
+        sizes = _shard_sizes(len(arms), hosts)
+        lo = sum(sizes[:host])
+        if not sizes[host]:
+            continue
+        got, _, _ = expected_launches(arms[lo:lo + sizes[host]],
+                                      exited[lo:lo + sizes[host]],
+                                      sizes[host], cfg, fused)
+        want = {k: want[k] + got[k] for k in want}
+    if res["launches"] != want:
+        fail(f"{name} host {host}: kernel launches {res['launches']}, but "
+             f"its slices' decisions need {want}")
+    for kname, variant in SERVE_VARIANTS[cfg.family].items():
+        if res["variants"].get(f"{kname}/{variant}", 0) != \
+                res["launches"][kname]:
+            fail(f"{name} host {host}: {res['launches'][kname]} launches "
+                 f"of {kname}, not all through {variant}: "
+                 f"{res['variants']}")
+    return want
+
+
+def first_difference(torch, name, got, ref, params, cfg, samples, alpha):
+    """``got``'s decisions equal ``ref``'s up to the first differing one,
+    which may only be an exit flipped at an unchanged arm, by a sample
+    whose confidence there (the card's, served alone) lies within
+    PRED_TIE_GAP["bfloat16"] of alpha. Prints how many differ."""
+    import numpy as np
+    from repro_torch.models.transformer import forward_exits
+    arms_a, arms_b = np.asarray(got["arms"]), np.asarray(ref["arms"])
+    diff = np.nonzero((arms_a != arms_b) | (np.asarray(got["exited"])
+                                            != np.asarray(ref["exited"])))[0]
+    msg = (f"    {name}: decisions differing from the one-process run: "
+           f"{len(diff)} of {len(arms_b)}")
+    if len(diff):
+        s = int(diff[0])
+        if arms_a[s] != arms_b[s]:
+            fail(f"{name}: the first differing decision (sample {s}) is an "
+                 f"arm {arms_a[s]} vs {arms_b[s]}, not an exit flip")
+        tokens = torch.as_tensor(np.asarray(samples[s]["tokens"])[None],
+                                 device=params["embed"].device)
+        conf = float(forward_exits(params, cfg, {"tokens": tokens})
+                     ["conf"][int(arms_b[s]), 0])
+        gap = abs(conf - alpha)
+        msg += (f"; the first, sample {s}, an exit flipped at arm "
+                f"{int(arms_b[s])}, confidence {conf:.6f}, {gap:.3e} from "
+                f"alpha")
+        if not gap < PRED_TIE_GAP["bfloat16"]:
+            fail(f"{name}: sample {s}'s exit flipped {gap:.3e} from alpha, "
+                 f"not within {PRED_TIE_GAP['bfloat16']}")
+    print(msg)
+
+
+def distributed_phase(torch, dev, runs: Runs, params, cfg, data, cost,
+                      sharded, seed: int = 0):
+    """The distributed runtime (`serve(path="distributed")`) on the card.
+
+    1. One process, loopback exchange, in this process: overlap off and
+       K = 1, each bit for bit the sharded R = 1 run of the same config
+       (``sharded``, from `sharded_phase`); launches held as every run's.
+    2. A fault-tolerant cluster of DIST_FT_HOSTS worker processes over a
+       FileKV directory: host 1 killed at round DIST_KILL_EPOCH,
+       respawned, rejoining. Detection within DIST_HB_TIMEOUT +
+       DIST_DETECT_SLACK_S, exactly host 1's slice of the failure epoch
+       lost (pred -1), the survivors' mirrors equal, the joiner's equal
+       to theirs from its first round on.
+    3. Two worker processes in lockstep over the TCPStore process 0
+       serves: sync, K = 1 and K = 1 fused (mirrors bit for bit; the
+       one-process run's decisions up to the first, which may only be an
+       exit flipped near alpha; each worker's launches those of its own
+       slices), then a run seeded with the fault-tolerant cluster's
+       merged state at the failure epoch: from the next epoch until the
+       rejoin the survivors' per-batch states equal it bit for bit.
+    Workers share this card (each its own CUDA context, one intra-op
+    thread), load the kernels this process built, and make the weights
+    from ``seed``; alpha comes through the environment."""
+    import tempfile
+
+    from repro_torch.data import OnlineStream
+    from repro_torch.serving import EdgeCloudRuntime, ServingConfig, serve
+    from repro_torch.serving.faults import FAULT_KILL_EXIT
+    from repro_torch.serving.sharded import _shard_sizes
+
+    t_phase = time.perf_counter()
+    B, n_samples = SERVE_BATCH, len(data["tokens"])
+    digest = sum(float(p.double().sum()) for p in params.parameters())
+    samples = list(OnlineStream(data, seed=0))
+
+    # 1. one process, loopback exchange
+    base = ServingConfig(path="distributed", batch_size=B)
+    local = {}
+    for name, config, equal_to in (
+            ("distributed H=1 sync", dataclasses.replace(base, overlap=False),
+             "sharded R=1 sync"),
+            ("distributed H=1 K=1", base, "sharded R=1 K=1")):
+        rt = EdgeCloudRuntime(cfg, device=dev)
+        rep, _, _ = local[name] = runs.run(
+            torch, name, lambda: serve(rt, params, OnlineStream(data, seed=0),
+                                       cost, config),
+            cfg, batch_size=B)
+        if rep.path != "distributed" or rep.distributed != {
+                "num_hosts": 1, "host_id": 0, "local_replicas": 1}:
+            fail(f"{name}: served by {rep.path}, {rep.distributed}")
+        same_run(name, rep, sharded[equal_to][0])
+        print(f"    == {equal_to} bit for bit (arms, exits, preds, rewards, "
+              f"offload bytes, cost, controller state)")
+    sync_rate = n_samples / local["distributed H=1 sync"][1]
+
+    spec = {"seed": seed, "alpha": cost.alpha, "samples": n_samples,
+            "batch_size": B, "heartbeat_timeout": DIST_HB_TIMEOUT}
+
+    # 2. fault tolerance: kill host 1 at DIST_KILL_EPOCH, respawn, rejoin
+    kv_root = ROOT / "build"
+    kv_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="splitee-kv-",
+                                     dir=kv_root) as kv_dir:
+        rep, res, ft_wall = run_cluster(
+            f"fault-tolerant cluster over FileKV, kill:host=1,"
+            f"epoch={DIST_KILL_EPOCH}",
+            DIST_FT_HOSTS, dict(spec, fault_tolerant=True, runs=[
+                {"name": "ft", "overlap": False, "fused": False}]),
+            {"SPLITEE_KV_DIR": kv_dir,
+             "SPLITEE_FAULTS": f"kill:host=1,epoch={DIST_KILL_EPOCH};"
+                               f"sleep:host=*,epoch=*,secs={DIST_PACE_S}"},
+            coordinator=False, fail_fast=False, respawn=True,
+            max_respawns=1, respawn_env={
+                "SPLITEE_SMOKE_REJOIN_DELAY": str(DIST_REJOIN_DELAY_S)})
+    kinds = [(i.kind, i.slot, i.returncode) for i in rep.incidents]
+    if kinds != [("exit", 1, FAULT_KILL_EXIT), ("respawn", 1,
+                                                FAULT_KILL_EXIT)]:
+        fail(f"fault-tolerant cluster: incidents {kinds}, want host 1's "
+             f"injected exit ({FAULT_KILL_EXIT}) and one respawn")
+    a0, joiner, a2 = res[0][0], res[1][0], res[2][0]
+    for r in (a0, joiner, a2):
+        if r["digest"] != digest:
+            fail(f"host {r['host']}'s weights differ from this process's")
+    same_mirrors("fault-tolerant survivors", a0, a2)
+    removed = [c for c in a0["reconf"] if c["removed"]]
+    joined = [c for c in a0["reconf"] if c["joined"]]
+    if (len(removed) != 1 or removed[0]["round"] != DIST_KILL_EPOCH
+            or removed[0]["removed"] != [1] or len(joined) != 1
+            or joined[0]["joined"] != [1]):
+        fail(f"fault-tolerant cluster: reconfigurations {a0['reconf']}")
+    detect = removed[0]["detect_s"]
+    if not detect <= DIST_HB_TIMEOUT + DIST_DETECT_SLACK_S:
+        fail(f"detection took {detect} s, over heartbeat_timeout "
+             f"{DIST_HB_TIMEOUT} + {DIST_DETECT_SLACK_S} s")
+    first = joined[0]["round"] + 1                 # its active_from (sync)
+    lo = sum(_shard_sizes(B, DIST_FT_HOSTS)[:1])
+    lost_rows = list(range(DIST_KILL_EPOCH * B + lo,
+                           DIST_KILL_EPOCH * B + lo
+                           + _shard_sizes(B, DIST_FT_HOSTS)[1]))
+    if (a0["lost"] != len(lost_rows)
+            or [i for i, p in enumerate(a0["preds"]) if p == -1]
+            != lost_rows):
+        fail(f"lost {a0['lost']} samples, preds -1 at "
+             f"{[i for i, p in enumerate(a0['preds']) if p == -1]}; want "
+             f"exactly host 1's slice of epoch {DIST_KILL_EPOCH}: "
+             f"{lost_rows}")
+    if (joiner["skip"] != first * B or joiner["n"] != n_samples - first * B
+            or joiner["states"] != a0["states"][first:]
+            or joiner["preds"] != a0["preds"][first * B:]
+            or any(joiner[k] != a0[k] for k in ("q", "n_state", "t"))
+            or a0["members_final"] != [0, 1, 2]):
+        fail(f"the respawned host 1 (skip {joiner['skip']}, first round "
+             f"{first}) does not mirror the survivors from its first round")
+    walls = a0["state_walls"]
+    print(f"  fault tolerance ({DIST_FT_HOSTS} processes, B = {B}, pace "
+          f"{DIST_PACE_S} s a round, heartbeat_timeout {DIST_HB_TIMEOUT} "
+          f"s): host 1 killed at round {DIST_KILL_EPOCH}, detected in "
+          f"{detect:.3f} s (bound {DIST_HB_TIMEOUT + DIST_DETECT_SLACK_S}); "
+          f"the failure round folded "
+          f"{walls[DIST_KILL_EPOCH] - walls[DIST_KILL_EPOCH - 1]:.3f} s after "
+          f"the round before; lost {a0['lost']} samples (host 1's slice "
+          f"of round {DIST_KILL_EPOCH}); the respawned host 1 rejoined at "
+          f"round {first} (skip {joiner['skip']}), its first fold "
+          f"{joiner['state_walls'][0] - walls[DIST_KILL_EPOCH]:.3f} s after "
+          f"the failure round's, its mirror == the survivors' over "
+          f"{len(joiner['states'])} rounds; survivors "
+          f"{a0['samples_per_s']:.1f} samples/s (paced)")
+
+    # 3. lockstep over the TCPStore, and the seeded invariant run
+    seeded = {"name": "seeded", "overlap": False, "fused": False,
+              "init_state_b64": a0["states"][DIST_KILL_EPOCH],
+              "skip": (DIST_KILL_EPOCH + 1) * B}
+    lock_runs = [{"name": "sync", "overlap": False, "fused": False},
+                 {"name": "K=1", "overlap": True, "fused": False},
+                 {"name": "K=1 fused_exit", "overlap": True, "fused": True},
+                 seeded]
+    _, res, lock_wall = run_cluster(
+        "lockstep cluster over the TCPStore", 2,
+        dict(spec, fault_tolerant=False, runs=lock_runs))
+    refs = {"sync": local["distributed H=1 sync"][0],
+            "K=1": local["distributed H=1 K=1"][0],
+            "K=1 fused_exit": sharded["sharded R=1 K=1 fused_exit"][0]}
+    served = 0
+    for i, run in enumerate(lock_runs):
+        h0, h1 = res[0][i], res[1][i]
+        name = f"distributed H=2 {run['name']}"
+        for r in (h0, h1):
+            if r["digest"] != digest or r["hosts"] != 2:
+                fail(f"{name}: host {r['host']} of {r['hosts']}: weights "
+                     f"differ or not a 2-host run")
+        same_mirrors(name, h0, h1)
+        served += h0["n"]
+        print(f"  {name}: {h0['n']} samples, host 0 "
+              f"{h0['samples_per_s']:.1f} / host 1 {h1['samples_per_s']:.1f}"
+              f" samples/s; mirrors "
+              f"equal bit for bit; launches host 0 {h0['launches']}, host 1 "
+              f"{h1['launches']}")
+        if run["name"] == "seeded":
+            continue
+        for r in (h0, h1):
+            check_slice_launches(name, r, cfg, run["fused"])
+        print("    each host's launches == its slices' decisions")
+        first_difference(torch, name, h0, refs[run["name"]], params, cfg,
+                         samples, cost.alpha)
+
+    # the invariant: from the epoch after the failure until the rejoin,
+    # the survivors == the 2-process run seeded with the merged state
+    inv = res[0][-1]
+    rounds = first - (DIST_KILL_EPOCH + 1)
+    if rounds < 1:
+        fail(f"host 1 rejoined at round {first}: no round between the "
+             f"failure and the rejoin to hold the invariant on")
+    lo_hist = (DIST_KILL_EPOCH + 1) * B - a0["lost"]
+    rows = rounds * B
+    if (a0["states"][DIST_KILL_EPOCH + 1:first] != inv["states"][:rounds]
+            or any(a0[k][lo_hist:lo_hist + rows] != inv[k][:rows]
+                   for k in ("arms", "exited", "rewards"))
+            or a0["preds"][(DIST_KILL_EPOCH + 1) * B:first * B]
+            != inv["preds"][:rows]):
+        fail(f"the survivors' rounds {DIST_KILL_EPOCH + 1}..{first - 1} "
+             f"differ from the 2-process run seeded with the merged state "
+             f"of round {DIST_KILL_EPOCH}")
+    print(f"  invariant: survivors' rounds {DIST_KILL_EPOCH + 1}..{first - 1}"
+          f" ({rounds} rounds: per-batch q, n, t, arms, exits, rewards, "
+          f"preds) == the 2-process run seeded with round "
+          f"{DIST_KILL_EPOCH}'s merged state, bit for bit")
+    print(f"  samples/s: one process (loopback) sync {sync_rate:.1f}; "
+          f"lockstep cluster {served / lock_wall:.1f} over its launch "
+          f"({served} samples of 4 runs in {lock_wall:.1f} s, start-up "
+          f"included), workers' own above; fault-tolerant cluster "
+          f"{n_samples / ft_wall:.1f} over its launch ({ft_wall:.1f} s)")
+    print(f"  distributed phase: {time.perf_counter() - t_phase:.1f} s wall")
 
 
 def decision_difference(prefix, a, b, alpha, names=("bucketed", "scan")):
@@ -3949,8 +4357,13 @@ def main(argv=None) -> int:
         if arch != HYBRID:
             with phase(f"sharded: {arch} serve(path='sharded') at R=1, "
                        f"sync and overlap K=1/2, Engine"):
-                sharded_phase(torch, dev, runs, params, cfg, data, cost,
-                              bucketed, scan, prefix)
+                sharded = sharded_phase(torch, dev, runs, params, cfg, data,
+                                        cost, bucketed, scan, prefix)
+        if arch == "elasticbert12":
+            with phase(f"distributed: {arch} serve(path='distributed'), one "
+                       f"process and worker-process clusters on this card"):
+                distributed_phase(torch, dev, runs, params, cfg, data, cost,
+                                  sharded)
         with phase(f"agreement: {arch}, card kernel path vs CPU plain "
                    f"path"):
             agree(torch, dev, params, cfg, data)

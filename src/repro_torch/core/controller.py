@@ -377,8 +377,8 @@ class SplitEEController:
         same global sample order the single-process sharded runtime
         folds, so the policy is invariant to how samples are split across
         hosts AND replicas. Every host calls this with the identical
-        gathered summaries (the distributed runtime, not ported yet,
-        all-gathers them host-side), keeping all local controller
+        gathered summaries (serving/distributed.py all-gathers them
+        host-side), keeping all local controller
         mirrors bit-identical without any device collective: the bandit
         state is O(L) host-side scalars by design.
 

@@ -10,10 +10,11 @@
   batched and sharded paths (bucketed, scan or auto edge phase, any
   offload codec; the sharded runtime over R replicas of a ``mesh`` with
   the depth-K offload pipeline) and the decode runtime
-  (``workload="decode"``, serving/decode.py); a config that resolves to
-  the distributed runtime, or an ``exchange``/``init_state``/
-  ``stream_offset``, passes validation and then raises
-  ``NotImplementedError`` — it never falls back to another path.
+  (``workload="decode"``, serving/decode.py) and the distributed runtime
+  (serving/distributed.py: one process of a cluster, its batch slice and
+  the host-side exchange; ``exchange``/``init_state``/``stream_offset``
+  are its runtime resources, and another path refuses them with the
+  reference's error).
 * `Engine` — a push-session over the same controller/queue machinery:
   `submit(samples)` / `drain()` / `close()`. A push-session over the same
   samples is bit-identical to the one-shot `serve()` call; with
@@ -39,6 +40,7 @@ from repro_torch.serving.batched import (_BatchedSession,
                                          _serve_stream_batched)
 from repro_torch.serving.decode import (DecodeRuntime, _DecodeSession,
                                         _serve_stream_decode)
+from repro_torch.serving.distributed import _serve_stream_distributed
 from repro_torch.serving.offload_codec import (QUANT_MODES, OffloadCodec,
                                                codec_from_fields)
 from repro_torch.serving.scheduler import (SCHEDULERS, SHED_POLICIES,
@@ -560,15 +562,6 @@ def _controller_kwargs(config: ServingConfig) -> Optional[Dict[str, Any]]:
         record_history=config.record_history)
 
 
-NOT_PORTED_PATHS = ("distributed",)
-
-
-def _not_ported(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {path} serving path: not ported yet (the port serves the "
-        f"sequential, batched and sharded paths)")
-
-
 def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
           config: Optional[ServingConfig] = None, *,
           mesh=None, exchange=None, init_state=None,
@@ -581,15 +574,23 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
     path reads its last flushes back at its drain), so the device work is
     inside it.
 
-    ``mesh`` is an explicit `launch.mesh.ServingMesh` with a "data" axis
-    for the sharded path (without one, the sharded path builds a 1-D mesh
-    of ``config.replicas`` replicas on the runtime's device); a mesh on
-    another path raises the reference's ``ValueError``. ``exchange``,
-    ``init_state`` and ``stream_offset`` are runtime resources of the
-    distributed path, which is not ported: passing one raises
-    ``NotImplementedError``, as does a config that resolves to it. A
-    `DecodeRuntime` needs a decode config (``workload="decode"``), and a
-    decode config needs a `DecodeRuntime`.
+    Keyword-only arguments carry *runtime resources* that cannot live in
+    a JSON config:
+
+    ``mesh``           explicit `launch.mesh.ServingMesh` with a "data"
+                       axis (sharded / distributed paths; without one they
+                       build a 1-D mesh of ``config.replicas`` replicas on
+                       the runtime's device). A mesh on another path
+                       raises the reference's ``ValueError``.
+    ``exchange``       cross-host transport override (distributed path).
+    ``init_state``     controller snapshot to restore before serving —
+                       the distributed rejoin path.
+    ``stream_offset``  samples the caller already consumed (rejoin).
+
+    ``exchange``/``init_state``/``stream_offset`` on another path raise
+    the reference's ``ValueError``. A `DecodeRuntime` needs a decode
+    config (``workload="decode"``), and a decode config needs a
+    `DecodeRuntime`.
 
     Any extra keyword arguments are `ServingConfig` field overrides:
     ``serve(rt, p, s, c, batch_size=32)`` replaces the field on the
@@ -610,12 +611,11 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
             f"an explicit mesh applies to the sharded/distributed paths; "
             f"this config resolves to {path!r} (set replicas/mesh/"
             f"distributed on the config)")
-    if exchange is not None or init_state is not None or stream_offset:
-        raise NotImplementedError(
-            "exchange/init_state/stream_offset belong to the distributed "
-            "path: not ported yet")
-    if path in NOT_PORTED_PATHS:
-        raise _not_ported(path)
+    if (exchange is not None or init_state is not None or stream_offset) \
+            and path != "distributed":
+        raise ValueError(
+            f"exchange/init_state/stream_offset belong to the "
+            f"distributed path; this config resolves to {path!r}")
     if config.scheduler != "none":
         # the request scheduler lives behind the Engine session; replay
         # the offline stream through one (over a steady trace with no
@@ -653,7 +653,7 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
                                     record_trace=config.record_trace,
                                     edge_mode=config.edge_mode,
                                     **common)
-    else:
+    elif path == "sharded":
         raw = _serve_stream_sharded(runtime, params, stream, cost,
                                     batch_size=config.batch_size,
                                     replicas=config.replicas, mesh=mesh,
@@ -662,6 +662,17 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
                                     record_trace=config.record_trace,
                                     edge_mode=config.edge_mode,
                                     **common)
+    else:
+        raw = _serve_stream_distributed(
+            runtime, params, stream, cost,
+            batch_size=config.batch_size, replicas=config.replicas,
+            mesh=mesh, overlap=config.overlap,
+            overlap_depth=config.overlap_depth, exchange=exchange,
+            fault_tolerant=config.fault_tolerant,
+            heartbeat_timeout=config.heartbeat_timeout,
+            heartbeat_interval=config.heartbeat_interval,
+            init_state=init_state, stream_offset=stream_offset,
+            record_states=config.record_states, **common)
     wall = time.perf_counter() - t0
     return ServeReport.from_raw(raw, path=path,
                                 num_layers=cost.num_layers, wall_s=wall)

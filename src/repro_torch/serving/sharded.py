@@ -227,6 +227,8 @@ class _BatchCtx:
     pending: Any                      # PendingFlush
     start: int = 0                    # global round index of first sample
     overlapped: bool = False
+    # distributed runtime: the hosts this batch was sliced over
+    members: Optional[List[int]] = None
 
 
 class _PipelineDriver:
@@ -329,8 +331,7 @@ def _serve_result(ctl: SplitEEController, *, n: int, batch_size: int,
                   replicas: int, preds, correct, overlap: bool,
                   overlap_depth: int, batches: int,
                   overlapped: int) -> Dict[str, Any]:
-    """Result dict of the sharded runtime (and of the distributed one,
-    once ported)."""
+    """Result dict of the sharded runtime (and of the distributed one)."""
     hist = {k: np.asarray(v) for k, v in ctl.history.items()}
     tot = ctl.totals
     out = {

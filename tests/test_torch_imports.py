@@ -98,3 +98,18 @@ def test_launch_counts_cover_every_kernel():
     assert launch_counts() == {"flash_attention": 0, "exit_confidence": 0,
                                "exit_confidence_fused": 0, "wkv6": 0}
     assert all(Path(s).exists() for s in SOURCES)
+
+
+DISTRIBUTED = ("serving/kvstore.py", "serving/faults.py",
+               "serving/distributed.py")
+
+
+@pytest.mark.parametrize("name", DISTRIBUTED)
+def test_distributed_modules_are_scanned_and_use_no_collective(name):
+    """The distributed runtime's modules are among the scanned files, and
+    exchange host-side bytes only: no process group, no NCCL."""
+    path = PORT / name
+    assert path in FILES
+    source = path.read_text()
+    for word in ("init_process_group", "nccl", "NCCL", "all_gather("):
+        assert word not in source, f"{name} mentions {word}"

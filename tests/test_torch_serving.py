@@ -141,22 +141,34 @@ def test_offload_bytes_follow_activation_dtype():
 
 
 def test_unported_options_raise():
-    """The options that stay unported raise through `serve()` rather than
-    fall back: distributed serving and its runtime resources (``exchange``,
-    ``init_state``, ``stream_offset``). (The scan edge phase, the offload
-    codec, decode and the sharded path with ``replicas``/``mesh`` are
-    ported: tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py,
-    tests/test_torch_decode_serving.py, tests/test_torch_sharded.py.)"""
-    tcfg = t_get_smoke_config("elasticbert12")
+    """Nothing behind `serve()` is unported any more, and nothing falls
+    back: the distributed path's runtime resources (``exchange``,
+    ``init_state``, ``stream_offset``) on another path raise the
+    reference's ``ValueError``, and a distributed config serves (here
+    one process over an empty stream: nothing served, nothing folded).
+    (The scan edge phase, the offload codec, decode, the sharded and the
+    distributed paths are held against the reference in
+    tests/test_torch_scan_edge.py, tests/test_torch_offload_codec.py,
+    tests/test_torch_decode_serving.py, tests/test_torch_sharded.py and
+    tests/test_torch_distributed.py.)"""
+    tcfg = dataclasses.replace(t_get_smoke_config("elasticbert12"),
+                               num_layers=1, dtype="float32")
     rt = EdgeCloudRuntime(tcfg, device="cpu")
     cost = CostModel(num_layers=tcfg.num_layers)
-    for config, resources in (
-            (ServingConfig(distributed=True), {}),
-            (ServingConfig(batch_size=8), {"exchange": object()}),
-            (ServingConfig(batch_size=8, replicas=2), {"init_state": {}}),
-            (ServingConfig(batch_size=8), {"stream_offset": 3})):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    for config, resources, path in (
+            (ServingConfig(batch_size=8), {"exchange": object()}, "batched"),
+            (ServingConfig(batch_size=8, replicas=2), {"init_state": {}},
+             "sharded"),
+            (ServingConfig(batch_size=8), {"stream_offset": 3}, "batched")):
+        with pytest.raises(ValueError, match=(
+                f"exchange/init_state/stream_offset belong to the "
+                f"distributed path; this config resolves to '{path}'")):
             serve(rt, None, [], cost, config, **resources)
+    rep = serve(rt, t_init_params(tcfg, seed=0, device="cpu"), [], cost,
+                ServingConfig(distributed=True))
+    assert rep.path == "distributed" and rep.n == 0
+    assert rep.distributed == {"num_hosts": 1, "host_id": 0,
+                               "local_replicas": 1}
 
 
 def test_offload_queue_padding_and_flush():

@@ -14,13 +14,16 @@
   rwkv6) equals the reference's, scheduler section included, under the
   same fake clock; `RequestScheduler` equals the reference's over a
   random trace of offers, polls and flushes;
-* the unported distributed path and its resources raise "not ported
-  yet" (the sharded path is held in tests/test_torch_sharded.py); a mesh
-  on the batched path raises the reference's error.
+* a distributed config serves as the reference's; its resources
+  (``exchange``/``init_state``/``stream_offset``) on another path raise
+  the reference's error, and so does a mesh on the batched path (the
+  sharded path is held in tests/test_torch_sharded.py, the distributed
+  one in tests/test_torch_distributed.py).
 """
 import dataclasses
 import itertools
 import json
+import re
 import warnings
 
 import jax
@@ -340,13 +343,17 @@ def test_request_scheduler_matches_reference():
     assert got.shed > 0 and got.served > 0
 
 
-NOT_PORTED = (NotImplementedError, "not ported yet")
+# the reference's own exception and message for the same call
+AS_REFERENCE = "as the reference"
+# the call serves, and its report matches the reference's
+SERVES = "serves"
 UNPORTED = [
-    # the sharded path runs; the distributed path's resources do not
-    (dict(replicas=2), dict(exchange=object()), NOT_PORTED),
-    (dict(mesh=True), dict(init_state={}), NOT_PORTED),
-    (dict(path="sharded"), dict(stream_offset=4), NOT_PORTED),
-    (dict(distributed=True), {}, NOT_PORTED),
+    # the distributed path's runtime resources on the sharded path
+    (dict(replicas=2), dict(exchange=object()), AS_REFERENCE),
+    (dict(mesh=True), dict(init_state={}), AS_REFERENCE),
+    (dict(path="sharded"), dict(stream_offset=4), AS_REFERENCE),
+    # the distributed path serves (one process: the loopback exchange)
+    (dict(distributed=True), {}, SERVES),
     # decode is ported: a classifier runtime under a decode config raises
     # the reference's type error
     (dict(workload="decode", max_new_tokens=2), {},
@@ -355,17 +362,36 @@ UNPORTED = [
     (dict(batch_size=8), dict(mesh=object()),
      (ValueError, "an explicit mesh applies to the sharded/distributed "
                   "paths; this config resolves to 'batched'")),
-    (dict(batch_size=8), dict(exchange=object()), NOT_PORTED),
-    (dict(batch_size=8), dict(init_state={}), NOT_PORTED),
-    (dict(batch_size=8), dict(stream_offset=4), NOT_PORTED),
+    (dict(batch_size=8), dict(exchange=object()), AS_REFERENCE),
+    (dict(batch_size=8), dict(init_state={}), AS_REFERENCE),
+    (dict(batch_size=8), dict(stream_offset=4), AS_REFERENCE),
 ]
 
 
 @pytest.mark.parametrize("kwargs,resources,expect", UNPORTED)
 def test_unported_paths_raise(bed, kwargs, resources, expect):
+    """The cases that raised "not ported yet" before the distributed path
+    was ported: its resources on another path raise the reference's
+    ``ValueError`` (checked against the reference's own call), and a
+    distributed config serves as the reference's."""
     b = bed["elasticbert12"]
     config = ServingConfig(**kwargs)
-    exc, match = expect
+    if expect == SERVES:
+        got = serve(b["trt"], b["tp"], _streams()[1], b["tcost"], config,
+                    **resources)
+        ref = jserve(b["jrt"], b["jp"], _streams()[0], b["jcost"],
+                     JConfig(**kwargs), **resources)
+        assert got.path == ref.path == "distributed"
+        _assert_reports_match(got, ref)
+        return
+    if expect == AS_REFERENCE:
+        with pytest.raises(Exception) as err:
+            jserve(b["jrt"], b["jp"], _streams()[0], b["jcost"],
+                   JConfig(**kwargs), **resources)
+        exc, match = type(err.value), re.escape(str(err.value))
+        assert exc is ValueError
+    else:
+        exc, match = expect
     with pytest.raises(exc, match=match):
         serve(b["trt"], b["tp"], _streams()[1], b["tcost"], config,
               **resources)

@@ -703,13 +703,14 @@ def test_cuda_mesh_raises_on_a_cpu_only_host():
 
 def test_engine_refuses_the_distributed_runtime_as_reference(bed):
     """`Engine` on a distributed config raises the reference's error;
-    `serve()` on it still raises "not ported yet"."""
+    `serve()` on it serves (one process, held in
+    tests/test_torch_distributed.py)."""
     b = bed["elasticbert12"]
     config = dict(distributed=True)
     _raises_like(lambda: JEngine(b["jrt"], b["jp"], b["jcost"],
                                  JConfig(**config)),
                  lambda: Engine(b["trt"], b["tp"], b["tcost"],
                                 ServingConfig(**config)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve(b["trt"], b["tp"], _streams()[1], b["tcost"],
-              ServingConfig(**config))
+    rep = serve(b["trt"], b["tp"], _streams()[1], b["tcost"],
+                ServingConfig(**config))
+    assert rep.path == "distributed" and rep.n == N_SAMPLES
