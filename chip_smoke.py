@@ -176,10 +176,24 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    confidence near alpha), so the same decision checks run again on the
    recipe's first EARLY_STEPS steps, where at least MIN_NEAR_ALPHA served
    confidences must lie within 1 % of alpha;
-8. prints one JSON line of per-kernel numbers (``launches`` from the run
+8. trains full-width ElasticBERT-12 (the training configuration above)
+   under model parallelism (`model_parallel_phase`): 3 steps unbound,
+   at TP = 1 on a (1, 1) ("data", "model") mesh over an NCCL world of 1
+   and at TP = 2 on a (1, 2) mesh of two ranks sharing the card (threads
+   of this process over the threaded process group), `seq_parallel` on
+   and off, each held to the unbound run (losses, step-0 gradients,
+   parameters) with its attention launches and the kernel's q shape (the
+   local head shard, forward and `FlashAttention`'s backward); times the
+   kernel and `attention_backward` at the TP = 2 shard; meanwhile runs
+   `repro_torch.launch.dryrun` for qwen3-1.7b x train_4k and
+   mixtral-8x22b x decode_32k on the fake (16, 16) mesh (two
+   subprocesses on the host, started with the phase) and prints their
+   per-device numbers;
+9. prints one JSON line of per-kernel numbers (``launches`` from the run
    named in MAIN_PATH, ``launches_by_path``, ``launches_by_variant`` and,
    for the exit kernels, ``launches_by_tile`` from every run; attention's
-   ``at_training`` entry the training shape), then the
+   ``at_training`` entry the training shape, ``at_tp2_train`` the TP = 2
+   shard), then the
    final line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the final
@@ -191,6 +205,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import platform
 import re
 import subprocess
@@ -4256,6 +4271,350 @@ def train_phase(torch, dev, runs: Runs):
     return rec
 
 
+# ------------------------------------------------------ model parallelism
+
+MP_STEPS = 3                # train steps of each model-parallel run
+MP_TP2 = 2                  # ranks of the threaded run sharing the card
+MP_DRYRUN = (("qwen3-1.7b", "train_4k"), ("mixtral-8x22b", "decode_32k"))
+MP_DRYRUN_TIMEOUT_S = 300
+# model-parallel vs unbound, f32 round-off of other reduction orders:
+# losses at MP_LOSS_RTOL, step-0 gradients at MP_GRAD_RTOL (max |err|
+# over max |unbound| per leaf), the parameters after MP_STEPS steps
+# within TRAIN_PARAM_ATOL where the step-0 |grad| > GRAD_FLOOR
+MP_LOSS_RTOL = 1e-5
+MP_GRAD_RTOL = 1e-4
+MP_STEP_MS = []             # each `mp_steps` call's ms a step (read by mp_counted)
+
+
+def mp_steps(torch, dev, cfg, params0, batches, mesh=None, seq_parallel=True):
+    """MP_STEPS `make_train_step` steps of ``cfg`` from a copy of
+    ``params0`` (a parameter tree on ``dev``): unbound, or as ``DTensor``s
+    placed on ``mesh`` by `param_shardings` under `mesh_rules`, with
+    ``seq_parallel`` as given. Appends its ms a step to MP_STEP_MS.
+    Returns (losses, step-0 gradients, final parameters), the last two
+    whole on every rank."""
+    from repro_torch.launch.mesh import AXIS_MAP_SINGLE
+    from repro_torch.launch.shardings import (batch_shardings,
+                                              distribute_tree,
+                                              param_shardings)
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import ParamTree
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.shards import is_dtensor
+    from repro_torch.sharding.rules import mesh_rules
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t).detach().clone()
+
+    # a copy: the steps update their parameters in place
+    tree = _tree_to(params0, dev, clone=True)
+    if mesh is not None:
+        tree = distribute_tree(mesh, tree, param_shardings(mesh, tree))
+    params = ParamTree(tree).requires_grad_(True)
+    opt = adamw_init(params)
+    step = make_train_step(_SeqParallel(build_model(cfg), seq_parallel),
+                           AdamWConfig(lr=3e-4), total_steps=TRAIN_STEPS,
+                           remat=False)
+    losses, grad0, step_ms = [], None, []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        if mesh is None:
+            _, _, info = step(params, opt, batch)
+        else:
+            batch = distribute_tree(mesh, batch,
+                                    batch_shardings(mesh, batch, False))
+            with mesh_rules(mesh, AXIS_MAP_SINGLE):
+                _, _, info = step(params, opt, batch)
+        losses.append(float(info["loss"]))      # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grad0 = {n: whole(p.grad) for n, p in params.named_parameters()}
+    MP_STEP_MS.append(step_ms)
+    return losses, grad0, {n: whole(p) for n, p in params.named_parameters()}
+
+
+class _SeqParallel:
+    """A model whose `train_loss` takes ``seq_parallel`` as given (the
+    train step calls it with the default)."""
+
+    def __init__(self, model, on: bool):
+        self.model, self.on = model, on
+
+    def train_loss(self, params, batch, *, remat: bool = True):
+        return self.model.train_loss(params, batch, remat=remat,
+                                     seq_parallel=self.on)
+
+
+def mp_compare(name, got, want):
+    """A model-parallel run (losses, step-0 grads, final params) against
+    the unbound one."""
+    (gl, gg, gp), (wl, wg, wp) = got, want
+    for i, (a, b) in enumerate(zip(gl, wl)):
+        if not abs(a - b) <= MP_LOSS_RTOL * abs(b):
+            fail(f"{name} step {i}: loss {a!r} vs unbound {b!r} (rtol "
+                 f"{MP_LOSS_RTOL})")
+    worst_g = worst_p = 0.0
+    for n in wg:
+        rel = ((gg[n] - wg[n]).abs().max() / wg[n].abs().max()).item()
+        if not rel <= MP_GRAD_RTOL:
+            fail(f"{name}: step-0 gradient of {n}: max relative err "
+                 f"{rel:.3e} > {MP_GRAD_RTOL}")
+        worst_g = max(worst_g, rel)
+        big = wg[n].abs() > GRAD_FLOOR
+        if big.any():
+            err = (gp[n] - wp[n]).abs()[big].max().item()
+            if not err <= TRAIN_PARAM_ATOL:
+                fail(f"{name}: {n} after {MP_STEPS} steps off by {err:.3e} "
+                     f"> {TRAIN_PARAM_ATOL}")
+            worst_p = max(worst_p, err)
+    print(f"    {name}: losses {[f'{x:.7f}' for x in gl]}, max |loss err| "
+          f"{max(abs(a - b) for a, b in zip(gl, wl)):.3e}; step-0 gradients "
+          f"max relative err {worst_g:.3e} (tol {MP_GRAD_RTOL}); params "
+          f"after {MP_STEPS} steps max |err| {worst_p:.3e} (tol "
+          f"{TRAIN_PARAM_ATOL})")
+
+
+@contextlib.contextmanager
+def attention_shapes(shapes):
+    """Record the q shape of every attention kernel launch."""
+    from repro_torch.kernels.flash_attention import ops
+    orig = ops.flash_attention_cuda
+
+    def recording(q, *a, **k):
+        shapes.append(tuple(q.shape))
+        return orig(q, *a, **k)
+
+    ops.flash_attention_cuda = recording
+    try:
+        yield
+    finally:
+        ops.flash_attention_cuda = orig
+
+
+def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
+    """``fn()`` as its own counted run: exactly ``want_launches`` attention
+    launches, every one through ``cuda_core`` at q shape ``want_shape``
+    (the local head shard), and no other kernel. Returns fn's result and
+    its wall seconds."""
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_launch_counts)
+    shapes = []
+    MP_STEP_MS.clear()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with attention_shapes(shapes):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = launch_counts(), variant_launch_counts()
+    runs.counts[name] = counts
+    runs.variants[name] = {k: n for k, n in variants.items() if n}
+    runs.tiles[name] = {}
+    if counts["flash_attention"] != want_launches or \
+            variants["flash_attention/cuda_core"] != want_launches:
+        fail(f"{name}: attention launches {counts['flash_attention']} (by "
+             f"variant {runs.variants[name]}), want {want_launches} through "
+             f"cuda_core")
+    if any(n for k, n in counts.items() if k != "flash_attention"):
+        fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
+    if set(shapes) != {want_shape}:
+        fail(f"{name}: attention kernel q shapes {sorted(set(shapes))}, want "
+             f"the local head shard {want_shape}")
+    print(f"  {name}: {wall:.3f} s wall for {MP_STEPS} steps; ms a step "
+          f"(first, then later; per rank) {[[round(t, 1) for t in r] for r in MP_STEP_MS]}"
+          f"; launches {counts}, by variant {runs.variants[name]}; kernel q "
+          f"shape {want_shape}")
+    return out
+
+
+def mp_threaded(torch, dev, cfg, params0, batches, tp: int, seq_parallel):
+    """The model-parallel steps on a (1, tp) mesh of ``tp`` ranks sharing
+    ``dev``, one thread each over the threaded process group
+    (``torch.testing._internal.distributed.multi_threaded_pg``: its
+    collectives are tensor ops of this process, so they take CUDA
+    tensors). Returns rank 0's result."""
+    import threading
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        _install_threaded_pg, _uninstall_threaded_pg)
+    from repro_torch.launch.mesh import make_mesh
+    results = {}
+
+    def worker(rank, store):
+        # the thread's group goes with the threaded world when it is
+        # uninstalled (torch 2.11's destroy_process_group cannot take it)
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=tp,
+                                    store=store)
+            mesh = make_mesh((1, tp), ("data", "model"), device=dev.type)
+            results[rank] = mp_steps(torch, dev, cfg, params0, batches, mesh,
+                                     seq_parallel)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            results[rank] = e
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    try:
+        store = dist.HashStore()
+        threads = [threading.Thread(target=worker, args=(r, store))
+                   for r in range(tp)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    for r in range(tp):
+        if isinstance(results.get(r), BaseException):
+            raise results[r]
+    return results[0]
+
+
+@contextlib.contextmanager
+def mp_dry_runs():
+    """`python -m repro_torch.launch.dryrun` for MP_DRYRUN on the fake
+    (16, 16) mesh, each in a subprocess started on entry (they run on the
+    host's cores while the block uses the card) and awaited on a clean
+    exit: prints its per-device argument and temp GB, flops and
+    collective counts. Every subprocess is killed on the way out."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for arch, shape in MP_DRYRUN]          # the two at once
+    try:
+        yield
+        outs = [p.communicate(timeout=MP_DRYRUN_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for (arch, shape), p, (stdout, stderr) in zip(MP_DRYRUN, procs, outs):
+        if p.returncode != 0 or "ran in" not in stdout:
+            fail(f"dry run {arch} x {shape}: exit {p.returncode}\n"
+                 f"{stdout[-2000:]}\n{stderr[-3000:]}")
+        rec = json.loads((out_dir / f"{arch}_{shape}_single_pod_16x16.json"
+                          ).read_text())
+        print(f"  dry run {arch} x {shape} on the fake (16, 16) mesh "
+              f"({rec['compile_s']} s its step, {time.perf_counter() - t0:.1f}"
+              f" s wall for both with start-up, beside the card runs): per "
+              f"device "
+              f"arguments {rec['memory']['argument_bytes'] / 1e9:.3f} GB, "
+              f"temp {rec['memory']['temp_bytes'] / 1e9:.3f} GB, flops "
+              f"{rec['flops']:.4e}, bytes accessed "
+              f"{rec['bytes_accessed']:.4e}, collectives " + ", ".join(
+                  f"{k} {v['count']} ({v['bytes']} B)"
+                  for k, v in rec["collectives"].items()
+                  if isinstance(v, dict) and v["count"]))
+
+
+def model_parallel_phase(torch, dev, runs: Runs):
+    """Tensor-parallel training of full-width ElasticBERT-12 (f32, the
+    training recipe's batch 64 x 64) on the card: MP_STEPS steps unbound,
+    then on a (1, 1) ("data", "model") mesh over an NCCL world of 1 with
+    seq_parallel on and off (each equal to the unbound run within f32
+    round-off, with the unbound run's attention launches), then TP =
+    MP_TP2 on a (1, 2) mesh of ranks sharing the card over the threaded
+    process group (the attention kernel on each rank's 6-head shard,
+    forward and backward; equal to the unbound run). The dry runs of
+    MP_DRYRUN run beside them, on the host. Returns the attention record
+    at the TP = 2 shard shape."""
+    with mp_dry_runs():
+        return mp_card_runs(torch, dev, runs)
+
+
+def mp_card_runs(torch, dev, runs: Runs):
+    """`model_parallel_phase`'s runs on the card; the record of the
+    kernel's forward at the TP = 2 shard, with `attention_backward`'s
+    time there."""
+    import itertools
+    import logging
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.data import batch_iterator, make_dataset
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_backward)
+    from repro_torch.kernels.flash_attention.ref import gqa_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.distributed import _free_port
+
+    # DTensor warns at every two-axis all-reduce of a (1, n) mesh
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    cfg = train_config()
+    data = make_dataset("sst2_like", TRAIN_SAMPLES, seed=0)
+    batches = list(itertools.islice(
+        batch_iterator(data, TRAIN_BATCH, seed=0, epochs=1), MP_STEPS))
+    params0 = init_params(cfg, seed=11, device=dev)
+    seq = data["tokens"].shape[1]
+    heads, hd = cfg.num_heads, cfg.resolved_head_dim
+    per_run = cfg.num_layers * MP_STEPS
+    full = (TRAIN_BATCH, heads, seq, hd)
+    unbound = mp_counted(
+        torch, runs, "mp unbound", lambda: mp_steps(
+            torch, dev, cfg, params0, batches), per_run, full)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        for sp in (True, False):
+            name = f"mp TP=1 seq_parallel={sp}"
+            got = mp_counted(torch, runs, name, lambda: mp_steps(
+                torch, dev, cfg, params0, batches, mesh, sp), per_run, full)
+            mp_compare(name, got, unbound)
+    finally:
+        dist.destroy_process_group()
+
+    shard = (TRAIN_BATCH, heads // MP_TP2, seq, hd)
+    for sp in (True, False):
+        name = f"mp TP={MP_TP2} seq_parallel={sp} (threaded ranks)"
+        got = mp_counted(torch, runs, name, lambda: mp_threaded(
+            torch, dev, cfg, params0, batches, MP_TP2, sp),
+            MP_TP2 * per_run, shard)
+        mp_compare(name, got, unbound)
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, dout = (torch.randn(shard, generator=gen, device=dev)
+                     for _ in range(4))
+    rec = record(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:80",
+        f"q/k/v {shard} float32, bidirectional (a TP = {MP_TP2} rank's "
+        f"head shard of the training step)",
+        (via("flash_attention", "cuda_core", lambda: attention(
+            q, k, v, causal=False)) - gqa_ref(q, k, v, causal=False)
+         ).abs().max().item(),
+        lambda: via("flash_attention", "cuda_core",
+                    lambda: attention(q, k, v, causal=False)),
+        lambda: gqa_ref(q, k, v, causal=False),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4 * q.numel() * q.element_size(), 4.0 * q.numel() * seq, "float32",
+        variant="cuda_core")
+    out = attention(q, k, v, causal=False)
+    rec["backward_ms"] = graph_ms(lambda: attention_backward(
+        q, k, v, out, dout, causal=False, window=0, scale=hd ** -0.5))
+    rec["launches"] = runs.counts[f"mp TP={MP_TP2} seq_parallel=True "
+                                  f"(threaded ranks)"]["flash_attention"]
+    print(f"  flash_attention at {rec['shape']} (cuda_core): device ms per "
+          f"call (CUDA graph): kernel {rec['ms']:.5f}, plain "
+          f"{rec['plain_ms']:.5f}, SDPA {rec['library_ms']:.5f}, bound "
+          f"{rec['bound_ms']:.6f} ({rec['bound_by']}); attention_backward "
+          f"{rec['backward_ms']:.5f}; {rec['launches']} launches in the "
+          f"TP = {MP_TP2} seq_parallel=True run")
+    return rec
+
+
 def _first_rows(tree, n: int):
     """The first ``n`` rows of every leaf: the first n layers of a
     stacked-layer tree."""
@@ -4263,10 +4622,12 @@ def _first_rows(tree, n: int):
             for key, val in tree.items()}
 
 
-def _tree_to(tree, device, dtype=None):
-    """Copy of a parameter tree as a nested dict on ``device``."""
-    return {key: _tree_to(val, device, dtype) if hasattr(val, "items")
-            else val.detach().to(device=device, dtype=dtype or val.dtype)
+def _tree_to(tree, device, dtype=None, clone=False):
+    """A parameter tree as a nested dict on ``device`` (leaves already
+    there are shared unless ``clone``)."""
+    return {key: _tree_to(val, device, dtype, clone) if hasattr(val, "items")
+            else val.detach().to(device=device, dtype=dtype or val.dtype,
+                                 copy=clone)
             for key, val in tree.items()}
 
 
@@ -4391,6 +4752,10 @@ def main(argv=None) -> int:
 
     with phase("train: elasticbert12 (full width) on the card"):
         rec_attn["at_training"] = train_phase(torch, dev, runs)
+
+    with phase("model parallelism: elasticbert12 TP training on the card, "
+               "the dry run"):
+        rec_attn["at_tp2_train"] = model_parallel_phase(torch, dev, runs)
 
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6):

@@ -151,6 +151,37 @@ class ModelConfig:
             enc = e.num_layers * (e_attn + e_mlp) + self.num_layers * attn
         return v * d + total_layers + n_heads_p * d * head_out + enc
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE top-k instead of all experts)."""
+        if self.family != "moe" or self.moe is None:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        hd = self.resolved_head_dim
+        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+            + self.num_heads * hd * d
+        active_mlp = self.moe.top_k * 3 * d * f + d * self.moe.num_experts
+        layers = self.num_layers * (attn + active_mlp)
+        head_out = self.num_classes if self.num_classes else self.vocab_size
+        n_heads_p = 1 if (not self.exits.enabled or self.exits.share_head) \
+            else len(self.exit_layers)
+        return self.vocab_size * d + layers + n_heads_p * d * head_out
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced config of the same family: 2 layers, d_model<=128, <=4 experts."""

@@ -23,6 +23,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from repro_torch.shards import is_dtensor
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "torch_kernels"
 INCLUDE_DIR = Path(__file__).resolve().parent / "include"
@@ -162,3 +164,12 @@ def check(status: int, what: str) -> None:
     """Raise on a launcher's nonzero ``cudaGetLastError`` code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")
+
+
+def no_cuda_dtensor(op: str, *ts) -> None:
+    """Raise for a CUDA ``DTensor`` among ``ts``: the kernel has no
+    sharded form."""
+    if any(is_dtensor(t) and t.device.type == "cuda" for t in ts):
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel takes no DTensor (model-parallel "
+            f"serving is not ported); run it on whole tensors")

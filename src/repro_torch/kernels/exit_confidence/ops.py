@@ -2,7 +2,11 @@
 
 A CPU tensor runs the plain PyTorch version (`ref.py`); a CUDA tensor
 launches the hand-written kernel; any other device raises. There is no
-fallback from one to the other.
+fallback from one to the other. A ``DTensor`` on the CPU (the dry run's
+model-parallel steps) runs the plain version: the head product through
+``DTensor``'s own ops, then the softmax and argmax on whole rows (the
+logits gathered over a split vocabulary); a CUDA ``DTensor`` raises: the
+kernels take no sharded head, and model-parallel serving is not ported.
 
 Shapes: ``h (B, D)`` with ``w (D, V)``, or a leading group axis ``h (G, B,
 D)`` with ``w (G, D, V)`` to evaluate G heads at once (what the JAX
@@ -12,10 +16,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import no_cuda_dtensor
 from repro_torch.kernels.exit_confidence.kernel import (
     exit_confidence_cuda, exit_confidence_fused_cuda)
 from repro_torch.kernels.exit_confidence.ref import (
-    exit_confidence_fused_ref, exit_confidence_ref)
+    confidence_of, exit_confidence_fused_ref, exit_confidence_ref)
+from repro_torch.shards import is_dtensor
 
 NORM_KINDS = ("rmsnorm", "layernorm")
 
@@ -31,6 +37,9 @@ def exit_confidence(h, w, bias=None):
     where conf is the max softmax probability (the paper's C_i). The
     bias (V,) — (G, V) when grouped — is added to the logits in f32.
     """
+    no_cuda_dtensor("exit_confidence", h, w)
+    if is_dtensor(h):
+        return _exit_confidence_dtensor(h, w, bias)
     if h.device.type == "cpu":
         return exit_confidence_ref(h, w, bias)
     if h.device.type == "cuda":
@@ -51,6 +60,7 @@ def exit_confidence_fused(x, norm_params, w, bias=None, *,
     if kind not in NORM_KINDS:
         raise ValueError(f"exit_confidence_fused kind={kind!r} is unknown; "
                          f"choose one of {NORM_KINDS}")
+    no_cuda_dtensor("exit_confidence_fused", x, w)
     if x.device.type == "cpu":
         return exit_confidence_fused_ref(x, norm_params, w, bias, kind=kind)
     if x.device.type == "cuda":
@@ -60,3 +70,21 @@ def exit_confidence_fused(x, norm_params, w, bias=None, *,
         return exit_confidence_fused_cuda(x, norm_params["scale"], nbias, w,
                                           bias, kind=kind)
     raise _unknown_device("exit_confidence_fused", x)
+
+
+def _exit_confidence_dtensor(h, w, bias=None):
+    """`exit_confidence_ref` of CPU ``DTensor``s: the logits by
+    ``DTensor``'s product, then gathered to whole rows (an argmax has no
+    split-vocabulary form), then the plain confidence on each rank's
+    rows. Returns ``DTensor``s placed as the rows."""
+    from torch.distributed.tensor import DTensor, Replicate
+    logits = h.float() @ w.float()
+    if bias is not None:
+        logits = logits + bias.float().unsqueeze(-2)
+    last = logits.ndim - 1
+    rows = [Replicate() if pl.is_partial() or pl.is_shard(last) else pl
+            for pl in logits.placements]
+    conf, pred = confidence_of(logits.redistribute(logits.device_mesh,
+                                                   rows).to_local())
+    return tuple(DTensor.from_local(t, logits.device_mesh, rows,
+                                    run_check=False) for t in (conf, pred))

@@ -18,6 +18,11 @@ def exit_confidence_ref(h, w, bias=None):
     logits = h.float() @ w.float()
     if bias is not None:
         logits = logits + bias.float().unsqueeze(-2)
+    return confidence_of(logits)
+
+
+def confidence_of(logits):
+    """(conf f32, pred i32) of float32 ``logits`` (..., V)."""
     m = logits.amax(dim=-1)
     s = torch.exp(logits - m.unsqueeze(-1)).sum(dim=-1)
     conf = 1.0 / s      # exp(m - logsumexp) = 1 / sum exp(l - m)

@@ -12,6 +12,13 @@ kernel either (XLA differentiates its plain attention outside any Pallas
 kernel), so the backward's products are ``torch.matmul``; it is written
 out here rather than taken from autograd of the plain version, which
 stays off the card's path.
+
+Model parallelism: ``DTensor`` q/k/v whose placements keep every head
+whole on each rank (``Shard`` on the batch or head axis, or
+``Replicate``) run the same dispatch on their local shards (the kernel on
+the card, the plain version on the CPU, a gradient through
+`FlashAttention` on the card), and the result is the ``DTensor`` of the
+local outputs under q's placements. Any other placement raises.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from repro_torch.kernels._build import grad_wanted
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_mask, gqa_ref
+from repro_torch.shards import is_dtensor
 
 
 def attention_backward(q, k, v, out, dout, *, causal: bool, window: int,
@@ -86,7 +94,11 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0
     ``window`` > 0 restricts each query to the previous ``window`` keys.
     On a CUDA tensor that wants a gradient (`_build.grad_wanted`) the
     call goes through `FlashAttention`, else straight to the kernel.
+    ``DTensor`` inputs run on their local head shards
+    (`_attention_dtensor`).
     """
+    if is_dtensor(q):
+        return _attention_dtensor(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return gqa_ref(q, k, v, causal=causal, window=window)
     if q.device.type == "cuda":
@@ -94,3 +106,48 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0
             return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     raise ValueError(f"attention: no kernel for device {q.device}")
+
+
+def _head_whole(placements) -> bool:
+    return all(pl.is_replicate() or pl.is_shard(0) or pl.is_shard(1)
+               for pl in placements)
+
+
+def _attention_dtensor(q, k, v, *, causal: bool, window: int):
+    """`attention` of ``DTensor`` q (B, Hq, Sq, d) and k/v (B, Hkv, Skv,
+    d) on one mesh: each rank runs its local shards. k and v are placed
+    alike; on each mesh axis they are placed as q is, or replicated where
+    q splits its heads (KV heads that do not divide the axis), and then
+    the rank keeps the KV heads its query heads read."""
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    if not (_head_whole(q.placements) and k.placements == v.placements
+            and _head_whole(k.placements)):
+        raise ValueError(
+            f"attention: q placed {q.placements}, k {k.placements}, v "
+            f"{v.placements}; the kernel takes whole heads on each rank "
+            f"(Shard on the batch or head axis, or Replicate)")
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    for t in (ql, kl, vl):
+        if t.requires_grad:
+            # the gradients go back into DTensor views (the head split),
+            # which take a contiguous local tensor only
+            t.register_hook(torch.Tensor.contiguous)
+    rep = q.shape[1] // k.shape[1]
+    for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pq == pk:
+            continue
+        if not (pq.is_shard(1) and pk.is_replicate()):
+            raise ValueError(f"attention: q placed {pq} and k {pk} on mesh "
+                             f"axis {m}; they must match, or k/v replicate "
+                             f"where q splits its heads")
+        # query heads [lo, lo + n) read KV heads lo // rep .. (lo+n-1) // rep
+        n = ql.shape[1]
+        if n % rep and rep % n:
+            raise ValueError(f"attention: {n} local query heads do not "
+                             f"tile the GQA groups of {rep}")
+        lo = mesh.get_local_rank(m) * n
+        kv = slice(lo // rep, (lo + n - 1) // rep + 1)
+        kl, vl = kl[:, kv], vl[:, kv]
+    out = attention(ql, kl, vl, causal=causal, window=window)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)

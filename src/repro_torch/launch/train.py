@@ -24,6 +24,7 @@ from repro_torch.models.api import Model, build_model
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.shards import is_dtensor
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
@@ -33,7 +34,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     {"loss", "gnorm"})``: the loss and its gradients by autograd, then one
     AdamW step under the cosine schedule. ``params`` (trainable leaves)
     and ``opt_state`` are updated in place and returned; the info values
-    are device tensors, read when the caller needs them."""
+    are device tensors, read when the caller needs them.
+
+    Over ``DTensor`` parameters (model parallelism, under `mesh_rules`)
+    the same step runs on the mesh: AdamW updates each rank's shards, the
+    gradient norm is the global one, and the info values are the whole
+    (replicated) scalars on each rank."""
     def train_step(params, opt_state, batch):
         params.zero_grad(set_to_none=True)
         loss = model.train_loss(params, batch, remat=remat)
@@ -44,7 +50,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                  for name, p in params.named_parameters()}
         lr_scale = cosine_schedule(opt_state["count"], total_steps, warmup)
         gnorm = adamw_update(params, grads, opt_state, opt_cfg, lr_scale)
-        return params, opt_state, {"loss": loss.detach(), "gnorm": gnorm}
+        info = {"loss": loss.detach(), "gnorm": gnorm}
+        return params, opt_state, {k: v.full_tensor() if is_dtensor(v)
+                                   else v for k, v in info.items()}
 
     return train_step
 

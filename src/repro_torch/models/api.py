@@ -4,13 +4,19 @@ vs enc-dec dispatch behind one object, as the reference's
 
 There is no ``backend`` string: every kernel dispatches by the device of
 its tensors (plain PyTorch versions on the CPU, the CUDA kernels on the
-card).
+card). `abstract_params` and `input_specs` give meta tensors, the
+stand-ins of the reference's ``jax.ShapeDtypeStruct`` trees that the dry
+run (launch/dryrun.py) places on its mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch import torch_dtype
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import encdec, transformer
 
 _NO_MASKED_ENCDEC = ("masked decode serving covers decoder-only families; "
@@ -37,8 +43,19 @@ class Model:
         without gradient."""
         return self._mod.init_params(self.cfg, seed=seed, device=device)
 
-    def train_loss(self, params, batch, *, remat: bool = True):
-        return self._mod.train_loss(params, self.cfg, batch, remat=remat)
+    def abstract_params(self) -> transformer.ParamTree:
+        """The parameter tree on the meta device (shapes, dtypes)."""
+        return self._mod.abstract_params(self.cfg)
+
+    def train_loss(self, params, batch, *, remat: bool = True,
+                   seq_parallel: bool = True):
+        """``seq_parallel`` (decoder-only models; the enc-dec loss has no
+        such boundary) shards the training carry's sequence over "model"
+        under a bound mesh; see ``transformer.train_loss``."""
+        if self.is_encdec:
+            return encdec.train_loss(params, self.cfg, batch, remat=remat)
+        return transformer.train_loss(params, self.cfg, batch, remat=remat,
+                                      seq_parallel=seq_parallel)
 
     def forward_exits(self, params, batch):
         if self.is_encdec:
@@ -96,6 +113,51 @@ class Model:
         return transformer.decode_step_resume(
             params, self.cfg, caches, hidden, cur_index, depths, active,
             window_seq_len=window_seq_len)
+
+    # ----------------------------------------------------------- input specs
+    def input_specs(self, shape: InputShape) -> Dict[str, Any]:
+        """Meta-tensor stand-ins for every input of the step the shape
+        exercises (train -> train step; prefill -> prefill; decode ->
+        decode_step), leaf for leaf the shapes and dtypes of the
+        reference's ``ShapeDtypeStruct``s. Nothing is allocated."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        dt = torch_dtype(cfg.dtype)
+
+        def sds(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        def token_batch(with_labels: bool):
+            batch: Dict[str, Any] = {}
+            if cfg.modality == "vision_stub":
+                batch["embeds"] = sds((b, s, cfg.d_model), dt)
+            elif cfg.modality == "audio_stub":
+                batch["frames"] = sds((b, cfg.encoder.source_len,
+                                       cfg.encoder.d_model), dt)
+                batch["tokens"] = sds((b, s), i32)
+            else:
+                batch["tokens"] = sds((b, s), i32)
+            if with_labels:
+                batch["labels"] = sds((b,) if cfg.num_classes else (b, s),
+                                      i32)
+            return batch
+
+        if shape.kind == "train":
+            return {"batch": token_batch(True)}
+        if shape.kind == "prefill":
+            return {"batch": token_batch(False)}
+        # decode: one new token against a seq_len cache
+        spec = {"caches": self.init_caches(b, s, device="meta"),
+                "token": sds((b,), i32),
+                "cur_index": sds((), i32)}
+        if self.is_encdec:
+            kv = (cfg.num_layers, b, cfg.encoder.source_len,
+                  cfg.num_kv_heads, cfg.resolved_head_dim)
+            spec["extras"] = {"cross_kv": (sds(kv, dt), sds(kv, dt))}
+        if cfg.modality == "vision_stub":
+            spec["token"] = sds((b, 1, cfg.d_model), dt)
+        return spec
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.shards import is_dtensor, shard_range
+
 NORM_EPS = 1e-6
 
 
@@ -28,6 +30,39 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
     w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                     device=device or gen.device)
     return (w * 0.02).to(dtype)
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``emb[tokens]``. A ``DTensor`` table split over its vocabulary is
+    looked up on each rank's rows (the counterpart of GSPMD's take on a
+    vocabulary-sharded table): the table is gathered on its other split
+    axes, the tokens on the vocabulary's axes; each rank gives the rows
+    its shard holds (zeros elsewhere), and the partial sums over the
+    vocabulary's axes are all-reduced."""
+    if not is_dtensor(emb):
+        return emb[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = emb.device_mesh
+    vocab = [p.is_shard(0) for p in emb.placements]
+    tok_pl = tokens.placements if is_dtensor(tokens) \
+        else [Replicate()] * mesh.ndim
+    tok_pl = [Replicate() if v else p for v, p in zip(vocab, tok_pl)]
+    # a rank's table gradient covers its own tokens: a partial sum over
+    # the axes that split the tokens
+    table = emb.redistribute(mesh, [Shard(0) if v else Replicate()
+                                    for v in vocab]).to_local(
+        grad_placements=[Shard(0) if v else Partial() if p.is_shard()
+                         else Replicate() for v, p in zip(vocab, tok_pl)])
+    tl = (tokens.redistribute(mesh, tok_pl).to_local()
+          if is_dtensor(tokens) else tokens).long()
+    lo, n = shard_range(emb, 0)      # this rank's vocabulary rows
+    inside = (tl >= lo) & (tl < lo + n)
+    rows = torch.where(inside[..., None], table[torch.where(inside, tl - lo,
+                                                            0)], 0)
+    rows = DTensor.from_local(rows, mesh, [Partial() if v else p for v, p in
+                                           zip(vocab, tok_pl)],
+                              run_check=False)
+    return rows.redistribute(mesh, tok_pl)
 
 
 # --------------------------------------------------------------------- norms
@@ -99,9 +134,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     stream of the section j falls in."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)         # (hd/2,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(mrope_sections(hd), device=x.device))  # (hd/2,)
+    sec_id = torch.tensor([j for j, n in enumerate(mrope_sections(hd))
+                           for _ in range(n)], device=x.device)  # (hd/2,)
     pos = positions3[sec_id].permute(1, 2, 0).float()       # (B, S, hd/2)
     ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]
@@ -121,13 +155,46 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     The label logit is gathered; the reference contracts with a one-hot
     to keep a vocabulary-sharded layout, which gives the same value (the
-    other terms are exact zeros) on one device."""
+    other terms are exact zeros) on one device. On a ``DTensor`` (model
+    parallelism) the port contracts too, so a vocabulary shard stays
+    where it is and only the (...) row sums are reduced. The two forms
+    stay apart: the log-sum-exp written out has the same value as
+    ``torch.logsumexp`` but another gradient in the last bits, and the
+    contraction costs a pass over (..., C) that the gather does not."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate
+        # max and sums reduced over a split vocabulary: only (...) rows
+        # cross the mesh (DTensor's logsumexp would gather the logits)
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        m = m.redistribute(m.device_mesh, [
+            Replicate() if p.is_partial() else p for p in m.placements])
+        lse = (m + torch.log(torch.sum(torch.exp(logits - m), dim=-1,
+                                       keepdim=True))).squeeze(-1)
+        classes = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.sum(logits * (labels.long().unsqueeze(-1) == classes),
+                       dim=-1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels.long().unsqueeze(-1)).squeeze(-1)
     loss = lse - ll
     if valid is not None:
         valid = valid.float()
         return torch.sum(loss * valid) / torch.clamp(torch.sum(valid),
                                                      min=1.0)
     return torch.mean(loss)
+
+
+def next_token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE of position t's logits (B, S, V) against token t + 1 of
+    ``labels`` (B, S). On a ``DTensor`` the last position is masked out
+    instead of sliced away: the gradient of a slice of split logits would
+    be gathered whole."""
+    if not is_dtensor(logits):
+        return cross_entropy(logits[:, :-1], labels[:, 1:])
+    s = logits.shape[1]
+    valid = (torch.arange(s, device=logits.device) < s - 1).expand(
+        labels.shape)
+    nxt = torch.cat([labels[:, 1:], labels[:, :1]], dim=1)   # roll by -1
+    return cross_entropy(logits, nxt, valid)

@@ -26,12 +26,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.exit_confidence.ops import exit_confidence
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as ff
-from repro_torch.models.common import (apply_norm, cross_entropy,
-                                       dense_init, embed_init, init_norm)
+from repro_torch.models.common import (apply_norm, dense_init, embed_init,
+                                       embed_lookup, init_norm, next_token_ce)
 from repro_torch.models.transformer import (ParamTree, cache_slices,
-                                            check_family, init_stacked,
-                                            layer_params, map_tree, restack,
-                                            stack_trees)
+                                            check_family, init_device,
+                                            init_stacked, layer_params,
+                                            map_tree, restack, stack_trees)
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import gather_fsdp
 
 
 def _init_enc_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
@@ -67,11 +69,10 @@ def _init_dec_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default ``cuda``); parity with the reference goes through
-    `repro_torch.bridge`."""
+    (default ``cuda``; ``"meta"``: shapes and dtypes only); parity with
+    the reference goes through `repro_torch.bridge`."""
     check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev, gen = init_device(device, seed)
     dt = torch_dtype(cfg.dtype)
     return ParamTree({
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
@@ -85,6 +86,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
         "exit_w": dense_init(gen, cfg.d_model,
                              cfg.num_classes or cfg.vocab_size, dt, dev),
     })
+
+
+def abstract_params(cfg: ModelConfig) -> ParamTree:
+    """The parameter tree on the meta device (shapes and dtypes only)."""
+    return init_params(cfg, device="meta")
 
 
 def _arange(b: int, s: int, device):
@@ -106,8 +112,9 @@ def encode(params, cfg: ModelConfig, frames):
             num_heads=e.num_heads, num_kv_heads=e.num_kv_heads,
             head_dim=e.d_model // e.num_heads, causal=False,
             rope_theta=cfg.rope_theta)
-        x = x + ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
-                               cfg.activation)
+        x = constrain(x + ff.mlp_forward(
+            lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm), cfg.activation),
+            "batch", None, None)
     return apply_norm(x, params["enc_norm"], cfg.norm)
 
 
@@ -138,7 +145,7 @@ def _dec_layer_full(cfg: ModelConfig, lp, x, positions, ckv, *,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=hd)
     h = ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
                        cfg.activation)
-    return x + h, kv
+    return constrain(x + h, "batch", None, None), kv
 
 
 def _layer_kv(ckv, i: int):
@@ -151,16 +158,16 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
     final layer. ``remat`` recomputes each decoder layer in the backward
     (``torch.utils.checkpoint``, non-reentrant)."""
     ckv = cross_kv(params, cfg, encode(params, cfg, batch["frames"]))
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(params["embed"], batch["tokens"])
     b, s, _ = x.shape
     positions = _arange(b, s, x.device)
-    labels = batch["labels"].to(x.device).long()[:, 1:]
+    labels = batch["labels"].to(x.device).long()
 
     def body(xx, i):
         lp = layer_params(params["dec_layers"], i)
         xx, _ = _dec_layer_full(cfg, lp, xx, positions, _layer_kv(ckv, i))
         hn = apply_norm(xx, lp["exit_norm"], cfg.norm)
-        return xx, cross_entropy((hn @ params["exit_w"])[:, :-1], labels)
+        return xx, next_token_ce(_vocab_logits(hn, params), labels)
 
     exit_losses = []
     for i in range(cfg.num_layers):
@@ -170,13 +177,20 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
             x, loss_i = body(x, i)
         exit_losses.append(loss_i)
     xf = apply_norm(x, params["final_norm"], cfg.norm)
-    final = cross_entropy((xf @ params["exit_w"])[:, :-1], labels)
+    final = next_token_ce(_vocab_logits(xf, params), labels)
     return final + torch.stack(exit_losses).mean()
 
 
+def _vocab_logits(hn, params):
+    """(B, S, V) logits of the shared head, vocabulary-sharded under a
+    bound mesh."""
+    return constrain(hn @ gather_fsdp(params["exit_w"]), "batch", None,
+                     "model")
+
+
 def _final_logits(params, cfg: ModelConfig, x):
-    return apply_norm(x, params["final_norm"], cfg.norm)[:, -1, :] \
-        @ params["exit_w"]
+    return constrain(apply_norm(x, params["final_norm"], cfg.norm)[:, -1, :]
+                     @ gather_fsdp(params["exit_w"]), "batch", "model")
 
 
 def prefill(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
@@ -187,7 +201,7 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
     ``cache_seq_len`` (default S). Returns (last-position logits,
     ``{"self": stacked caches, "cross_kv": (k, v)}``)."""
     ckv = cross_kv(params, cfg, encode(params, cfg, batch["frames"]))
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(params["embed"], batch["tokens"])
     b, s, _ = x.shape
     seq_total = cache_seq_len or s
     window = cfg.effective_window(seq_total)
@@ -228,16 +242,8 @@ def _cross_attn_one(cfg: ModelConfig, p, x, kv):
     """Cross-attention of one query token x (B, 1, D) against the encoder
     (k, v) (B, S_src, Hkv, hd): plain float32 einsums, as the
     reference's."""
-    hd = cfg.resolved_head_dim
-    b = x.shape[0]
-    kf, vf = kv
-    qg = (x @ p["wq"]).reshape(b, cfg.num_kv_heads,
-                               cfg.num_heads // cfg.num_kv_heads, hd)
-    scores = torch.einsum("bngd,bsnd->bngs", qg.float(),
-                          kf.float()) * hd ** -0.5
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bngs,bsnd->bngd", probs, vf.float())
-    return o.reshape(b, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
+    q = attn.split_heads(x @ p["wq"], cfg.num_heads, cfg.resolved_head_dim)
+    return attn.decode_attention(q, *kv).to(x.dtype) @ p["wo"]
 
 
 def decode_step(params, cfg: ModelConfig, caches, ckv, token, cur_index: int,
@@ -250,7 +256,7 @@ def decode_step(params, cfg: ModelConfig, caches, ckv, token, cur_index: int,
     ``transformer.decode_step``; conf/pred are None with neither."""
     hd = cfg.resolved_head_dim
     window = cfg.effective_window(window_seq_len)
-    x = params["embed"][token.reshape(-1, 1).long()]
+    x = embed_lookup(params["embed"], token.reshape(-1, 1))
     slices, pooled = cache_slices({"self": caches["self"]}), []
     for i in range(cfg.num_layers):
         lp = layer_params(params["dec_layers"], i)
@@ -266,7 +272,7 @@ def decode_step(params, cfg: ModelConfig, caches, ckv, token, cur_index: int,
         x = x + ff.mlp_forward(lp["mlp"], apply_norm(x, lp["ln2"], cfg.norm),
                                cfg.activation)
         pooled.append(apply_norm(x, lp["exit_norm"], cfg.norm)[:, -1, :])
-    ew = params["exit_w"]
+    ew = gather_fsdp(params["exit_w"])
     if all_exits:
         rows = torch.stack(pooled)                      # (L, B, D)
         conf, pred = exit_confidence(rows.reshape(-1, cfg.d_model), ew)

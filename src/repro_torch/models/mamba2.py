@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import NORM_EPS, dense_init
+from repro_torch.sharding import constrain
+from repro_torch.shards import check_rows_placed, from_local, to_local, whole
 
 CONV_K = 4
 HEAD_DIM = 64
@@ -112,7 +114,11 @@ def mamba2_forward(p, x, state, *, state_size: int, expand: int,
     d_inner = expand * d
     nheads = d_inner // HEAD_DIM
     n = state_size
-    zxbcdt = x @ p["w_in"]
+    # under a bound mesh: the input whole over "model", the in-projection
+    # gathered (its split into z, x, B, C, dt cuts across any shard) and
+    # the out-projection's partial sums reduced
+    x = constrain(x, "batch", None, None)
+    zxbcdt = constrain(x @ p["w_in"], "batch", None, None)
     z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, nheads],
                                  dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
@@ -136,8 +142,13 @@ def mamba2_forward(p, x, state, *, state_size: int, expand: int,
             bp = F.pad(bmat, (0, 0, 0, pad))
             cp = F.pad(cmat, (0, 0, 0, pad))
             dtp = F.pad(dt, (0, 0, 0, pad))
-        y, hnew = _ssd_chunked(xp, bp.float(), cp.float(), dtp, a,
-                               state["ssm"], chunk)
+        # on each rank's batch rows (every head whole); ``a`` whole, the
+        # state at the rank's rows
+        check_rows_placed(xp, "mamba2 SSD scan")
+        y, hnew = _ssd_chunked(
+            *(to_local(t, xp) for t in (xp, bp.float(), cp.float(), dtp)),
+            whole(a, xp), to_local(state["ssm"], xp), chunk)
+        y, hnew = from_local(y, xp), from_local(hnew, xp)
         y = y[:, :s]
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y.reshape(b, s, d_inner).to(x.dtype)
@@ -147,7 +158,8 @@ def mamba2_forward(p, x, state, *, state_size: int, expand: int,
     var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + NORM_EPS)
          * p["norm_scale"].float()).to(x.dtype)
-    return y @ p["w_out"], {"conv": new_conv.float(), "ssm": hnew}
+    return (constrain(y @ p["w_out"], "batch", None, None),
+            {"conv": new_conv.float(), "ssm": hnew})
 
 
 def init_mamba2_state(batch: int, d_model: int, state_size: int,

@@ -12,7 +12,9 @@ float32 and the shifted ``prev`` is cast back to the compute dtype; the
 lerps run in the compute dtype; the decay's LoRA runs in the compute
 dtype and its clip/exp/exp in float32, so ``w`` is float32; ``y`` comes
 back float32 and is cast to the compute dtype before the output gate.
-(The reference's sharding constraints have no counterpart here.)
+Under a bound mesh a full-sequence pass gathers the projections over
+"model" once, flat, before the head split, as the reference constrains
+them: the recurrence then runs on whole heads of each batch shard.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.models.attention import merge_heads, split_heads
 from repro_torch.models.common import dense_init
+from repro_torch.sharding import constrain
 
 DECAY_LORA = 32
 
@@ -94,6 +98,7 @@ def time_mix(p, x, state, *, num_heads: int, chunk: int = 128):
     recurrence from a zero state, as the reference's kernel call does."""
     b, s, d = x.shape
     hd = d // num_heads
+    x = constrain(x, "batch", None, None)
     last, wkv_state = state
     prev, new_last = _token_shift(x, last)
     prev = prev.to(x.dtype)         # `last` state is f32; avoid promotion
@@ -101,7 +106,13 @@ def time_mix(p, x, state, *, num_heads: int, chunk: int = 128):
     xr, xk, xv, xw, xg = (x + (prev - x) * mu[i] for i in range(5))
 
     def heads(t):                   # (B, S, D) -> (B, H, S, hd) view
-        return t.reshape(b, s, num_heads, hd).transpose(1, 2)
+        # gathered flat on full-sequence passes only: at decode (s == 1)
+        # the gather costs more than it saves, and only whole heads are
+        # needed there
+        if s > 1:
+            return constrain(t, "batch", None, None).reshape(
+                b, s, num_heads, hd).transpose(1, 2)
+        return split_heads(t, num_heads, hd).transpose(1, 2)
 
     r = heads(xr @ p["wr"])
     k = heads(xk @ p["wk"])
@@ -120,20 +131,23 @@ def time_mix(p, x, state, *, num_heads: int, chunk: int = 128):
         y = y[:, :, None, :]
     else:
         y, new_wkv = wkv6(r, k, v, w, p["bonus"], chunk=chunk)
-    y = y.transpose(1, 2).reshape(b, s, d).to(x.dtype)
-    out = (y * g) @ p["wo"]
+    y = merge_heads(y.transpose(1, 2)).to(x.dtype)
+    out = constrain((y * g) @ p["wo"], "batch", None, None)
     return out, (new_last, new_wkv)
 
 
 def channel_mix(p, x, last):
-    """Squared-ReLU channel mix. Returns (out, new_last)."""
+    """Squared-ReLU channel mix. Returns (out, new_last). Under a bound
+    mesh the input is whole over "model" and the hidden split over it."""
+    x = constrain(x, "batch", None, None)
     prev, new_last = _token_shift(x, last)
     mu = p["mu_cm"].to(x.dtype)
     xr = x + (prev.to(x.dtype) - x) * mu[0]
     xk = x + (prev.to(x.dtype) - x) * mu[1]
     rcv = torch.sigmoid(xr @ p["cm_wr"])
-    kk = torch.square(F.relu(xk @ p["cm_wk"]))
-    return rcv * (kk @ p["cm_wv"]), new_last
+    kk = constrain(torch.square(F.relu(xk @ p["cm_wk"])), "batch", None,
+                   "model")
+    return constrain(rcv * (kk @ p["cm_wv"]), "batch", None, None), new_last
 
 
 def init_rwkv_state(batch: int, d_model: int, num_heads: int, device=None):

@@ -12,6 +12,12 @@ axis, as in the reference's ``init_params``; per-layer views come from
 joint multi-exit training loss; serving runs without gradient, the
 classifier through `forward_exits*`, autoregressive decode through
 `prefill` and the `decode_step*` functions over stacked cache trees.
+
+Model parallelism: with ``DTensor`` parameters and inputs under a bound
+mesh (`repro_torch.sharding.mesh_rules`), the `constrain` calls place the
+activations at the reference's points (the residual stream batch-sharded,
+logits vocabulary-sharded, the training carry sequence-sharded under
+``seq_parallel``); unbound, every call is the identity.
 """
 from __future__ import annotations
 
@@ -30,7 +36,11 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import mlp as ff
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import (apply_norm, cross_entropy,
-                                       dense_init, embed_init, init_norm)
+                                       dense_init, embed_init, embed_lookup,
+                                       init_norm, next_token_ce)
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import gather_fsdp
+from repro_torch.shards import is_dtensor
 
 
 class ParamTree(nn.Module):
@@ -77,16 +87,41 @@ def _is_tree(x) -> bool:
     return isinstance(x, (Mapping, ParamTree))
 
 
-def layer_params(layers, i: int) -> Dict[str, Any]:
-    """Views of layer ``i`` of a stacked-layer tree."""
-    return {k: layer_params(v, i) if _is_tree(v) else v[i]
-            for k, v in layers.items()}
+def layer_params(layers, i: int, gather: bool = True) -> Dict[str, Any]:
+    """Views of layer ``i`` of a stacked-layer tree. Under a bound mesh a
+    parameter's view is gathered over the data axes (`gather_fsdp`), but
+    for the MoE's expert stacks, which stay split as the reference keeps
+    them; a cache tree's views are left as they are."""
+    return {k: layer_params(v, i, gather and k != "moe") if _is_tree(v)
+            else gather_fsdp(v[i]) if gather and isinstance(v, nn.Parameter)
+            else v[i] for k, v in layers.items()}
+
+
+def weights(tree):
+    """A parameter subtree with every leaf through `gather_fsdp`."""
+    return {k: weights(v) if _is_tree(v) else gather_fsdp(v)
+            for k, v in tree.items()}
 
 
 def stack_trees(trees):
     first = trees[0]
     return {k: stack_trees([t[k] for t in trees]) if _is_tree(first[k])
-            else torch.stack([t[k] for t in trees]) for k in first}
+            else _stack([t[k] for t in trees]) for k in first}
+
+
+def _stack(ts):
+    """``torch.stack``; ``DTensor``s stack their local shards (placed as
+    the first entry, a partial sum reduced; each split moves one axis
+    up), never gathered."""
+    if not is_dtensor(ts[0]):
+        return torch.stack(ts)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = ts[0].device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in ts[0].placements]
+    return DTensor.from_local(
+        torch.stack([t.redistribute(mesh, pl).to_local() for t in ts]), mesh,
+        [Shard(p.dim + 1) if p.is_shard() else p for p in pl],
+        run_check=False)
 
 
 # "audio" is a decoder-only stack here, as the reference's transformer
@@ -170,21 +205,39 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dt, dev):
 def init_stacked(make, n: int):
     """``n`` draws of the tree ``make()`` stacked on a leading axis, each
     copied into its row as it is drawn (peak memory: the stack and one
-    draw, not twice the stack)."""
+    draw, not twice the stack). On the meta device the stack is made
+    from the first tree's shapes and nothing is drawn again."""
     first = make()
     out = map_tree(lambda a: a.new_empty((n, *a.shape)), first)
+    if next(iter(_leaves(first))).device.type == "meta":
+        return out
     for i in range(n):
         map_tree(lambda o, a: o[i].copy_(a), out, first if i == 0 else make())
     return out
 
 
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if _is_tree(v) else (v,))
+
+
+def init_device(device, seed: int):
+    """(device, generator) of an ``init_params``: a ``torch.Generator``
+    seeded on ``device`` (default cuda), or none on the meta device,
+    where the init helpers' draws allocate and draw nothing."""
+    if str(device) == "meta":
+        return torch.device("meta"), None
+    dev = resolve_device(device)
+    return dev, torch.Generator(device=dev).manual_seed(seed)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default ``cuda``). The draws differ from ``jax.random``'s; parity
+    (default ``cuda``; ``"meta"`` gives shapes and dtypes only, see
+    `abstract_params`). The draws differ from ``jax.random``'s; parity
     with the reference goes through `repro_torch.bridge`."""
     check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev, gen = init_device(device, seed)
     dt = torch_dtype(cfg.dtype)
     d = cfg.d_model
     params: Dict[str, Any] = {
@@ -208,6 +261,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     return ParamTree(params)
 
 
+def abstract_params(cfg: ModelConfig) -> ParamTree:
+    """The parameter tree on the meta device: every leaf's shape and
+    dtype, nothing allocated (the reference's ``jax.eval_shape`` of its
+    ``init_params``)."""
+    return init_params(cfg, device="meta")
+
+
 # -------------------------------------------------------------- embed inputs
 
 def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, Any]):
@@ -216,9 +276,10 @@ def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, Any]):
     parameters' device."""
     emb = params["embed"]
     if "embeds" in batch:
-        return batch["embeds"].to(device=emb.device,
-                                  dtype=torch_dtype(cfg.dtype))
-    return emb[batch["tokens"].long()]
+        x = batch["embeds"].to(device=emb.device, dtype=torch_dtype(cfg.dtype))
+    else:
+        x = embed_lookup(emb, batch["tokens"])
+    return constrain(x, "batch", None, None)
 
 
 def _positions(cfg: ModelConfig, b: int, s: int, device=None):
@@ -265,8 +326,8 @@ def _layer_prefill(cfg: ModelConfig, params, lp, x, positions, i: int, *,
         x = x + h
         h, cm_last = rk.channel_mix(
             lp["cm"], apply_norm(x, lp["ln2"], cfg.norm), st["cm_last"])
-        return (x + h, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv},
-                0.0)
+        return (constrain(x + h, "batch", None, None),
+                {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv}, 0.0)
     if cfg.family == "hybrid":
         st = m2.init_mamba2_state(x.shape[0], cfg.d_model,
                                   cfg.ssm.state_size, cfg.ssm.expand,
@@ -277,9 +338,9 @@ def _layer_prefill(cfg: ModelConfig, params, lp, x, positions, i: int, *,
             chunk=cfg.ssm.chunk_size)
         x, kv = x + h, None
         if _is_attn_layer(cfg, i):
-            x, kv = _shared_block(cfg, params["shared_attn"], x, positions,
-                                  window=window)
-        return x, (st, kv), 0.0
+            x, kv = _shared_block(cfg, weights(params["shared_attn"]), x,
+                                  positions, window=window)
+        return constrain(x, "batch", None, None), (st, kv), 0.0
     h, kv = attn.attn_prefill(
         lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), positions,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -296,7 +357,7 @@ def _layer_prefill(cfg: ModelConfig, params, lp, x, positions, i: int, *,
                                 capacity_factor=cfg.moe.capacity_factor)
     else:
         h = ff.mlp_forward(lp["mlp"], x2, cfg.activation)
-    return x + h, kv, aux
+    return constrain(x + h, "batch", None, None), kv, aux
 
 
 def _layer_full(cfg: ModelConfig, params, lp, x, positions, i: int, *,
@@ -309,13 +370,13 @@ def _layer_full(cfg: ModelConfig, params, lp, x, positions, i: int, *,
 
 
 def _exit_w(params, lp):
-    return lp["exit_w"] if "exit_w" in lp else params["exit_w"]
+    return lp["exit_w"] if "exit_w" in lp else gather_fsdp(params["exit_w"])
 
 
 # -------------------------------------------------------------- train / eval
 
 def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
-               remat: bool = True):
+               remat: bool = True, seq_parallel: bool = True):
     """Joint multi-exit loss (paper/ElasticBERT style): mean CE over the
     exits + final-layer CE + ``0.01 * aux / L`` (aux, the MoE balance
     loss summed over the layers, is 0 for the other families). LM
@@ -325,32 +386,46 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations.
+
+    ``seq_parallel``: Megatron-style sequence-parallel residual boundary
+    under a bound mesh: the carry between layers (and so the saved
+    activation stack) is sharded over "model" on the sequence dim,
+    ("batch", "model", None), else ("batch", None, None). Unbound it
+    changes nothing.
     """
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, device=x.device)
     window = cfg.effective_window(s)
     labels = batch["labels"].to(x.device).long()
+    carry_spec = ("batch", "model", None) if seq_parallel \
+        else ("batch", None, None)
 
     def logits_of(hn, w):
         if cfg.num_classes:
             return pool_hidden(cfg, hn) @ w                # (B, C)
-        return (hn @ w)[:, :-1]                            # (B, S-1, V)
+        # the sequence whole (gathered from a sequence split) before the
+        # vocabulary-split head, as Megatron's sequence parallelism does
+        hn = constrain(hn, "batch", None, None)
+        return constrain(hn @ w, "batch", None, "model")   # (B, S, V)
 
     def ce(logits):
-        return cross_entropy(logits, labels if cfg.num_classes
-                             else labels[:, 1:])
+        if cfg.num_classes:
+            return cross_entropy(logits, labels)
+        return next_token_ce(logits, labels)
 
     def body(xx, i):
         lp = layer_params(params["layers"], i)
         xx, aux_i = _layer_full(cfg, params, lp, xx, positions, i,
                                 window=window)
         if not cfg.exits.enabled:
-            return xx, xx.new_zeros((), dtype=torch.float32), aux_i
-        # pooling precedes the exit norm for a classifier (they commute)
-        src = xx[:, :1] if cfg.num_classes else xx
-        hn = apply_norm(src, lp["exit_norm"], cfg.norm)
-        return xx, ce(logits_of(hn, _exit_w(params, lp))), aux_i
+            loss_i = xx.new_zeros((), dtype=torch.float32)
+        else:
+            # pooling precedes the exit norm for a classifier (they commute)
+            src = xx[:, :1] if cfg.num_classes else xx
+            hn = apply_norm(src, lp["exit_norm"], cfg.norm)
+            loss_i = ce(logits_of(hn, _exit_w(params, lp)))
+        return constrain(xx, *carry_spec), loss_i, aux_i
 
     exit_losses, aux = [], 0.0
     for i in range(cfg.num_layers):
@@ -366,6 +441,7 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
     w = params.get("exit_w")
     if w is None:  # per-exit heads: the final exit is the last layer's head
         w = params["layers"]["exit_w"][-1]
+    w = gather_fsdp(w)
     loss = ce(logits_of(xf, w)) + 0.01 * aux / cfg.num_layers
     if cfg.exits.enabled:
         loss = loss + torch.stack(exit_losses).mean()
@@ -608,7 +684,7 @@ def _decode_layer(cfg: ModelConfig, params, slices, i: int, x,
     if _is_attn_layer(cfg, i):
         oi = _occurrence(cfg, i)
         sl = slices["attn"][oi]
-        x2, sl2 = _shared_decode(cfg, params["shared_attn"], x2, sl,
+        x2, sl2 = _shared_decode(cfg, weights(params["shared_attn"]), x2, sl,
                                  cur_index, window=window)
         slices["attn"][oi] = sl2 if mask is None else _mask_rows(mask, sl2,
                                                                  sl)
@@ -622,16 +698,17 @@ def _decode_layer(cfg: ModelConfig, params, slices, i: int, x,
 def _step_input(params, cfg: ModelConfig, token_or_embed):
     """Token ids (B,) -> (B, 1, D) embeddings; an embedding passes."""
     if token_or_embed.ndim <= 1 or not token_or_embed.is_floating_point():
-        return params["embed"][token_or_embed.reshape(-1, 1).long()]
+        return embed_lookup(params["embed"], token_or_embed.reshape(-1, 1))
     return token_or_embed.to(torch_dtype(cfg.dtype))
 
 
 def _final_logits(params, cfg: ModelConfig, x):
     """The final head on the last token: ``norm(x) @ ew`` (torch.matmul,
     as in the reference); ew is the shared head, else the last layer's."""
-    ew = params["exit_w"] if "exit_w" in params \
-        else params["layers"]["exit_w"][-1]
-    return apply_norm(x, params["final_norm"], cfg.norm)[:, -1, :] @ ew
+    ew = gather_fsdp(params["exit_w"]) if "exit_w" in params \
+        else gather_fsdp(params["layers"]["exit_w"][-1])
+    return constrain(apply_norm(x, params["final_norm"], cfg.norm)[:, -1, :]
+                     @ ew, "batch", "model")
 
 
 def _mask_rows(mask, new, old):

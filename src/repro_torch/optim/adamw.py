@@ -7,6 +7,11 @@ mirrors the parameters' paths: ``{"m": {path: f32}, "v": {path: f32},
 "count": int}``. Unlike the reference, which returns new arrays, the
 update writes the parameters and the state in place: on the card that
 saves a second copy of each.
+
+``DTensor`` parameters (model parallelism) get ``DTensor`` moments placed
+as they are; the global norm is taken by ``DTensor`` reductions over the
+whole mesh (each shard's partial sum of squares reduced, a replicated
+leaf counted once), and each rank then updates its own shards.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ from typing import Any, Dict, Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.shards import is_dtensor
 
 
 class AdamWConfig(NamedTuple):
@@ -37,7 +44,7 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def adamw_init(params) -> Dict[str, Any]:
-    zeros = {path: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {path: torch.zeros_like(p, dtype=torch.float32)
              for path, p in flatten(params).items()}
     return {"m": zeros, "v": {k: torch.zeros_like(z) for k, z in zeros.items()},
             "count": 0}
@@ -70,6 +77,9 @@ def adamw_update(params, grads, state: Dict[str, Any], cfg: AdamWConfig,
     for path, p in flatten(params).items():
         g32 = clipped[path].float()
         m, v = state["m"][path], state["v"][path]
+        if is_dtensor(p):           # each rank updates its own shards
+            g32 = g32.redistribute(p.device_mesh, p.placements).to_local()
+            p, m, v = p.to_local(), m.to_local(), v.to_local()
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
         step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)

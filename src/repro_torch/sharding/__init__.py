@@ -1,2 +1,5 @@
-"""Sharding rules of the port: parameter specs by leaf path."""
-from repro_torch.sharding.rules import param_specs  # noqa: F401
+"""Sharding rules of the port: parameter specs by leaf path and the
+logical-axis activation constraints of model parallelism."""
+from repro_torch.sharding.rules import (  # noqa: F401
+    constrain, current_mesh, logical_to_spec, mesh_rules, named_shardings,
+    param_specs)
