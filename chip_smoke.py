@@ -107,7 +107,9 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    `forward_exits` and `forward_exits_masked` in float32 (ElasticBERT-12
    at all 12 layers, rwkv6-3b cut to 8, zamba2-1.2b cut to 12: two
    shared blocks; rwkv6-3b at all 32 layers against a float64 CPU
-   reading, WITNESS_FACTOR), the offload codec bitwise in every mode,
+   reading, WITNESS_FACTOR, in a subprocess beside the card phases that
+   follow, awaited before the MoE phase), the offload codec bitwise in
+   every mode,
    and the served decisions of a small float32 model of each family
    (bucketed, scan, auto, int8, sharded K = 1); for zamba2 and an MoE it
    prints the device time inside the plain-PyTorch blocks (Mamba2 and
@@ -189,7 +191,27 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    mixtral-8x22b x decode_32k on the fake (16, 16) mesh (two
    subprocesses on the host, started with the phase) and prints their
    per-device numbers;
-9. prints one JSON line of per-kernel numbers (``launches`` from the run
+9. drives the front doors (`front_doors_phase`): the 200-step weights
+   trained in 7. saved with `checkpoint.save_pytree` under ``build/`` (bytes and
+   seconds printed) and read back with `load_pytree` against the card
+   tree, against `abstract_params()` with ``device=`` the card and onto
+   the CPU, every leaf bitwise, and served from the loaded tree (B = 32,
+   bucketed, 512 samples) bit for bit as from memory, its launches held
+   against its decisions; the serve CLI through
+   `repro_torch.launch.serve.main(argv)` at the reference's testbed
+   geometry: classify with ``--dump-config`` and again from that
+   ``--config`` (equal decisions where the testbed's training repeats
+   bit for bit, and equal resolved configs), ``--fused-exit --edge-mode
+   scan``, and decode of qwen3-1.7b's smoke config (one exit launch a
+   step); and, as subprocesses started with the phase and awaited at
+   its end, the CLI's driver mode (``--distributed``: a lockstep pair
+   and a fault-tolerant trio with host 1 killed at round 2, respawned
+   and rejoined; workers on this card) and the examples
+   ``train_multiexit_torch.py --full`` (its checkpoint read back here
+   must reprint its per-exit accuracy and confidence lines),
+   ``serve_engine_torch.py`` and ``lm_decode_splitee_torch.py`` (WKV6),
+   with their launch counts;
+10. prints one JSON line of per-kernel numbers (``launches`` from the run
    named in MAIN_PATH, ``launches_by_path``, ``launches_by_variant`` and,
    for the exit kernels, ``launches_by_tile`` from every run; attention's
    ``at_training`` entry the training shape, ``at_tp2_train`` the TP = 2
@@ -246,6 +268,12 @@ LM_FORWARD_RTOL = 1e-4
 # reading may be at most this many times the CPU float32's (two float32
 # paths that round independently)
 WITNESS_FACTOR = 2.0
+# the witness runs in a subprocess (`witness_background`) with this many
+# intra-op threads beside the card phases after rwkv6-3b's agreement (its
+# CPU readings take ~70 s on 8 threads), cut WITNESS_TIMEOUT_S after it
+# starts
+WITNESS_THREADS = 4
+WITNESS_TIMEOUT_S = 600
 # WKV6 kernel vs plain version: both f32 outputs, the sums over dk and
 # the state over T are taken in different orders (rtol = atol)
 WKV6_TOL = 1e-4
@@ -365,13 +393,17 @@ ENCDEC_AGREE_STEPS = 4
 # DIST_DETECT_SLACK_S, and respawns host 1, which asks to rejoin
 # DIST_REJOIN_DELAY_S after its model is up (so that some rounds run on
 # the two survivors alone); each cluster launch is cut at
-# DIST_CLUSTER_TIMEOUT_S
+# DIST_CLUSTER_TIMEOUT_S. The respawn's start-up (a fresh interpreter,
+# CUDA, the model, a warm-up) takes ~9 s of the 16-round stream: at a 1 s
+# pace and a 4 s delay it rejoined at round 13-14 of 16 and once not at
+# all (a cluster that ends first never acks it), hence a 1.5 s pace and
+# a one-round delay
 DIST_HB_TIMEOUT = 3.0
 DIST_DETECT_SLACK_S = 2.0
 DIST_KILL_EPOCH = 2
 DIST_FT_HOSTS = 3
-DIST_PACE_S = 1.0
-DIST_REJOIN_DELAY_S = 4 * DIST_PACE_S
+DIST_PACE_S = 1.5
+DIST_REJOIN_DELAY_S = DIST_PACE_S
 DIST_CLUSTER_TIMEOUT_S = 150.0
 # the variant every launch of a decode run must take: attention at d 128
 # and the LM-head exits on the tensor cores, WKV6 on 16-byte rows
@@ -1679,7 +1711,8 @@ class Runs:
             edge_mode="bucketed", side_info=False, full=True):
         """``fn()`` serves; its launches must be what its decisions need
         (`expected_launches`), every launch through the variant
-        SERVE_VARIANTS names and, at the LM head, the tile its rows take.
+        SERVE_VARIANTS names (attention of a float32 ``cfg`` through
+        `cuda_core`) and, at the LM head, the tile its rows take.
         ``full``: a run of the whole stream, which must also pull every
         arm and both exit and offload. Returns (report, wall seconds,
         {rows: wgmma edge launches})."""
@@ -1729,6 +1762,8 @@ class Runs:
             if counts[kname] <= 0:
                 fail(f"{name}: kernel {kname} was not launched")
         for kname, variant in SERVE_VARIANTS[cfg.family].items():
+            if kname == "flash_attention" and cfg.dtype == "float32":
+                variant = "cuda_core"
             if variants.get(f"{kname}/{variant}", 0) != counts[kname]:
                 fail(f"{name}: {counts[kname]} launches of {kname}, but not "
                      f"all through its {variant} variant: {variants}")
@@ -2654,6 +2689,7 @@ def lm_depth_witness(torch, dev, params, cfg, data, layers: int,
     depths = lm_depths(torch, layers)
     inputs = {"tokens": toks}
     card = lm_exit_runs(torch, tree, cut, inputs, depths, dev, torch.float32)
+    torch.cuda.empty_cache()             # the CPU readings need no card
     cpu32 = lm_exit_runs(torch, tree, cut, inputs, depths, "cpu",
                          torch.float32)
     with float64_kept(torch):
@@ -2691,8 +2727,99 @@ def lm_depth_witness(torch, dev, params, cfg, data, layers: int,
     return held
 
 
+# the float64 witness's subprocess: this file imported from its directory
+WITNESS_CHILD = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.witness_child()
+'''
+
+
+def weights_digest(torch, params) -> int:
+    """The sum of every parameter's bytes: the same weights give the
+    same number on any device."""
+    return sum(int(p.detach().contiguous().view(torch.uint8).sum(
+        dtype=torch.int64)) for p in params.parameters())
+
+
+def witness_child():
+    """`Witness`'s subprocess: rwkv6-3b's weights from the serve phase's
+    seed on the card (their digest printed), moved to the CPU, then
+    `lm_depth_witness` at all its layers on the serve phase's tokens, the
+    CPU readings over WITNESS_THREADS threads."""
+    import torch
+    from repro_torch.data import make_dataset
+    torch.set_num_threads(WITNESS_THREADS)
+    dev = torch.device("cuda", 0)
+    cfg = model_config(LM)
+    params = init_full(torch, dev, cfg, 0)
+    print(f"DIGEST {weights_digest(torch, params)}", flush=True)
+    params = _tree_to(params, "cpu")
+    torch.cuda.empty_cache()
+    lm_depth_witness(torch, dev, params, cfg,
+                     make_dataset("imdb_like", SERVE_SAMPLES, seed=1),
+                     cfg.num_layers)
+
+
+class Witness:
+    """rwkv6-3b at all its layers against a float64 CPU reading
+    (`lm_depth_witness`), in a subprocess (`witness_child`) started here,
+    beside the card phases that follow, and awaited by `wait`. Its weights
+    are the serve phase's: their digest must equal ``params``'. Killed at
+    exit if still running."""
+
+    def __init__(self, torch, params, cfg):
+        import atexit
+        import tempfile
+        self.digest = weights_digest(torch, params)
+        self.out, self.err = tempfile.TemporaryFile("w+"), \
+            tempfile.TemporaryFile("w+")
+        env = dict(os.environ, PYTHONPATH=str(SRC),
+                   OMP_NUM_THREADS=str(WITNESS_THREADS))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", WITNESS_CHILD, str(ROOT)], cwd=ROOT,
+            env=env, stdout=self.out, stderr=self.err)
+        atexit.register(self.kill)
+        print(f"  {LM} {cfg.num_layers}-layer float64 witness started in a "
+              f"subprocess ({WITNESS_THREADS} threads), beside the phases "
+              f"that follow", flush=True)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait(self):
+        """Waits for the subprocess (WITNESS_TIMEOUT_S from its start) and
+        prints its lines; fails on a non-zero exit or other weights."""
+        try:
+            self.proc.wait(timeout=max(1.0, self.t0 + WITNESS_TIMEOUT_S
+                                       - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.kill()
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        if self.proc.returncode != 0:
+            fail(f"{LM} float64 witness: exit {self.proc.returncode} "
+                 f"({time.perf_counter() - self.t0:.1f} s after its start)"
+                 f"\n{out[-3000:]}\n{err[-4000:]}")
+        digest = re.search(r"^DIGEST (\d+)$", out, re.M)
+        if digest is None or int(digest.group(1)) != self.digest:
+            fail(f"{LM} float64 witness: other weights than the serve "
+                 f"phase's ({digest and digest.group(1)} vs {self.digest})")
+        for line in out.splitlines():
+            if not line.startswith("DIGEST "):
+                print(line)
+        print(f"  the witness's weights are the serve phase's (byte sum "
+              f"{self.digest}); done {time.perf_counter() - self.t0:.1f} s "
+              f"after its start")
+
+
 def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
-                       witness: bool = True, inputs=None):
+                       inputs=None):
     """An LM at full width (rwkv6-3b, zamba2-1.2b, phi3.5-moe, qwen2-vl),
     cut to its first ``layers`` layers of the serve phase's weights (over
     8 samples of ``data``, or the batch ``inputs``: a stub's embeds), in
@@ -2701,8 +2828,7 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
     0..layers-1) on the card (the layer and exit kernels) against the CPU
     (plain versions), an MoE's routing held by `compare_routes`; then the
     served decisions of the small float32 model of the arch (for a token
-    batch). With ``witness``, all layers are held by `lm_depth_witness`,
-    against a float64 CPU reading."""
+    batch)."""
     from repro_torch.models.common import apply_norm
     from repro_torch.models.transformer import (ParamTree, exit_hidden,
                                                 _layer_full, _positions,
@@ -2765,8 +2891,6 @@ def lm_agreement_phase(torch, dev, params, cfg, data, layers: int = 8,
     print(f"  [{cfg.arch_id} {layers}-layer float32 agreement: "
           f"{time.perf_counter() - t0:.1f} s wall]")
     del cpu_p
-    if witness:
-        lm_depth_witness(torch, dev, params, cfg, data, cfg.num_layers)
     if tokens:
         small_serve_agreement(torch, dev, cfg.arch_id, data)
 
@@ -3364,7 +3488,7 @@ def moe_phase(torch, dev, runs: Runs, seed: int):
     print(f"  {prefix}B=32 scan vs bucketed: {s_rep['n'] / s_wall:.1f} vs "
           f"{b_rep['n'] / b_wall:.1f} samples/s")
     lm_agreement_phase(torch, dev, params, cfg, data,
-                       layers=MOE_AGREE_LAYERS, witness=False)
+                       layers=MOE_AGREE_LAYERS)
     decode_phase(torch, dev, runs, MOE, seed, layers=MOE_LAYERS,
                  params=params, n_prompts=MOE_PROMPTS, tokens=MOE_TOKENS,
                  full=False, agree_layers=MOE_AGREE_LAYERS)
@@ -3527,7 +3651,7 @@ def vlm_phase(torch, dev, runs: Runs, seed: int):
     vlm_decode(torch, dev, runs, params, cfg, embeds[0][:VLM_DECODE_PROMPTS],
                seed)
     lm_agreement_phase(torch, dev, params, cfg, None, layers=VLM_AGREE_LAYERS,
-                       witness=False, inputs={"embeds": embeds[0][:8]})
+                       inputs={"embeds": embeds[0][:8]})
     del params, embeds
     torch.cuda.empty_cache()
 
@@ -4229,7 +4353,8 @@ def train_phase(torch, dev, runs: Runs):
     """Full-width ElasticBERT-12 trained on the card, then the paper's
     pipeline on its weights and the served decisions on an early
     checkpoint of the same recipe. Returns the attention record at the training
-    shape, with the run's launches and timings."""
+    shape, with the run's launches and timings, and (params, model, cost
+    with the calibrated alpha) of the trained weights."""
     from repro_torch.data import make_dataset
     from repro_torch.launch.train import train_classifier
 
@@ -4268,7 +4393,7 @@ def train_phase(torch, dev, runs: Runs):
           f"{rec['bound_ms']:.6f} ({rec['bound_by']}); attention_backward "
           f"{rec['backward_ms']:.5f}; {rec['launches']} launches in the "
           f"training run")
-    return rec
+    return rec, (params, model, cost)
 
 
 # ------------------------------------------------------ model parallelism
@@ -4615,6 +4740,372 @@ def mp_card_runs(torch, dev, runs: Runs):
     return rec
 
 
+# ------------------------------------------------------------ front doors
+
+# the front doors (`front_doors_phase`): the trained full-width checkpoint
+# and the examples' outputs under FD_DIR; the serve CLI in this process
+# (classify at the reference's testbed geometry, decode at qwen3-1.7b's
+# smoke geometry) and as subprocesses in driver mode; three examples as
+# subprocesses. The subprocesses start with the phase, run on this card
+# beside its in-process runs (one intra-op thread each) and are awaited
+# at its end, each cut at FD_PROC_TIMEOUT_S.
+FD_DIR = ROOT / "build" / "front_doors"
+FD_PROC_TIMEOUT_S = 300
+# the classify runs train the testbed 100 of its default 300 steps: at
+# 300 the card's testbed is saturated and serves no offload at all (so
+# the cloud half would go unrun), and training is most of each run's time
+FD_CLASSIFY = ["--samples", "512", "--batch-size", "32", "--steps", "100"]
+FD_DECODE = ["--workload", "decode", "--decode-arch", "qwen3-1.7b",
+             "--samples", "16", "--batch-size", "8", "--max-new-tokens",
+             "16"]
+FD_FULL_STEPS = 20
+# the fault-tolerant trio: a respawned worker on the card asks to rejoin
+# only once it has imported the port and made its exchange, which under
+# the phase's load may take longer than the default 5 s detection window;
+# the cluster detects the kill within FD_HB_TIMEOUT (the respawn then
+# joins at the kill's round) and paces every round by FD_PACE_S, so a
+# later respawn still joins before the survivors end the stream (a
+# cluster that finishes first never acks it)
+FD_HB_TIMEOUT = 8.0
+FD_PACE_S = 0.5
+FD_CLI = [sys.executable, "-m", "repro_torch.launch.serve"]
+# name -> (argv, extra environment); the examples run under FD_EXAMPLE
+FD_BACKGROUND = {
+    "CLI lockstep pair": (FD_CLI + [
+        "--distributed", "--num-processes", "2", "--batch-size", "16",
+        "--samples", "101", "--layers", "3", "--steps", "30",
+        "--overlap-depth", "2"], {}),
+    "CLI fault-tolerant trio": (FD_CLI + [
+        "--distributed", "--num-processes", "3", "--fault-tolerant",
+        "--batch-size", "8", "--samples", "80", "--steps", "20",
+        "--layers", "3", "--heartbeat-timeout", str(FD_HB_TIMEOUT)],
+        {"SPLITEE_FAULTS": f"kill:host=1,epoch=2;sleep:host=*,epoch=*,"
+                           f"secs={FD_PACE_S}"}),
+    "train_multiexit_torch --full": (
+        ["examples/train_multiexit_torch.py", "--full", "--steps",
+         str(FD_FULL_STEPS), "--save", str(FD_DIR / "train_multiexit")], {}),
+    "serve_engine_torch": (
+        ["examples/serve_engine_torch.py", "--samples", "96", "--layers",
+         "2", "--steps", "10", "--batch-size", "8"], {}),
+    "lm_decode_splitee_torch": (
+        ["examples/lm_decode_splitee_torch.py"], {}),
+}
+# runs an example as its user would (``python examples/X.py FLAGS``), then
+# prints the launch counts of this process (the kernels are the ones the
+# smoke built: the same content hash)
+FD_EXAMPLE = r'''
+import json, runpy, sys
+import torch
+sys.argv = json.loads(sys.argv[1])
+runpy.run_path(sys.argv[0], run_name="__main__")
+torch.cuda.synchronize()
+from repro_torch.kernels import launch_counts, variant_launch_counts
+print("LAUNCHES " + json.dumps({"counts": launch_counts(), "variants": {
+    k: v for k, v in variant_launch_counts().items() if v}}))
+'''
+SUMMARY_LINE = re.compile(r"^(?P<path>[^:\n]*): n=(?P<n>\d+) acc=(?P<acc>\S+) "
+                          r"cost=(?P<cost>\S+)λ offload_frac=(?P<frac>\S+) "
+                          r"offloaded=(?P<mb>\S+)MB \((?P<rate>\S+) "
+                          r"samples/s\)$", re.M)
+
+
+@contextlib.contextmanager
+def fd_background():
+    """FD_BACKGROUND's commands started on entry, each in a session of
+    its own (so its cluster workers go with it) with its output in files
+    under FD_DIR; yields {name: Popen}. Every session still running on
+    the way out is killed."""
+    import signal
+    logs = FD_DIR / "logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name, (argv, extra) in FD_BACKGROUND.items():
+            env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+                       **extra)
+            if argv[0] != sys.executable:
+                argv = [sys.executable, "-c", FD_EXAMPLE, json.dumps(argv)]
+            stem = re.sub(r"\W+", "_", name)
+            with open(logs / f"{stem}.out", "w") as out, \
+                    open(logs / f"{stem}.err", "w") as err:
+                procs[name] = subprocess.Popen(
+                    argv, cwd=ROOT, env=env, stdout=out, stderr=err,
+                    start_new_session=True)
+            procs[name].logs = (logs / f"{stem}.out", logs / f"{stem}.err")
+        yield procs
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def fd_await(procs, t0: float):
+    """Wait for every background command (FD_PROC_TIMEOUT_S from the
+    phase's start); fails on a non-zero exit with its stderr's tail.
+    Returns {name: (stdout, stderr, wall s from the phase's start)}."""
+    outs = {}
+    for name, p in procs.items():
+        try:
+            p.wait(timeout=max(1.0, t0 + FD_PROC_TIMEOUT_S
+                               - time.perf_counter()))
+            status = f"exit {p.returncode}"
+        except subprocess.TimeoutExpired:
+            status = f"still running {FD_PROC_TIMEOUT_S} s after the phase " \
+                f"began"
+        stdout, stderr = (path.read_text() for path in p.logs)
+        outs[name] = (stdout, stderr, time.perf_counter() - t0)
+        if p.returncode != 0:
+            fail(f"{name}: {status}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    return outs
+
+
+def fd_checkpoint(torch, dev, runs: Runs, trained):
+    """The training phase's full-width weights saved with `save_pytree`,
+    read back against the card tree, against `abstract_params()` with
+    ``device=`` the card and onto the CPU (every leaf bitwise), then
+    served from the loaded tree: bit for bit the in-memory tree's run."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.data import OnlineStream, make_dataset
+    from repro_torch.serving import EdgeCloudRuntime, ServingConfig, serve
+
+    params, model, cost = trained
+    cfg = train_config()
+    path = FD_DIR / "elasticbert12"
+    t0 = time.perf_counter()
+    save_pytree(str(path), params)
+    secs = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    print(f"  save_pytree: {len(list(params.parameters()))} leaves, "
+          f"{nbytes} bytes on disk in {secs:.3f} s "
+          f"({nbytes / secs / 1e9:.3f} GB/s)")
+    loaded = {}
+    for name, like, device in (("card tree", params, None),
+                               ("abstract_params() to the card",
+                                model.abstract_params(), dev),
+                               ("the card tree to the CPU", params, "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = load_pytree(str(path), like, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        want = dict(params.named_parameters())
+        got = dict(tree.named_parameters())
+        where = {p.device.type for p in got.values()}
+        same = list(got) == list(want) and all(
+            not p.requires_grad and torch.equal(
+                _bits(p), _bits(want[n].to(p.device)))
+            for n, p in got.items())
+        print(f"  load_pytree ({name}): {secs:.3f} s, on {sorted(where)}, "
+              f"every leaf bitwise the trained tree's: {same}")
+        if not same or where != {"cpu" if device == "cpu" else "cuda"}:
+            fail(f"load_pytree ({name}): leaves differ or on {where}")
+        loaded[name] = tree
+    data = make_dataset("imdb_like", SERVE_SAMPLES, seed=1)
+    reps = {}
+    for name, tree in (("in memory", params),
+                       ("from the checkpoint",
+                        loaded["abstract_params() to the card"])):
+        reps[name], _, _ = runs.run(
+            torch, f"checkpoint f32 B=32 {name}",
+            lambda tree=tree: serve(
+                EdgeCloudRuntime(cfg, device=dev), tree,
+                OnlineStream(data, seed=0), cost,
+                ServingConfig(batch_size=SERVE_BATCH)),
+            cfg, batch_size=SERVE_BATCH, full=False)
+    same_run("checkpoint f32 B=32 from the checkpoint",
+             reps["from the checkpoint"], reps["in memory"])
+    print("  served from the checkpoint == in memory: arms, exits, preds, "
+          "rewards, offload bytes, cost and controller state bit for bit")
+
+
+def fd_cli(torch, runs: Runs, name, argv):
+    """`repro_torch.launch.serve.main(argv)` in this process, its launch
+    counts set to 0 just before and read just after; returns (its
+    printed output, counts)."""
+    import io
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_launch_counts)
+    from repro_torch.launch import serve as cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    runs.counts[name] = counts
+    runs.variants[name] = {k: n for k, n in variant_launch_counts().items()
+                           if n}
+    runs.tiles[name] = {}
+    print(f"  {name} ({wall:.2f} s wall): main({' '.join(argv)})")
+    for line in buf.getvalue().splitlines():
+        print(f"    | {line}")
+    print(f"    launches {counts}; by variant {runs.variants[name]}")
+    return buf.getvalue(), counts
+
+
+def fd_summary(name, out):
+    """The summary line's fields of a CLI run; fails without one."""
+    m = SUMMARY_LINE.search(out)
+    if m is None:
+        fail(f"{name}: no summary line in\n{out[-2000:]}")
+    return m.groupdict()
+
+
+def fd_cli_runs(torch, runs: Runs):
+    """The CLI in this process: classify with ``--dump-config`` and again
+    from that ``--config`` (the same decisions when the testbed's training
+    repeats bit for bit; else the difference printed and the two resolved
+    configs held equal), a fused scan run, and decode."""
+    from repro_torch.configs import get_smoke_config
+    first, second = FD_DIR / "serve.json", FD_DIR / "serve_again.json"
+    out1, c1 = fd_cli(torch, runs, "CLI classify --dump-config",
+                      FD_CLASSIFY + ["--dump-config", str(first)])
+    out2, c2 = fd_cli(torch, runs, "CLI classify --config",
+                      ["--config", str(first), "--batch-size", "32",
+                       "--steps", "100", "--dump-config", str(second)])
+    out3, c3 = fd_cli(torch, runs, "CLI classify --fused-exit scan",
+                      FD_CLASSIFY + ["--fused-exit", "--edge-mode", "scan"])
+    for name, counts, fused in (("--dump-config", c1, False),
+                                ("--config", c2, False),
+                                ("--fused-exit scan", c3, True)):
+        if not (counts["flash_attention"] and counts["exit_confidence"]) or \
+                bool(counts["exit_confidence_fused"]) != fused:
+            fail(f"CLI classify {name}: launches {counts}")
+    s1, s2, s3 = (fd_summary(n, o) for n, o in (("--dump-config", out1),
+                                                ("--config", out2),
+                                                ("--fused-exit", out3)))
+    if first.read_text() != second.read_text():
+        fail(f"CLI --config: resolved configs differ:\n{first.read_text()}\n"
+             f"{second.read_text()}")
+    loss = [re.search(r"final loss (\S+)", o).group(1) for o in (out1, out2)]
+    fields = ("path", "n", "acc", "cost", "frac", "mb")
+    decisions = [tuple(s[k] for k in fields) for s in (s1, s2)]
+    print(f"  CLI classify --dump-config vs --config: resolved configs "
+          f"equal; testbed final loss {loss[0]} vs {loss[1]}; decision "
+          f"fields {'equal' if decisions[0] == decisions[1] else 'differ'}"
+          f": {decisions[0]} vs {decisions[1]}; the fused scan run "
+          f"{tuple(s3[k] for k in fields)}")
+    if loss[0] == loss[1] and decisions[0] != decisions[1]:
+        fail("CLI classify: the same testbed served other decisions from "
+             "the same config")
+    for s in (s1, s2, s3):
+        if s["n"] != "512":
+            fail(f"CLI classify: served {s['n']} of 512")
+
+    out4, c4 = fd_cli(torch, runs, "CLI decode qwen3-1.7b smoke", FD_DECODE)
+    cfg = get_smoke_config("qwen3-1.7b")
+    n, b, tokens = 16, 8, 16
+    want, _ = decode_expected(cfg, n, b, tokens)
+    want["flash_attention"] += layer_launches(cfg, 0, cfg.num_layers)
+    want["exit_confidence"] += tokens          # the alpha probe's steps
+    if c4 != want:
+        fail(f"CLI decode: launches {c4}, but one exit launch a step (the "
+             f"probe's {tokens} and the served {n // b} x {tokens}) and "
+             f"the prefills need {want}")
+    if f"tokens={n * tokens} " not in out4:
+        fail(f"CLI decode: not {n * tokens} tokens:\n{out4}")
+
+
+def fd_check_background(torch, dev, runs: Runs, outs):
+    """What the background commands printed: the clusters' host-0
+    summaries (and the fault-tolerant kill, respawn and rejoin), the
+    examples' lines and launches, and train_multiexit_torch's checkpoint
+    reproducing its own per-exit lines."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.train import exit_accuracy
+    from repro_torch.models.api import build_model
+
+    for name, (stdout, stderr, wall) in outs.items():
+        print(f"  {name}: exit 0 at {wall:.1f} s of the phase")
+        for line in stdout.splitlines():
+            if not line.startswith("LAUNCHES "):
+                print(f"    | {line}")
+    pair = fd_summary("CLI lockstep pair", outs["CLI lockstep pair"][0])
+    if pair["path"] != "SplitEE (distributed H=2 R=1/host B=16 overlap=K=2)" \
+            or pair["n"] != "101":
+        fail(f"CLI lockstep pair: {pair}")
+    trio_out = outs["CLI fault-tolerant trio"][0]
+    trio = fd_summary("CLI fault-tolerant trio", trio_out)
+    reconf = re.findall(r"^\[fault-tolerant\] round (\d+): removed=(\S+) "
+                        r"joined=(\S+) ", trio_out, re.M)
+    joined = [int(r) for r, _, j in reconf if j == "[1]"]
+    print(f"  CLI fault-tolerant trio: host 1 removed at round "
+          f"{reconf[0][0] if reconf else None}, rejoined at round "
+          f"{joined[0] if joined else None}")
+    if not reconf or reconf[0][:2] != ("2", "[1]") or not joined \
+            or trio["n"] != "80" or "final-exit: " not in trio_out \
+            or trio["path"] != ("SplitEE (distributed H=3 R=1/host B=8 "
+                                "overlap=K=1 FT)"):
+        fail(f"CLI fault-tolerant trio: no kill at round 2, respawn and "
+             f"rejoin, or not the whole stream:\n{trio_out}")
+
+    for name in ("serve_engine_torch", "lm_decode_splitee_torch"):
+        line = [ln for ln in outs[name][0].splitlines()
+                if ln.startswith("LAUNCHES ")]
+        rec = json.loads(line[-1][len("LAUNCHES "):])
+        runs.counts[f"example {name}"] = rec["counts"]
+        runs.variants[f"example {name}"] = rec["variants"]
+        runs.tiles[f"example {name}"] = {}
+        print(f"  example {name}: launches {rec['counts']}; by variant "
+              f"{rec['variants']}")
+        if name == "serve_engine_torch":
+            if "push-session == one-shot serve(): arms, preds, and bandit " \
+                    "state are bit-identical" not in outs[name][0] or \
+                    not (rec["counts"]["flash_attention"]
+                         and rec["counts"]["exit_confidence"]):
+                fail(f"example {name}: {outs[name][0][-1500:]}")
+        else:
+            cfg = get_smoke_config("rwkv6-3b")
+            want, _ = decode_expected(cfg, 8, 8, 16)
+            if rec["counts"] != want:
+                fail(f"example {name}: launches {rec['counts']}, the "
+                     f"decode launch model needs {want}")
+
+    # the --full run's checkpoint, read back here, reprints its lines
+    cfg = train_config()
+    model = build_model(cfg)
+    params = load_pytree(str(FD_DIR / "train_multiexit"),
+                         model.abstract_params(), device=dev)
+    lines = outs["train_multiexit_torch --full"][0].splitlines()
+    for domain in ("sst2_like", "imdb_like"):
+        conf, _, correct = exit_accuracy(model, params,
+                                         make_dataset(domain, 2048, seed=9))
+        acc = f"{domain:14s} per-exit acc : " + " ".join(
+            f"{a:.2f}" for a in correct.mean(0))
+        confs = f"{'':14s} per-exit conf: " + " ".join(
+            f"{c:.2f}" for c in conf.mean(0))
+        if acc not in lines or lines[lines.index(acc) + 1] != confs:
+            fail(f"train_multiexit_torch --full: its checkpoint gives\n"
+                 f"{acc}\n{confs}\nnot in what it printed")
+    print(f"  train_multiexit_torch --full: its checkpoint "
+          f"({FD_FULL_STEPS} steps, {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, f32) read back with load_pytree reprints its "
+          f"per-exit accuracy and confidence lines on both domains")
+
+
+def front_doors_phase(torch, dev, runs: Runs, trained):
+    """The front doors on the card: the training phase's full-width
+    checkpoint (`fd_checkpoint`), the serve CLI through ``main(argv)``
+    (`fd_cli_runs`), and as subprocesses started with the phase (`
+    FD_BACKGROUND`): the CLI's driver mode (a lockstep pair and a
+    fault-tolerant trio with host 1 killed at round 2, respawned and
+    rejoined; workers on this card) and three examples, awaited and
+    checked at its end (`fd_check_background`)."""
+    t0 = time.perf_counter()
+    with fd_background() as procs:
+        fd_checkpoint(torch, dev, runs, trained)
+        fd_cli_runs(torch, runs)
+        print(f"  [in-process runs: {time.perf_counter() - t0:.1f} s wall]")
+        outs = fd_await(procs, t0)
+    fd_check_background(torch, dev, runs, outs)
+
+
 def _first_rows(tree, n: int):
     """The first ``n`` rows of every leaf: the first n layers of a
     stacked-layer tree."""
@@ -4704,8 +5195,7 @@ def main(argv=None) -> int:
             (LM, None, 16, f"{LM} ", lm_agreement_phase),
             (HYBRID, HYBRID_SERVE_LAYERS, HYBRID_ALPHA_LAYER,
              f"{HYBRID} {HYBRID_SERVE_LAYERS}L ",
-             lambda *a: lm_agreement_phase(*a, layers=HYBRID_AGREE_LAYERS,
-                                           witness=False))):
+             lambda *a: lm_agreement_phase(*a, layers=HYBRID_AGREE_LAYERS))):
         with phase(f"serve: {arch} (full width"
                    f"{f', {layers} layers' if layers else ''}) on the card"):
             params, cfg, data, cost = serve_setup(torch, dev, arch,
@@ -4727,6 +5217,8 @@ def main(argv=None) -> int:
                                   sharded)
         with phase(f"agreement: {arch}, card kernel path vs CPU plain "
                    f"path"):
+            if arch == LM:
+                witness = Witness(torch, params, cfg)
             agree(torch, dev, params, cfg, data)
         del params
         torch.cuda.empty_cache()
@@ -4735,6 +5227,10 @@ def main(argv=None) -> int:
         with phase(f"decode: {arch} (full width) on the card"):
             decode_phase(torch, dev, runs, arch, seed,
                          agree_layers=agree_layers)
+
+    with phase(f"agreement: {LM} at all its layers against float64 (a "
+               f"subprocess since its agreement phase)"):
+        witness.wait()
 
     with phase(f"{MOE}: full width, {MOE_LAYERS} of 32 layers, on the "
                f"card"):
@@ -4751,11 +5247,16 @@ def main(argv=None) -> int:
         codec_agreement(torch, dev)
 
     with phase("train: elasticbert12 (full width) on the card"):
-        rec_attn["at_training"] = train_phase(torch, dev, runs)
+        rec_attn["at_training"], trained = train_phase(torch, dev, runs)
 
     with phase("model parallelism: elasticbert12 TP training on the card, "
                "the dry run"):
         rec_attn["at_tp2_train"] = model_parallel_phase(torch, dev, runs)
+
+    with phase("front doors: the full-width checkpoint, the serve CLI "
+               "(in process and its driver mode), the examples"):
+        front_doors_phase(torch, dev, runs, trained)
+    del trained
 
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6):

@@ -1,8 +1,9 @@
 """Import and device guards of the PyTorch port.
 
-* Nothing under src/repro_torch/, and not chip_smoke.py, imports jax or
-  the reference package ``repro`` (AST scan of every import, plus a
-  fresh interpreter that imports every module of the port).
+* Nothing under src/repro_torch/, not chip_smoke.py and no
+  examples/*_torch.py imports jax or the reference package ``repro``
+  (AST scan of every import, plus a fresh interpreter that imports every
+  module of the port and every example twin).
 * Entry points default to CUDA and raise when the process has none.
 """
 import ast
@@ -18,7 +19,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -42,9 +44,12 @@ def test_import_all_modules_without_jax():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__") for p in PORT.rglob("*.py"))
-    code = ("import importlib, sys\n"
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for i, p in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
@@ -113,3 +118,11 @@ def test_distributed_modules_are_scanned_and_use_no_collective(name):
     source = path.read_text()
     for word in ("init_process_group", "nccl", "NCCL", "all_gather("):
         assert word not in source, f"{name} mentions {word}"
+
+
+def test_every_example_has_its_port_twin():
+    """The five examples' twins are among the scanned files."""
+    originals = sorted(p.stem for p in (ROOT / "examples").glob("*.py")
+                       if not p.stem.endswith("_torch"))
+    assert [p.stem for p in EXAMPLES] == [f"{s}_torch" for s in originals]
+    assert len(EXAMPLES) == 5 and all(p in FILES for p in EXAMPLES)
