@@ -313,7 +313,8 @@ LM = "rwkv6-3b"
 MAIN_PATH = {"flash_attention": "batched B=32",
              "exit_confidence": "batched B=32",
              "exit_confidence_fused": "batched B=32 fused_exit",
-             "wkv6": f"{LM} batched B=32"}
+             "wkv6": f"{LM} batched B=32",
+             "exit_confidence_combine": "model mesh TP=2 sync"}
 # the __global__ functions of the port's CUDA sources, in profiler names
 PORT_KERNEL = re.compile(r"(exit_confidence\w*|exit_norm_rows_kernel|"
                          r"wkv6_kernel|flash_attention\w*)")
@@ -719,7 +720,8 @@ def dispatch_checks(torch, dev):
     to its own count."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.exit_confidence.ops import (
-        exit_confidence, exit_confidence_fused)
+        exit_combine, exit_confidence, exit_confidence_fused)
+    from repro_torch.kernels.exit_confidence.ref import exit_partials_ref
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.wkv6.ops import wkv6
 
@@ -736,6 +738,11 @@ def dispatch_checks(torch, dev):
             h.to(d), {"scale": scale.to(d)}, w.to(d), kind="rmsnorm"),
         "wkv6": lambda d: wkv6(q.to(d), q.to(d), q.to(d), decay.to(d),
                                q[0, :, 0].to(d)),
+        # two vocabulary shards' triples, gathered: (2, 8) each
+        "exit_confidence_combine": lambda d: exit_combine(*(
+            torch.cat(pair, dim=0).to(d) for pair in zip(
+                exit_partials_ref(h, w[:, :2], col0=0),
+                exit_partials_ref(h, w[:, 2:], col0=2)))),
     }
     if sorted(calls) != sorted(launch_counts()):
         fail(f"kernels {sorted(launch_counts())}, checks {sorted(calls)}")
@@ -839,6 +846,9 @@ def attention_checks(torch, dev):
          "bfloat16"),
         ("seamless_cross64_bf16", tc, 8, 16, 16, 64, 4096, 64, False, 0,
          "bfloat16"),
+        # a TP = 2 rank's head shard of ElasticBERT-12 served at B = 32
+        # (6 of its 12 heads)
+        ("tp2_serve_bf16", tc, 32, 6, 6, 64, 64, 64, False, 0, "bfloat16"),
         ("suffix_q_f32", cc, 2, 4, 4, 7, 90, 32, True, 0, "float32"),
         ("d16_bf16", cc, 2, 4, 4, 70, 70, 16, False, 0, "bfloat16"),
         ("d48_causal_bf16", cc, 2, 4, 2, 70, 70, 48, True, 0, "bfloat16"),
@@ -930,7 +940,8 @@ def attention_checks(torch, dev):
     # operations the two products in full
     for key, case in (("at_seamless_encoder", "seamless_encoder_bf16"),
                       ("at_seamless_cross16", "seamless_cross16_bf16"),
-                      ("at_seamless_cross64", "seamless_cross64_bf16")):
+                      ("at_seamless_cross64", "seamless_cross64_bf16"),
+                      ("at_tp2_serve", "tp2_serve_bf16")):
         q, k, v, err = out[case]
         rec[key] = not_causal_record(torch, q, k, v, err)
         del out[case]
@@ -1295,6 +1306,286 @@ def exit_checks(torch, dev):
     return rec_plain, rec_fused
 
 
+def front_door_records(torch, dev, rec_attn, rec_plain, rec_fused,
+                       rec_wkv6):
+    """Each kernel held against its plain version and timed at the float32
+    shapes the front doors launch it at (`front_doors_phase`): the
+    full-width checkpoint served (attention (32,12,64,64), the (768, 2)
+    head), the CLI's testbed (6 layers, d 128, 4 heads of 32: attention
+    (32,4,64,32), the (128, 2) head, the fused scan edge's 6 x 32 rows with
+    per-row layernorm parameters), the decode smoke config's step (2
+    layers x 8 prompts, (128, 512) head) and the example's rwkv6-3b smoke
+    prefill (8 prompts of 6 tokens, 2 heads of 64). Adds the
+    ``at_front_doors*`` entries."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_confidence, exit_confidence_fused)
+    from repro_torch.kernels.exit_confidence.ref import (
+        exit_confidence_fused_ref, exit_confidence_ref)
+    from repro_torch.kernels.flash_attention.kernel import attention_variant
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import gqa_ref
+    from repro_torch.kernels.wkv6.kernel import wkv6_variant
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=gen,  # noqa: E731
+                                            device=dev) * scale
+    f32 = "float32"
+    attn_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+    exit_src = "src/repro_torch/kernels/exit_confidence/csrc/exit_confidence.cu"
+    for key, shape, note in (
+            ("at_front_doors", (32, 12, 64, 64), "the checkpoint served"),
+            ("at_front_doors_testbed", (32, 4, 64, 32), "the CLI testbed")):
+        q, k, v = (rnd(*shape) for _ in range(3))
+        variant = attention_variant(q.dtype, shape[-1], True)
+        got = via("flash_attention", variant,
+                  lambda: attention(q, k, v, causal=False))
+        err = check_close(f"flash_attention[{key[3:]}]", got,
+                          gqa_ref(q, k, v, causal=False), f32)
+        b, h, s_, d = shape
+        rec_attn[key] = record(
+            "flash_attention", attn_src,
+            "src/repro/kernels/flash_attention/kernel.py:80",
+            f"q/k/v {shape} float32, bidirectional ({note})", err,
+            lambda: attention(q, k, v, causal=False),
+            lambda: gqa_ref(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            4 * q.numel() * 4, 4.0 * b * h * s_ * s_ * d, f32, variant)
+    for key, (m, d, v), note in (
+            ("at_front_doors", (32, 768, 2), "the checkpoint served"),
+            ("at_front_doors_testbed", (32, 128, 2), "the CLI testbed"),
+            ("at_front_doors_decode", (16, 128, 512),
+             "a decode step of the smoke config, 2 layers x 8 prompts")):
+        h, w = rnd(m, d), rnd(d, v, scale=d ** -0.5)
+        variant = _exit_variant(h, w)
+        conf, pred = via("exit_confidence", variant,
+                         lambda: exit_confidence(h, w))
+        wc, wp = exit_confidence_ref(h, w)
+        err = check_close(f"exit_confidence[{key[3:]}]", conf, wc, f32)
+        check_pred(f"exit_confidence[{key[3:]}]", pred, wp,
+                   lambda: _exit_logits(h, w), f32)
+        rec_plain[key] = record(
+            "exit_confidence", exit_src,
+            "src/repro/kernels/exit_confidence/kernel.py:100",
+            f"h ({m},{d}) @ w ({d},{v}) float32 ({note})", err,
+            lambda: exit_confidence(h, w), lambda: exit_confidence_ref(h, w),
+            lambda: torch.softmax(h @ w, dim=-1).max(dim=-1),
+            (m * d + d * v) * 4 + m * 8, 2.0 * m * d * v, f32, variant)
+    m, d, v = 6 * 32, 128, 2
+    x, w = rnd(m, d, scale=2.0) + 0.5, rnd(d, v, scale=d ** -0.5)
+    norm = {"scale": rnd(m, d, scale=0.1) + 1.0, "bias": rnd(m, d, scale=0.1)}
+    variant = _exit_variant(x, w)
+    conf, pred = via("exit_confidence_fused", variant,
+                     lambda: exit_confidence_fused(x, norm, w,
+                                                   kind="layernorm"))
+    err = check_close("exit_confidence_fused[front_doors_testbed_scan]", conf,
+                      exit_confidence_fused_ref(x, norm, w,
+                                                kind="layernorm")[0], f32)
+    rec_fused["at_front_doors_testbed_scan"] = record(
+        "exit_confidence_fused", exit_src,
+        "src/repro/kernels/exit_confidence/kernel.py:186",
+        f"layernorm x ({m},{d}), per-row (M,D) params, w ({d},{v}) float32 "
+        f"(the CLI testbed's fused scan edge)", err,
+        lambda: exit_confidence_fused(x, norm, w, kind="layernorm"),
+        lambda: exit_confidence_fused_ref(x, norm, w, kind="layernorm"),
+        None, (3 * m * d + d * v) * 4 + m * 8, 2.0 * m * d * v + 8.0 * m * d,
+        f32, variant)
+    b, h, t, dk = 8, 2, 6, 64
+    r, k, v_ = (rnd(b, h, t, dk) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(b, h, t, dk).clamp(-10.0, 2.0) - 1.0))
+    u = rnd(h, dk) * 0.1
+    variant = wkv6_variant(r, k, v_, w)
+    y, st = via("wkv6", variant, lambda: wkv6(r, k, v_, w, u))
+    wy, ws = wkv6_ref(r, k, v_, w, u)
+    err = max((y - wy).abs().max().item(), (st - ws).abs().max().item())
+    if not (torch.allclose(y, wy, rtol=WKV6_TOL, atol=WKV6_TOL)
+            and torch.allclose(st, ws, rtol=WKV6_TOL, atol=WKV6_TOL)):
+        fail(f"wkv6[front_doors_example]: kernel vs plain max |err| "
+             f"{err:.3e} > tol {WKV6_TOL}")
+    rec_wkv6["at_front_doors_example"] = record(
+        "wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6/kernel.py:57",
+        f"r/k/v ({b},{h},{t},{dk}) float32, w float32, u ({h},{dk}) (the "
+        f"lm_decode example's rwkv6-3b smoke prefill)", err,
+        lambda: wkv6(r, k, v_, w, u), lambda: wkv6_ref(r, k, v_, w, u), None,
+        4 * 4 * b * h * t * dk + h * dk * 4 + (b * h * t * dk
+                                               + b * h * dk * dk) * 4,
+        5.0 * b * h * t * dk * dk, f32, variant)
+    print("  front-door shapes (float32): attention, exit, fused exit and "
+          "WKV6 held to their plain versions and timed")
+
+
+def launched_once(kernel: str, fn):
+    """``fn()``, which must launch ``kernel`` once and no other kernel."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    out = fn()
+    moved = {k: n - before[k] for k, n in launch_counts().items()
+             if n != before[k]}
+    if moved != {kernel: 1}:
+        fail(f"{kernel}: expected one launch, counted {moved}")
+    return out
+
+
+def exit_shard_checks(torch, dev, rec_plain, rec_fused):
+    """The exit over a vocabulary split in two, as the ranks of a TP = 2
+    mesh serve it: each half of the head scored by the kernel in its
+    partials mode (global columns), the two ranks' triples gathered and
+    combined by the combine kernel, held against the whole-row plain
+    version, plain and fused (shared layernorm), at ElasticBERT-12's
+    (768, 2) head (1 column a rank: small_head) and rwkv6-3b's (2560,
+    65536) LM head (32768 columns a rank: tensor_core); exact ties across
+    the shard boundary go to the lowest global column; the combine kernel
+    against `combine_partials_ref` on the same triples. Adds the
+    ``at_tp2_serve`` (ElasticBERT-12) and ``at_tp2_serve_lm`` (rwkv6-3b)
+    entries of a rank's partials launch at its shard, and returns the
+    combine kernel's JSON entry (rwkv6-3b's gathered triples, ElasticBERT's
+    as its ``at_tp2_serve``)."""
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_combine, exit_partials, exit_partials_fused)
+    from repro_torch.kernels.exit_confidence.ref import (
+        combine_partials_ref, exit_confidence_fused_ref, exit_confidence_ref,
+        exit_partials_fused_ref, exit_partials_ref)
+    from repro_torch.models.common import apply_norm
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=gen,  # noqa: E731
+                                            device=dev) * scale
+    bf16, b, tp = torch.bfloat16, SERVE_BATCH, 2
+    src = "src/repro_torch/kernels/exit_confidence/csrc/exit_confidence.cu"
+
+    def shards(w):
+        v = w.shape[-1] // tp
+        return [(r * v, w[..., r * v:(r + 1) * v].contiguous())
+                for r in range(tp)]
+
+    def split_exit(kname, h, w, norm=None, tile=None):
+        """Every rank's partials launch, the triples gathered in rank
+        order, one combine launch: (conf, pred, triples)."""
+        parts = []
+        for col0, ws in shards(w):
+            call = (lambda: exit_partials(h, ws, col0=col0)) if norm is None \
+                else (lambda: exit_partials_fused(h, norm, ws,
+                                                  kind="layernorm",
+                                                  col0=col0))
+            parts.append(via(kname, _exit_variant(h, ws), call, tile))
+        tri = tuple(torch.cat([p[i] for p in parts], dim=-2)
+                    for i in range(3))
+        conf, pred = launched_once("exit_confidence_combine",
+                                   lambda: exit_combine(*tri))
+        want = combine_partials_ref(*tri)
+        torch.cuda.synchronize()
+        check_close(f"exit_confidence_combine[{kname}]", conf, want[0],
+                    "float32")
+        if not torch.equal(pred, want[1]):
+            fail(f"exit_confidence_combine[{kname}]: pred differs from "
+                 f"combine_partials_ref's on the same triples")
+        return conf, pred, tri
+
+    def held(name, kname, h, w, norm=None, tile=None, lm=False):
+        conf, pred, tri = split_exit(kname, h, w, norm, tile)
+        hn = h if norm is None else apply_norm(h, norm, "layernorm")
+        wc, wp = (exit_confidence_ref(h, w) if norm is None
+                  else exit_confidence_fused_ref(h, norm, w, kind="layernorm"))
+        err = (conf - wc).abs().max().item()
+        if lm:
+            check_lm_conf(name, conf, wc, _exit_logits(hn, w), "bfloat16",
+                          h.shape[-1])
+        else:
+            check_close(name, conf, wc, "bfloat16")
+        flips = check_pred(name, pred, wp, lambda: _exit_logits(hn, w),
+                           "bfloat16")
+        print(f"  {name}: {tp} vocabulary shards' partials + combine vs the "
+              f"whole-row plain version: max|err| {err:.3e}, pred flips at "
+              f"near-ties {flips}")
+        return err, tri
+
+    def rank_record(kname, replaces, h, w, err, norm=None):
+        """The JSON entry of rank 0's partials launch at its shard."""
+        _, ws = shards(w)[0]
+        bsz, d = h.shape
+        v = ws.shape[-1]
+        splits = exit_partials(h, ws, col0=0)[0].shape[-2]
+        nbytes = h.numel() * 2 + ws.numel() * 2 + 3 * splits * bsz * 4
+        if norm is None:
+            return record(
+                kname, src, replaces,
+                f"h ({bsz},{d}) @ w ({d},{v}) bfloat16, a TP = {tp} rank's "
+                f"vocabulary shard (partials mode)", err,
+                lambda: exit_partials(h, ws, col0=0),
+                lambda: exit_partials_ref(h, ws),
+                lambda: torch.softmax(h @ ws, dim=-1).max(dim=-1),
+                nbytes, 2.0 * bsz * d * v, "bfloat16", _exit_variant(h, ws))
+        return record(
+            kname, src, replaces,
+            f"layernorm x ({bsz},{d}), shared (D,) params, w ({d},{v}) "
+            f"bfloat16, a TP = {tp} rank's vocabulary shard (partials mode)",
+            err, lambda: exit_partials_fused(h, norm, ws, kind="layernorm"),
+            lambda: exit_partials_fused_ref(h, norm, ws, kind="layernorm"),
+            None, nbytes + 2 * d * 2, 2.0 * bsz * d * v + 8.0 * bsz * d,
+            "bfloat16", _exit_variant(h, ws))
+
+    def combine_record(tri, err, note):
+        g = 1 if tri[0].ndim == 2 else tri[0].shape[0]
+        p, bsz = tri[0].shape[-2:]
+        return record(
+            "exit_confidence_combine", src,
+            "src/repro/kernels/exit_confidence/kernel.py:100",
+            f"triples ({p},{bsz}) of {tp} ranks' vocabulary splits{note}",
+            err, lambda: exit_combine(*tri),
+            lambda: combine_partials_ref(*tri),
+            None,       # no single PyTorch call combines split softmaxes
+            3 * g * p * bsz * 4 + 2 * g * bsz * 4, 6.0 * g * p * bsz,
+            "float32", None)
+
+    main, lm_head = (768, 2), (2560, 65536)
+    out = {}
+    for key, (d, v), lm, tile in (("at_tp2_serve", main, False, None),
+                                  ("at_tp2_serve_lm", lm_head, True,
+                                   "mma_sync")):
+        h = rnd(b, d).to(bf16)
+        w = rnd(d, v, scale=d ** -0.5).to(bf16)
+        x = (rnd(b, d, scale=2.0) + 0.5).to(bf16)
+        norm = {"scale": (rnd(d, scale=0.1) + 1.0).to(bf16),
+                "bias": rnd(d, scale=0.1).to(bf16)}
+        err, tri = held(f"exit_confidence[{key[3:]}]", "exit_confidence", h,
+                        w, tile=tile, lm=lm)
+        err_f, _ = held(f"exit_confidence_fused[{key[3:]}]",
+                        "exit_confidence_fused", x, w, norm, tile=tile, lm=lm)
+        rec_plain[key] = rank_record(
+            "exit_confidence", "src/repro/kernels/exit_confidence/kernel.py:100",
+            h, w, err)
+        rec_fused[key] = rank_record(
+            "exit_confidence_fused",
+            "src/repro/kernels/exit_confidence/kernel.py:186", x, w, err_f,
+            norm)
+        err_c = (exit_combine(*tri)[0] - combine_partials_ref(*tri)[0]
+                 ).abs().max().item()
+        out[key] = combine_record(
+            tri, err_c, " (rwkv6-3b's LM head)" if lm else
+            " (ElasticBERT-12's head)")
+    # exact ties across the shard boundary: the lowest global column wins
+    h_t = torch.ones((b, 64), device=dev, dtype=bf16)
+    for cols in ((300, 40000), (32767, 32768), (40000, 65535)):
+        w_t = torch.zeros((64, 65536), device=dev, dtype=bf16)
+        w_t[:, list(cols)] = 2.0
+        pred = split_exit("exit_confidence", h_t, w_t)[1]
+        if not (pred == min(cols)).all():
+            fail(f"exit over {tp} vocabulary shards: tie at columns {cols}, "
+                 f"pred {pred.unique().tolist()}")
+    pred = split_exit("exit_confidence", h_t, torch.ones(
+        (64, 2), device=dev, dtype=bf16))[1]
+    if not (pred == 0).all():
+        fail("exit over 2 one-column shards: a tie did not go to column 0")
+    print(f"  exit over {tp} vocabulary shards: ties across the shard "
+          f"boundary go to the lowest global column")
+    rec = out["at_tp2_serve_lm"]
+    rec["at_tp2_serve"] = out["at_tp2_serve"]
+    return rec
+
+
 def new_vocabulary_checks(torch, dev, rnd, plain_case, fused_case, rec_plain,
                           rec_fused, few):
     """The exit at zamba2-1.2b's head (D 2048, V 32000: 250 whole column
@@ -1590,7 +1881,7 @@ def wkv6_checks(torch, dev):
     case("feature_stride2_f32", relaid(tuple(a.float() for a in small),
                                        "stride2"), "scalar")
 
-    def timed(args, shape_note):
+    def timed(args, shape_note, err=err_main):
         r, k, v, w, u = args
         b, h, t, dk = r.shape
         dv = v.shape[-1]
@@ -1603,7 +1894,7 @@ def wkv6_checks(torch, dev):
             "wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
             "src/repro/kernels/wkv6/kernel.py:57",
             f"r/k/v ({b},{h},{t},{dk}) bfloat16, w float32, u ({h},{dk})"
-            f"{shape_note}", err_main,
+            f"{shape_note}", err,
             lambda: via("wkv6", "vec16", lambda: wkv6(r, k, v, w, u)),
             lambda: wkv6_ref(r, k, v, w, u),
             None,       # no single PyTorch call computes this recurrence
@@ -1614,6 +1905,11 @@ def wkv6_checks(torch, dev):
                          " (a depth bucket of 4)")
     rec["at_b8"] = timed(tuple(a[:8] if a.ndim == 4 else a for a in main),
                          " (the decode prefill of B = 8)")
+    # a TP = 2 rank's head shard of rwkv6-3b served at B = 32 (20 of its
+    # 40 heads, u sliced to them)
+    shard = inputs(32, 20, 64, 64, 64, bf16)
+    rec["at_tp2_serve"] = timed(shard, " (a TP = 2 rank's 20-head shard)",
+                                case("tp2_shard_bf16", shard))
     return rec
 
 
@@ -1643,7 +1939,7 @@ def layer_launches(cfg, start: int, stop: int) -> int:
 
 def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
                       edge_mode: str = "bucketed", side_info: bool = False,
-                      lm_head: bool = False):
+                      lm_head: bool = False, combine: bool = False):
     """Kernel launches the serving drivers make for these decisions.
 
     Per micro-batch, the edge: bucketed, one edge call per distinct arm a
@@ -1659,7 +1955,10 @@ def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
     Returns (launches by kernel, launches by "<kernel>/tensor_core/<tile>"
     at a shared LM head (``lm_head``; else empty), {rows: launches} of
     the wgmma edge exits): the LM head scores L x rows exits of a
-    SplitEE-S or scan edge call, pow2-padded bucket rows otherwise."""
+    SplitEE-S or scan edge call, pow2-padded bucket rows otherwise.
+    ``combine``: a head split over a "model" mesh axis, where each exit
+    call is a launch in partials mode (counted as the exit kernel) and
+    one of the combine kernel."""
     import numpy as np
     from repro_torch.kernels.exit_confidence.kernel import tc_tile
     num_layers, layer_kernel = cfg.num_layers, LAYER_KERNEL[cfg.family]
@@ -1674,6 +1973,7 @@ def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
 
     def exit_launch(kernel, rows, edge):
         n[kernel] += 1
+        n["exit_confidence_combine"] += int(combine)
         if lm_head:
             key = f"{kernel}/tensor_core/{tc_tile(rows)}"
             tiles[key] = tiles.get(key, 0) + 1
@@ -1708,13 +2008,19 @@ class Runs:
         self.counts, self.variants, self.tiles = {}, {}, {}
 
     def run(self, torch, name, fn, cfg, *, batch_size, fused=False,
-            edge_mode="bucketed", side_info=False, full=True):
+            edge_mode="bucketed", side_info=False, full=True, ranks=1,
+            combine=False):
         """``fn()`` serves; its launches must be what its decisions need
         (`expected_launches`), every launch through the variant
-        SERVE_VARIANTS names (attention of a float32 ``cfg`` through
-        `cuda_core`) and, at the LM head, the tile its rows take.
+        SERVE_VARIANTS names (a float32 ``cfg``'s attention and LM head
+        through `cuda_core`) and, at a bf16 LM head, the tile its rows
+        take.
         ``full``: a run of the whole stream, which must also pull every
-        arm and both exit and offload. Returns (report, wall seconds,
+        arm and both exit and offload. ``ranks``: ranks on threads of this
+        process, each serving the whole stream and counting its launches
+        into the same counts (each must make what the decisions need);
+        ``combine``: the head split over a "model" axis (each exit a
+        partial and a combine launch). Returns (report, wall seconds,
         {rows: wgmma edge launches})."""
         import numpy as np
         from repro_torch.kernels import (launch_counts, reset_launch_counts,
@@ -1746,11 +2052,16 @@ class Runs:
         if full and min(hist) == 0:
             fail(f"{name}: not every arm was pulled: {hist}")
         layer_kernel = LAYER_KERNEL[cfg.family]
+        # a float32 model runs attention and an LM head on the CUDA cores
+        f32 = cfg.dtype == "float32"
         lm_head = SERVE_VARIANTS[cfg.family]["exit_confidence"] == \
-            "tensor_core"
+            "tensor_core" and not f32
         want, want_tiles, rows = expected_launches(
             out["arms"], out["exited"], batch_size, cfg, fused,
-            edge_mode=edge_mode, side_info=side_info, lm_head=lm_head)
+            edge_mode=edge_mode, side_info=side_info, lm_head=lm_head,
+            combine=combine)
+        want = {k: ranks * n for k, n in want.items()}
+        want_tiles = {k: ranks * n for k, n in want_tiles.items()}
         if counts != want:
             fail(f"{name}: kernel launches {counts}, but its decisions "
                  f"need {want}")
@@ -1758,11 +2069,12 @@ class Runs:
             fail(f"{name}: tensor-core exit launches by tile {tiles}, but "
                  f"its decisions need {want_tiles}")
         for kname in (layer_kernel, "exit_confidence") + \
-                (("exit_confidence_fused",) if fused else ()):
+                (("exit_confidence_fused",) if fused else ()) + \
+                (("exit_confidence_combine",) if combine else ()):
             if counts[kname] <= 0:
                 fail(f"{name}: kernel {kname} was not launched")
         for kname, variant in SERVE_VARIANTS[cfg.family].items():
-            if kname == "flash_attention" and cfg.dtype == "float32":
+            if f32 and variant == "tensor_core":
                 variant = "cuda_core"
             if variants.get(f"{kname}/{variant}", 0) != counts[kname]:
                 fail(f"{name}: {counts[kname]} launches of {kname}, but not "
@@ -2058,15 +2370,16 @@ def same_run(name, got, ref):
 
 
 def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
-                  scan, prefix: str = ""):
+                  scan, prefix: str = "", timed_runs: bool = True):
     """The sharded runtime (`serve(path="sharded")`) at R = 1 on the card:
     overlap off (bucketed and scan, each bitwise the batched path's run:
     ``bucketed`` from `serve_phase`, ``scan`` from `front_end_phase`),
     the depth-K offload pipeline at K = 1 and 2 and K = 1 with fused
     exits, and an `Engine` fed in ragged chunks (bitwise the one-shot
-    K = 2 run); each run's launches held against its decisions. Prints
-    samples/s, wall and device busy (torch.profiler over one more run) of
-    sync, K = 1 and K = 2. R above the visible cards must raise. Returns
+    K = 2 run); each run's launches held against its decisions. With
+    ``timed_runs``, prints samples/s, wall and device busy (torch.profiler
+    over one more run) of sync, K = 1 and K = 2, and sync against the
+    batched path in turns. R above the visible cards must raise. Returns
     {run name: (report, wall seconds, wgmma rows)} of the five runs."""
     import numpy as np
     from repro_torch.data import OnlineStream
@@ -2127,6 +2440,31 @@ def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
     same_run(prefix + "sharded engine K=2", rep, out["sharded R=1 K=2"][0])
     print("    engine == one-shot serve() K=2 bit for bit")
 
+    if timed_runs:
+        sharded_timing(torch, rt, params, cfg, data, cost, runs, runs_cfg,
+                       out, bucketed, prefix)
+
+    # no fallback: more replicas than visible cards raise
+    over = torch.cuda.device_count() + 1
+    try:
+        serve(rt, params, OnlineStream(data, seed=0), cost,
+              ServingConfig(batch_size=B, replicas=over))
+    except ValueError as err:
+        if "local device(s) visible" not in str(err):
+            raise
+        print(f"  replicas={over} on {over - 1} card(s) raises: {err}")
+    else:
+        fail(f"replicas={over} served on {over - 1} card(s)")
+    return out
+
+
+def sharded_timing(torch, rt, params, cfg, data, cost, runs, runs_cfg, out,
+                   bucketed, prefix):
+    """`sharded_phase`'s timings: R = 1 sync against the batched path in
+    turns, and samples/s, wall and device busy of sync, K = 1 and K = 2."""
+    from repro_torch.data import OnlineStream
+    from repro_torch.serving import ServingConfig, serve
+
     def timed(config):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2136,6 +2474,7 @@ def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
 
     # R = 1 sync against the batched path in turns (batched, sharded,
     # sharded, batched): the host's rate drifts between runs of one call
+    B = SERVE_BATCH
     sync = runs_cfg[0][1]
     batched = ServingConfig(batch_size=B)
     abba = [timed(c) for c in (batched, sync, sync, batched)]
@@ -2161,18 +2500,262 @@ def sharded_phase(torch, dev, runs: Runs, params, cfg, data, cost, bucketed,
     print(f"  {prefix}batched B=32 (serve phase): {b_rep['n'] / b_wall:.1f} "
           f"samples/s, busy {b_busy:.3f} ms over 512 samples")
 
-    # no fallback: more replicas than visible cards raise
-    over = torch.cuda.device_count() + 1
-    try:
-        serve(rt, params, OnlineStream(data, seed=0), cost,
-              ServingConfig(batch_size=B, replicas=over))
-    except ValueError as err:
-        if "local device(s) visible" not in str(err):
-            raise
-        print(f"  replicas={over} on {over - 1} card(s) raises: {err}")
+
+# model-parallel serving (`model_serving_phase`): the ranks of a
+# ("data", "model") mesh of TP_RANKS sharing the card as threads; rwkv6-3b
+# at TP = 2 on the first TP_LM_SAMPLES samples of the stream (two
+# micro-batches)
+TP_RANKS = 2
+TP_LM_SAMPLES = 64
+# rwkv6-3b's float32 cut served at TP = TP_RANKS, held to its unbound run
+# within LM_FORWARD_RTOL (relative: its confidences are of the order of
+# 1 / V)
+TP_LM_CUT_LAYERS = 8
+# rwkv6-3b in bfloat16 at all its layers, served at TP = TP_RANKS: random
+# weights turn a last-bit change into a confidence change that grows with
+# depth to more than 100 %, so its bound is read in the same call, exit by
+# exit (`bf16_noise`): the unbound bfloat16 forward's largest relative
+# distance from the float32 forward at that exit over the served samples,
+# times TP_NOISE_FACTOR (two bfloat16 paths, each within that distance of
+# float32, are within twice it of each other); a served confidence is
+# held to the bound of its arm's exit
+TP_NOISE_FACTOR = 2.0
+# ElasticBERT-12's float32 run at TP = TP_RANKS serves the stream's first
+# 128 samples (4 micro-batches), for the 1200 s limit
+TP_F32_SAMPLES = 128
+# bfloat16 served confidences of TP > 1 against the unbound run: each
+# rank's share of a row-parallel product rounds to bfloat16 before the
+# shares are summed, where the unbound product rounds once (about 6e-3 at
+# full-width ElasticBERT-12); the float32 run holds FULL_FORWARD_ATOL
+TP_BF16_ATOL = TOL["bfloat16"]
+
+
+def served_confidences(rep):
+    """Each sample's served confidence (at its arm), from the trace."""
+    import numpy as np
+    return np.array([c[-1] for c in rep["trace"]["conf_path"]])
+
+
+def bf16_noise(torch, dev, params, cfg, tokens):
+    """Exit by exit, the largest relative distance of the bfloat16
+    forward's confidences (``params``, on the card) from the float32
+    forward's of the same weights over the rows of ``tokens`` (in
+    micro-batches of SERVE_BATCH): the rounding noise of the unbound
+    bfloat16 path, read on the card in this call. A numpy array (L,)."""
+    from repro_torch.models.transformer import ParamTree, forward_exits
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = ParamTree(_tree_to(params, dev, torch.float32))
+    worst = torch.zeros(cfg.num_layers, dtype=torch.float64)
+    for lo in range(0, len(tokens), SERVE_BATCH):
+        batch = {"tokens": torch.as_tensor(tokens[lo:lo + SERVE_BATCH])
+                 .to(dev)}
+        bf16 = forward_exits(params, cfg, batch)["conf"].double()
+        ref = forward_exits(f32, f32_cfg, batch)["conf"].double()
+        worst = torch.maximum(worst, ((bf16 - ref).abs() / ref)
+                              .amax(dim=1).cpu())
+    del f32
+    torch.cuda.empty_cache()
+    return worst.numpy()
+
+
+def held_to_unbound(name, got, ref, alpha, tol, *, relative=False):
+    """``got``'s served confidences agree with ``ref``'s within ``tol`` up
+    to their first differing decision, and that one may only be an exit
+    flipped at an unchanged arm by confidences within ``tol`` of alpha
+    (as `decisions_phase` holds the card to the CPU); ``relative``: both
+    as a share of the confidence (an LM head's confidences are of the
+    order of 1 / V). ``tol`` is one number, or an array of one per arm
+    (a sample is held to its arm's)."""
+    import numpy as np
+    first = decision_difference("", ref, got, alpha, ("unbound", name))
+    conf_g, conf_r = served_confidences(got), served_confidences(ref)
+    arms = np.asarray(ref["arms"])
+    tols = np.broadcast_to(np.asarray(tol)[arms] if np.ndim(tol)
+                           else tol, conf_r.shape)
+    upto = len(conf_r) if first is None else first
+    err = np.abs(conf_g[:upto] - conf_r[:upto])
+    if relative:
+        err = err / conf_r[:upto]
+    what = "relative " if relative else ""
+    if np.ndim(tol):
+        worst = int(np.argmax(err / tols[:upto])) if upto else 0
+        print(f"    {name} vs unbound: served confidences up to the first "
+              f"differing decision max {what}|err| "
+              f"{float(err.max(initial=0.0)):.3e}; nearest its arm's bound: "
+              f"sample {worst} (arm {int(arms[worst])}) {what}|err| "
+              f"{float(err[worst]) if upto else 0.0:.3e} (tol "
+              f"{float(tols[worst]):.3e})")
     else:
-        fail(f"replicas={over} served on {over - 1} card(s)")
-    return out
+        print(f"    {name} vs unbound: served confidences up to the first "
+              f"differing decision max {what}|err| "
+              f"{float(err.max(initial=0.0)):.3e} (tol {tol})")
+    over = np.nonzero(~(err <= tols[:upto]))[0]
+    if len(over):
+        s = int(over[0])
+        fail(f"{name}: served conf vs the unbound run at sample {s} (arm "
+             f"{int(arms[s])}) {what}|err| {float(err[s]):.3e} > "
+             f"{float(tols[s]):.3e}")
+    if first is not None:
+        far = max(abs(conf_g[first] - alpha), abs(conf_r[first] - alpha))
+        far = far / alpha if relative else far
+        if got["arms"][first] != ref["arms"][first] \
+                or not far <= tols[first]:
+            fail(f"{name}: first differs from the unbound run at sample "
+                 f"{first}, not an exit flipped within {what}"
+                 f"{float(tols[first]):.3e} of alpha")
+
+
+def model_serving_phase(torch, dev, runs: Runs, params, cfg, data, cost,
+                        prefix: str = ""):
+    """`serve(path="sharded", mesh=)` over a ("data", "model") `DeviceMesh`
+    on the card, Megatron-split by `param_shardings`: every rank runs the
+    serving loop on its shards (attention and WKV6 on its head shard, the
+    exit's partials on its vocabulary shard and the combine across the
+    ranks) and reads whole confidences.
+
+    ElasticBERT-12, the whole stream: TP = 1 on a (1, 1) mesh over an NCCL
+    world of 1 (sync, K = 1, and an `Engine(mesh=)` push-session == the
+    one-shot K = 1 run bit for bit), then TP = TP_RANKS on a (1, TP_RANKS)
+    mesh of threaded ranks sharing the card (sync and K = 1; host dispatch
+    takes some 10 s a run there). Each run is held to the unbound sharded
+    R = 1 run of its config (`held_to_unbound`): at TP = 1 within
+    FULL_FORWARD_ATOL (no product is split), above it within TP_BF16_ATOL,
+    since each rank's share of a row-parallel product rounds to bfloat16
+    before the shares are summed, where the unbound product rounds once;
+    so it also serves in float32 at TP = TP_RANKS (the first
+    TP_F32_SAMPLES samples), held within FULL_FORWARD_ATOL.
+
+    rwkv6-3b, its first TP_LM_SAMPLES samples at TP = TP_RANKS through the
+    scan edge (one masked forward a micro-batch, where the first
+    micro-batch's 32 arms would make 32 bucketed edge calls): bf16 at full
+    depth, held within TP_NOISE_FACTOR times the unbound bf16 forward's
+    own relative distance from float32 (`bf16_noise`), and a float32 cut
+    to TP_LM_CUT_LAYERS layers held within LM_FORWARD_RTOL.
+
+    Every run's launches are held to its decisions on every rank (a
+    partials and a combine launch for each exit call), every attention or
+    WKV6 launch to the rank's head shard, and every rank's decisions to
+    rank 0's."""
+    import logging
+    import torch.distributed as dist
+    from repro_torch.data import OnlineStream
+    from repro_torch.launch.mesh import make_mesh, make_model_serving_mesh
+    from repro_torch.models.transformer import ParamTree, _ssm_heads
+    from repro_torch.serving import (EdgeCloudRuntime, Engine, ServingConfig,
+                                     serve)
+    from repro_torch.serving.distributed import _free_port
+
+    # DTensor warns at every two-axis all-reduce of a (1, n) mesh
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    lm = cfg.family == "ssm"
+    n = TP_LM_SAMPLES if lm else SERVE_SAMPLES
+    data = {k: v[:n] for k, v in data.items()}
+    base = ServingConfig(path="sharded", batch_size=SERVE_BATCH,
+                         record_trace=True)
+    sync, k1 = dataclasses.replace(base, overlap=False), base
+    heads = LAYER_KERNEL[cfg.family], (_ssm_heads(cfg) if lm
+                                       else cfg.num_heads)
+
+    def one_shot(config, mesh=None, tree=params, c=cfg):
+        return serve(EdgeCloudRuntime(c, device=dev), tree,
+                     OnlineStream(data, seed=0), cost, config, mesh=mesh)
+
+    def engine(mesh):
+        eng = Engine(EdgeCloudRuntime(cfg, device=dev), params, cost, k1,
+                     mesh=mesh)
+        samples, i = list(OnlineStream(data, seed=0)), 0
+        while i < len(samples):
+            for c in (5, 1, 7, 3, 16, 2, 30, 20, 12, 64, 33):
+                eng.submit(samples[i:i + c])
+                i += c
+        return eng.close()
+
+    def on_mesh(tp, fn):
+        """``fn(mesh)`` on every rank of a (1, tp) mesh; every rank's
+        decisions equal rank 0's; returns rank 0's report."""
+        if tp == 1:
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                    f"{_free_port()}", rank=0, world_size=1)
+            try:
+                return fn(make_model_serving_mesh(1, 1, device="cuda"))
+            finally:
+                dist.destroy_process_group()
+        reps = on_threaded_ranks(torch, tp, lambda rank: fn(
+            make_mesh((1, tp), ("data", "model"), device="cuda")))
+        for r in range(1, tp):
+            same_run(f"rank {r} vs rank 0", reps[r], reps[0])
+        return reps[0]
+
+    def tp_run(name, tp, fn, ref, c=cfg, edge_mode="bucketed", rtol=None):
+        shapes = {}
+        with launch_shapes(shapes):
+            rep, wall, _ = runs.run(
+                torch, prefix + name, lambda: on_mesh(tp, fn), c,
+                batch_size=SERVE_BATCH, full=not lm, ranks=tp, combine=True,
+                edge_mode=edge_mode)
+        kernel, h = heads
+        got = {s[1] for s in shapes[kernel]}
+        if got != {h // tp}:
+            fail(f"{prefix}{name}: {kernel} launched on {sorted(got)} heads, "
+                 f"want each rank's {h // tp} of {h}")
+        print(f"    {kernel} on {h // tp} of {h} heads a rank (shapes "
+              f"{sorted(set(shapes[kernel]))})")
+        if lm:
+            held_to_unbound(prefix + name, rep, ref, c_cost.alpha, rtol,
+                            relative=True)
+        elif ref is not None:
+            atol = FULL_FORWARD_ATOL if tp == 1 or c.dtype == "float32" \
+                else TP_BF16_ATOL
+            held_to_unbound(prefix + name, rep, ref, cost.alpha, atol)
+        return rep
+
+    if lm:
+        scan = dataclasses.replace(sync, edge_mode="scan")
+        c_cost = cost
+        noise = bf16_noise(torch, dev, params, cfg, data["tokens"])
+        print(f"  {cfg.arch_id} unbound bf16 vs float32 forward_exits over "
+              f"the {n} samples, conf max relative distance exit by exit "
+              f"(the TP={TP_RANKS} bound is {TP_NOISE_FACTOR} x each): "
+              + " ".join(f"{x:.3e}" for x in noise))
+        tp_run(f"model mesh TP={TP_RANKS} sync scan", TP_RANKS,
+               lambda mesh: one_shot(scan, mesh), one_shot(scan),
+               edge_mode="scan", rtol=TP_NOISE_FACTOR * noise)
+        cut_cfg, cut = lm_cut(params, cfg, TP_LM_CUT_LAYERS)
+        cut = ParamTree(_tree_to(cut, dev, torch.float32))
+        c_cost = dataclasses.replace(cost, num_layers=TP_LM_CUT_LAYERS,
+                                     alpha=calibrated_alpha(
+                                         torch, cut, cut_cfg, data["tokens"],
+                                         TP_LM_CUT_LAYERS // 2))
+        one_cut = lambda mesh=None: serve(  # noqa: E731
+            EdgeCloudRuntime(cut_cfg, device=dev), cut,
+            OnlineStream(data, seed=0), c_cost, scan, mesh=mesh)
+        tp_run(f"model mesh TP={TP_RANKS} sync scan float32 "
+               f"{TP_LM_CUT_LAYERS}L", TP_RANKS, one_cut, one_cut(),
+               cut_cfg, edge_mode="scan", rtol=LM_FORWARD_RTOL)
+        return
+    unbound = {"sync": one_shot(sync)}
+    unbound["K=1"] = one_shot(k1)
+    tp_run("model mesh TP=1 sync", 1, lambda mesh: one_shot(sync, mesh),
+           unbound["sync"])
+    once = tp_run("model mesh TP=1 K=1", 1, lambda mesh: one_shot(k1, mesh),
+                  unbound["K=1"])
+    pushed = tp_run("model mesh TP=1 engine K=1", 1, engine, None)
+    same_run("model mesh TP=1 engine K=1", pushed, once)
+    print("    engine over the mesh == one-shot serve(mesh=) K=1 bit for "
+          "bit")
+    tp_run(f"model mesh TP={TP_RANKS} sync", TP_RANKS,
+           lambda mesh: one_shot(sync, mesh), unbound["sync"])
+    tp_run(f"model mesh TP={TP_RANKS} K=1", TP_RANKS,
+           lambda mesh: one_shot(k1, mesh), unbound["K=1"])
+    # float32 on the stream's first TP_F32_SAMPLES samples
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = ParamTree(_tree_to(params, dev, torch.float32))
+    data = {k: v[:TP_F32_SAMPLES] for k, v in data.items()}
+    tp_run(f"model mesh TP={TP_RANKS} sync float32", TP_RANKS,
+           lambda mesh: one_shot(sync, mesh, f32, f32_cfg),
+           one_shot(sync, tree=f32, c=f32_cfg), f32_cfg)
+    del f32
 
 
 # one worker of `distributed_phase`'s clusters: a fresh interpreter that
@@ -4154,18 +4737,14 @@ def train_agreement(torch, dev, cfg, data):
           f"by ±lr) [{time.perf_counter() - t0:.1f} s wall]")
 
 
-def decisions_phase(torch, dev, cfg, params, model, label, *,
-                    min_near: int = 0):
-    """The paper's pipeline up to the served decisions, on one set of
-    weights: per-exit accuracy (card conf held to the CPU's at
-    FULL_FORWARD_ATOL), calibrate_alpha (card conf == CPU conf's alpha),
-    serve() card f32 vs CPU f32 and card bf16 vs card f32. Card f32 and
-    CPU f32 serve the same confidences to FULL_FORWARD_ATOL up to their
-    first differing decision, and that one may only be an exit flipped at
-    an unchanged arm by a confidence within FULL_FORWARD_ATOL of alpha.
-    At least ``min_near`` served confidences must lie within 1 % of alpha,
-    so that a wrong exit path would move decisions. Returns (cost with
-    alpha, accuracy by exit, majority rate)."""
+def decisions_phase(torch, dev, cfg, params, model, label):
+    """The paper's pipeline up to the served decisions on one set of
+    weights, the card's readings: per-exit accuracy on the validation set,
+    calibrate_alpha on the card's confidences, serve() card f32 and card
+    bf16 at that alpha. The CPU's readings of the same weights come from
+    `CpuDecisions` and are held to these by `decisions_check`. Returns
+    the readings (with the cost at alpha, accuracy by exit and the
+    majority rate)."""
     import numpy as np
     from repro_torch.core import CostModel, calibrate_alpha
     from repro_torch.data import OnlineStream, make_dataset
@@ -4175,30 +4754,18 @@ def decisions_phase(torch, dev, cfg, params, model, label, *,
 
     val = make_dataset("sst2_like", 1024, seed=2)        # as build_testbed
     conf_g, _, corr_g = exit_accuracy(model, params, val)
-    p_cpu = ParamTree(_tree_to(params, "cpu"))
-    conf_c, _, corr_c = exit_accuracy(model, p_cpu, val)
     acc = corr_g.mean(0)
     majority = max(np.mean(val["labels"] == c) for c in range(cfg.num_classes))
-    err = float(np.abs(conf_g - conf_c).max())
     print(f"  {label}: exit_accuracy, 1024 sst2_like validation samples "
           "(seed 2), card:\n    accuracy by exit " + " ".join(
               f"{a:.4f}" for a in acc)
           + "\n    mean conf by exit " + " ".join(
               f"{c:.4f}" for c in conf_g.mean(0))
-          + f"\n    majority-class rate {majority:.4f}; card vs CPU conf "
-          f"max|err| {err:.3e} (tol {FULL_FORWARD_ATOL}), correct differing "
-          f"{int((corr_g != corr_c).sum())}")
-    if not err <= FULL_FORWARD_ATOL:
-        fail(f"{label}: exit_accuracy conf card vs CPU max|err| {err:.3e} > "
-             f"{FULL_FORWARD_ATOL}")
+          + f"\n    majority-class rate {majority:.4f}")
     base = CostModel(num_layers=cfg.num_layers)
     alpha_g = calibrate_alpha(conf_g, base, corr_g)
-    alpha_c = calibrate_alpha(conf_c, base, corr_c)
     print(f"  {label}: calibrate_alpha (offload {base.offload}, labels): "
-          f"card conf {alpha_g!r}, CPU conf {alpha_c!r}")
-    if alpha_g != alpha_c:
-        fail(f"{label}: calibrate_alpha differs card {alpha_g} vs CPU "
-             f"{alpha_c}")
+          f"card conf {alpha_g!r}")
     cost = dataclasses.replace(base, alpha=alpha_g)
 
     data = make_dataset("imdb_like", SERVE_SAMPLES, seed=1)
@@ -4206,11 +4773,10 @@ def decisions_phase(torch, dev, cfg, params, model, label, *,
     p_bf16 = ParamTree(_tree_to(params, dev, torch.bfloat16))
     cfg_bf16 = dataclasses.replace(cfg, dtype="bfloat16")
     reps = {}
-    for name, c, p, d in (("card f32", cfg, params, dev),
-                          ("CPU f32", cfg, p_cpu, "cpu"),
-                          ("card bf16", cfg_bf16, p_bf16, dev)):
+    for name, c, p in (("card f32", cfg, params),
+                       ("card bf16", cfg_bf16, p_bf16)):
         t1 = time.perf_counter()
-        rep = reps[name] = serve(EdgeCloudRuntime(c, device=d), p,
+        rep = reps[name] = serve(EdgeCloudRuntime(c, device=dev), p,
                                  OnlineStream(data, seed=0), cost, config)
         print(f"  {label}: serve() {name}, B={SERVE_BATCH}: {rep['n']} "
               f"samples, exits {int(np.sum(rep['exited']))}, cost "
@@ -4218,11 +4784,49 @@ def decisions_phase(torch, dev, cfg, params, model, label, *,
               f"{arm_histogram(rep['arms'], cfg.num_layers)} "
               f"[{time.perf_counter() - t1:.1f} s wall]")
     del p_bf16
+    return {"label": label, "conf": conf_g, "correct": corr_g, "acc": acc,
+            "majority": majority, "base": base, "cost": cost,
+            "reps": reps}
 
-    def served(name):
-        return np.array([c[-1] for c in reps[name]["trace"]["conf_path"]])
 
-    conf_f, conf_c = served("card f32"), served("CPU f32")
+def decisions_check(cfg, card, cpu, *, min_near: int = 0):
+    """`decisions_phase`'s card readings against the CPU's of the same
+    weights (`CpuDecisions`): per-exit confidences within FULL_FORWARD_ATOL,
+    calibrate_alpha card == CPU, serve() card f32 vs CPU f32 and card bf16
+    vs card f32. Card f32 and CPU f32 serve the same confidences to
+    FULL_FORWARD_ATOL up to their first differing decision, and that one
+    may only be an exit flipped at an unchanged arm by a confidence within
+    FULL_FORWARD_ATOL of alpha. At least ``min_near`` served confidences
+    must lie within 1 % of alpha, so that a wrong exit path would move
+    decisions."""
+    import numpy as np
+    from repro_torch.core import calibrate_alpha
+    label, cost = card["label"], card["cost"]
+    err = float(np.abs(card["conf"] - cpu["conf"]).max())
+    print(f"  {label}: exit_accuracy card vs CPU conf max|err| {err:.3e} "
+          f"(tol {FULL_FORWARD_ATOL}), correct differing "
+          f"{int((card['correct'] != cpu['correct']).sum())} [the CPU's "
+          f"readings {cpu['walls'][0]:.1f} s in the subprocess]")
+    if not err <= FULL_FORWARD_ATOL:
+        fail(f"{label}: exit_accuracy conf card vs CPU max|err| {err:.3e} > "
+             f"{FULL_FORWARD_ATOL}")
+    alpha_c = calibrate_alpha(cpu["conf"], card["base"], cpu["correct"])
+    print(f"  {label}: calibrate_alpha: card conf {cost.alpha!r}, CPU conf "
+          f"{alpha_c!r}")
+    if cost.alpha != alpha_c:
+        fail(f"{label}: calibrate_alpha differs card {cost.alpha} vs CPU "
+             f"{alpha_c}")
+    reps = dict(card["reps"])
+    reps["CPU f32"] = {
+        "n": int(len(cpu["arms"])), "arms": cpu["arms"],
+        "exited": cpu["exited"], "preds": cpu["preds"],
+        "trace": {"conf_path": [[c] for c in cpu["served"]]}}
+    print(f"  {label}: serve() CPU f32, B={SERVE_BATCH}: {reps['CPU f32']['n']}"
+          f" samples, exits {int(np.sum(cpu['exited']))}, cost "
+          f"{float(cpu['cost_total']):.3f}, arms "
+          f"{arm_histogram(cpu['arms'], cfg.num_layers)} [{cpu['walls'][1]:.1f}"
+          f" s in the subprocess]")
+    conf_f, conf_c = served_confidences(reps["card f32"]), cpu["served"]
     # at alpha = 1 / classes every confidence exits: none can flip
     near = int(np.sum(np.abs(conf_f - cost.alpha) < 0.01 * cost.alpha)) \
         if cost.alpha > 1 / cfg.num_classes else 0
@@ -4263,7 +4867,110 @@ def decisions_phase(torch, dev, cfg, params, model, label, *,
                  f"{reps[b]['arms'][first]}, confidence {far:.3e} from "
                  f"alpha), not an exit flipped within {FULL_FORWARD_ATOL} "
                  f"of alpha")
-    return cost, acc, majority
+
+
+DECISIONS_DIR = ROOT / "build" / "decisions"
+DECISIONS_THREADS = 2
+DECISIONS_TIMEOUT_S = 900
+DECISIONS_CHILD = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.decisions_child(sys.argv[2])
+'''
+
+
+def decisions_child(spec_path):
+    """`CpuDecisions`'s subprocess: for each job of the spec (weights file,
+    the card's alpha), `decisions_phase`'s CPU readings, on
+    DECISIONS_THREADS threads: exit_accuracy on the validation set and
+    serve() CPU f32 at that alpha, written as .npz."""
+    import numpy as np
+    import torch
+    from repro_torch.core import CostModel
+    from repro_torch.data import OnlineStream, make_dataset
+    from repro_torch.launch.train import exit_accuracy
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import ParamTree
+    from repro_torch.serving import EdgeCloudRuntime, ServingConfig, serve
+    torch.set_num_threads(DECISIONS_THREADS)
+    cfg = train_config()
+    model = build_model(cfg)
+    val = make_dataset("sst2_like", 1024, seed=2)
+    data = make_dataset("imdb_like", SERVE_SAMPLES, seed=1)
+    for job in json.loads(Path(spec_path).read_text()):
+        params = ParamTree(torch.load(job["weights"]))
+        t0 = time.perf_counter()
+        conf, _, correct = exit_accuracy(model, params, val)
+        t1 = time.perf_counter()
+        cost = dataclasses.replace(CostModel(num_layers=cfg.num_layers),
+                                   alpha=job["alpha"])
+        rep = serve(EdgeCloudRuntime(cfg, device="cpu"), params,
+                    OnlineStream(data, seed=0), cost,
+                    ServingConfig(batch_size=SERVE_BATCH, record_trace=True))
+        np.savez(job["out"], conf=conf, correct=correct, arms=rep["arms"],
+                 exited=rep["exited"], preds=rep["preds"],
+                 served=served_confidences(rep), cost_total=rep["cost_total"],
+                 walls=[t1 - t0, time.perf_counter() - t1])
+        print(f"DONE {job['label']}", flush=True)
+
+
+class CpuDecisions:
+    """`decisions_phase`'s CPU readings of each weight set in a subprocess
+    (`decisions_child`), started here beside the card phases that follow:
+    the weights are saved under DECISIONS_DIR and read back on the CPU.
+    `results` waits for it (DECISIONS_TIMEOUT_S from its start); killed at
+    exit if still running."""
+
+    def __init__(self, torch, jobs):
+        """``jobs``: (label, parameters, the card's alpha) per weight set."""
+        import atexit
+        import tempfile
+        DECISIONS_DIR.mkdir(parents=True, exist_ok=True)
+        self.spec = []
+        for i, (label, params, alpha) in enumerate(jobs):
+            path = DECISIONS_DIR / f"weights{i}.pt"
+            torch.save(_tree_to(params, "cpu"), path)
+            self.spec.append({"label": label, "weights": str(path),
+                              "alpha": float(alpha),
+                              "out": str(DECISIONS_DIR / f"cpu{i}.npz")})
+        spec = DECISIONS_DIR / "spec.json"
+        spec.write_text(json.dumps(self.spec))
+        self.out, self.err = tempfile.TemporaryFile("w+"), \
+            tempfile.TemporaryFile("w+")
+        env = dict(os.environ, PYTHONPATH=str(SRC),
+                   OMP_NUM_THREADS=str(DECISIONS_THREADS))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", DECISIONS_CHILD, str(ROOT), str(spec)],
+            cwd=ROOT, env=env, stdout=self.out, stderr=self.err)
+        atexit.register(self.kill)
+        print(f"  the CPU readings of {[j['label'] for j in self.spec]} "
+              f"started in a subprocess ({DECISIONS_THREADS} threads), "
+              f"beside the phases that follow", flush=True)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def results(self):
+        """{label: the CPU's readings}; fails on a non-zero exit."""
+        import numpy as np
+        try:
+            self.proc.wait(timeout=max(1.0, self.t0 + DECISIONS_TIMEOUT_S
+                                       - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.kill()
+        self.out.seek(0)
+        self.err.seek(0)
+        if self.proc.returncode != 0:
+            fail(f"decisions' CPU readings: exit {self.proc.returncode} "
+                 f"({time.perf_counter() - self.t0:.1f} s after its start)"
+                 f"\n{self.out.read()[-3000:]}\n{self.err.read()[-4000:]}")
+        print(f"  the CPU readings done {time.perf_counter() - self.t0:.1f} s "
+              f"after their start")
+        return {j["label"]: dict(np.load(j["out"])) for j in self.spec}
 
 
 def bandit_phase(cfg, params, model, cost):
@@ -4365,12 +5072,11 @@ def train_phase(torch, dev, runs: Runs):
     train_agreement(torch, dev, cfg, data)
     t0 = time.perf_counter()
     label = f"trained ({TRAIN_STEPS} steps)"
-    cost, acc, majority = decisions_phase(torch, dev, cfg, params, model,
-                                          label)
+    trained = decisions_phase(torch, dev, cfg, params, model, label)
+    acc, majority = trained["acc"], trained["majority"]
     if not acc[-1] > majority:
         fail(f"{label}: last exit accuracy {acc[-1]:.4f} does not beat the "
              f"majority rate {majority:.4f}")
-    bandit_phase(cfg, params, model, cost)
     # the first EARLY_STEPS steps of the same recipe (the schedule is still
     # in its warmup, so they are the 200-step run's): weights that are not
     # saturated, where served confidences lie near alpha
@@ -4379,10 +5085,16 @@ def train_phase(torch, dev, runs: Runs):
                                      remat=False, device=dev)
     print(f"  early checkpoint: {EARLY_STEPS} steps, losses " + ", ".join(
         f"step {row['step']} {row['loss']:.6f}" for row in log))
-    decisions_phase(torch, dev, cfg, early, model,
-                    f"early ({EARLY_STEPS} steps)", min_near=MIN_NEAR_ALPHA)
+    early_card = decisions_phase(torch, dev, cfg, early, model,
+                                 f"early ({EARLY_STEPS} steps)")
+    # the CPU's readings of both weight sets, beside the phases that follow
+    cpu = CpuDecisions(torch, [
+        (label, params, trained["cost"].alpha),
+        (early_card["label"], early, early_card["cost"].alpha)])
     del early
-    print(f"  [pipeline on the trained and early weights: "
+    cost = trained["cost"]
+    bandit_phase(cfg, params, model, cost)
+    print(f"  [pipeline on the trained and early weights, the card's part: "
           f"{time.perf_counter() - t0:.1f} s wall]")
     stats["step_busy_ms"], stats["step_wall_ms"] = training_profile(
         torch, dev, cfg, data, params)
@@ -4393,7 +5105,19 @@ def train_phase(torch, dev, runs: Runs):
           f"{rec['bound_ms']:.6f} ({rec['bound_by']}); attention_backward "
           f"{rec['backward_ms']:.5f}; {rec['launches']} launches in the "
           f"training run")
-    return rec, (params, model, cost)
+    checks = [(trained, 0), (early_card, MIN_NEAR_ALPHA)]
+    return rec, (params, model, cost), (cfg, cpu, checks)
+
+
+def decisions_wait(pending):
+    """The CPU's readings of the trained and early weights (`CpuDecisions`,
+    started in the training phase), held to the card's by
+    `decisions_check`."""
+    cfg, cpu, checks = pending
+    results = cpu.results()
+    for card, min_near in checks:
+        decisions_check(cfg, card, results[card["label"]],
+                        min_near=min_near)
 
 
 # ------------------------------------------------------ model parallelism
@@ -4503,20 +5227,30 @@ def mp_compare(name, got, want):
 
 
 @contextlib.contextmanager
-def attention_shapes(shapes):
-    """Record the q shape of every attention kernel launch."""
-    from repro_torch.kernels.flash_attention import ops
-    orig = ops.flash_attention_cuda
+def launch_shapes(shapes):
+    """Record the q shape of every attention kernel launch under
+    ``shapes["flash_attention"]`` and the r shape of every WKV6 launch
+    under ``shapes["wkv6"]`` (lists; ranks on threads append to them
+    alike)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    patched = ((attn_ops, "flash_attention_cuda", "flash_attention"),
+               (wkv6_ops, "wkv6_cuda", "wkv6"))
+    origs = []
+    for mod, attr, key in patched:
+        orig = getattr(mod, attr)
+        shapes.setdefault(key, [])
 
-    def recording(q, *a, **k):
-        shapes.append(tuple(q.shape))
-        return orig(q, *a, **k)
-
-    ops.flash_attention_cuda = recording
+        def recording(x, *a, _orig=orig, _key=key, **k):
+            shapes[_key].append(tuple(x.shape))
+            return _orig(x, *a, **k)
+        setattr(mod, attr, recording)
+        origs.append((mod, attr, orig))
     try:
         yield
     finally:
-        ops.flash_attention_cuda = orig
+        for mod, attr, orig in origs:
+            setattr(mod, attr, orig)
 
 
 def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
@@ -4526,12 +5260,12 @@ def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
     its wall seconds."""
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      variant_launch_counts)
-    shapes = []
+    shapes = {}
     MP_STEP_MS.clear()
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with attention_shapes(shapes):
+    with launch_shapes(shapes):
         out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4546,9 +5280,10 @@ def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
              f"cuda_core")
     if any(n for k, n in counts.items() if k != "flash_attention"):
         fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
-    if set(shapes) != {want_shape}:
-        fail(f"{name}: attention kernel q shapes {sorted(set(shapes))}, want "
-             f"the local head shard {want_shape}")
+    if set(shapes["flash_attention"]) != {want_shape}:
+        fail(f"{name}: attention kernel q shapes "
+             f"{sorted(set(shapes['flash_attention']))}, want the local head "
+             f"shard {want_shape}")
     print(f"  {name}: {wall:.3f} s wall for {MP_STEPS} steps; ms a step "
           f"(first, then later; per rank) {[[round(t, 1) for t in r] for r in MP_STEP_MS]}"
           f"; launches {counts}, by variant {runs.variants[name]}; kernel q "
@@ -4558,15 +5293,24 @@ def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
 
 def mp_threaded(torch, dev, cfg, params0, batches, tp: int, seq_parallel):
     """The model-parallel steps on a (1, tp) mesh of ``tp`` ranks sharing
-    ``dev``, one thread each over the threaded process group
+    ``dev`` (`on_threaded_ranks`). Returns rank 0's result."""
+    from repro_torch.launch.mesh import make_mesh
+    return on_threaded_ranks(torch, tp, lambda rank: mp_steps(
+        torch, dev, cfg, params0, batches,
+        make_mesh((1, tp), ("data", "model"), device=dev.type),
+        seq_parallel))[0]
+
+
+def on_threaded_ranks(torch, tp: int, fn):
+    """``fn(rank)`` on ``tp`` ranks sharing the card, one thread each over
+    the threaded process group
     (``torch.testing._internal.distributed.multi_threaded_pg``: its
     collectives are tensor ops of this process, so they take CUDA
-    tensors). Returns rank 0's result."""
+    tensors). Returns {rank: result}; a rank's error is raised."""
     import threading
     import torch.distributed as dist
     from torch.testing._internal.distributed.multi_threaded_pg import (
         _install_threaded_pg, _uninstall_threaded_pg)
-    from repro_torch.launch.mesh import make_mesh
     results = {}
 
     def worker(rank, store):
@@ -4575,9 +5319,7 @@ def mp_threaded(torch, dev, cfg, params0, batches, tp: int, seq_parallel):
         try:
             dist.init_process_group("threaded", rank=rank, world_size=tp,
                                     store=store)
-            mesh = make_mesh((1, tp), ("data", "model"), device=dev.type)
-            results[rank] = mp_steps(torch, dev, cfg, params0, batches, mesh,
-                                     seq_parallel)
+            results[rank] = fn(rank)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             results[rank] = e
 
@@ -4597,7 +5339,7 @@ def mp_threaded(torch, dev, cfg, params0, batches, tp: int, seq_parallel):
     for r in range(tp):
         if isinstance(results.get(r), BaseException):
             raise results[r]
-    return results[0]
+    return results
 
 
 @contextlib.contextmanager
@@ -5187,9 +5929,18 @@ def main(argv=None) -> int:
     with phase("kernels vs plain versions"):
         rec_attn = attention_checks(torch, dev)
         rec_exit, rec_fused = exit_checks(torch, dev)
+        rec_combine = exit_shard_checks(torch, dev, rec_exit, rec_fused)
         rec_wkv6 = wkv6_checks(torch, dev)
+        front_door_records(torch, dev, rec_attn, rec_exit, rec_fused,
+                           rec_wkv6)
 
     runs = Runs()
+    # first, so that the CPU's readings of its decisions (a subprocess)
+    # run beside the phases that follow
+    with phase("train: elasticbert12 (full width) on the card"):
+        rec_attn["at_training"], trained, decisions = train_phase(torch, dev,
+                                                                  runs)
+
     for arch, layers, alpha_layer, prefix, agree in (
             ("elasticbert12", None, 6, "", agreement_phase),
             (LM, None, 16, f"{LM} ", lm_agreement_phase),
@@ -5208,8 +5959,15 @@ def main(argv=None) -> int:
         if arch != HYBRID:
             with phase(f"sharded: {arch} serve(path='sharded') at R=1, "
                        f"sync and overlap K=1/2, Engine"):
+                # rwkv6-3b's in-turns timing and busy profiles are left out
+                # for the 1200 s limit
                 sharded = sharded_phase(torch, dev, runs, params, cfg, data,
-                                        cost, bucketed, scan, prefix)
+                                        cost, bucketed, scan, prefix,
+                                        timed_runs=arch != LM)
+            with phase(f"model mesh: {arch} serve(path='sharded', mesh=) "
+                       f"over a ('data', 'model') mesh"):
+                model_serving_phase(torch, dev, runs, params, cfg, data,
+                                    cost, prefix)
         if arch == "elasticbert12":
             with phase(f"distributed: {arch} serve(path='distributed'), one "
                        f"process and worker-process clusters on this card"):
@@ -5246,9 +6004,6 @@ def main(argv=None) -> int:
     with phase("agreement: offload codec, card vs CPU"):
         codec_agreement(torch, dev)
 
-    with phase("train: elasticbert12 (full width) on the card"):
-        rec_attn["at_training"], trained = train_phase(torch, dev, runs)
-
     with phase("model parallelism: elasticbert12 TP training on the card, "
                "the dry run"):
         rec_attn["at_tp2_train"] = model_parallel_phase(torch, dev, runs)
@@ -5258,8 +6013,13 @@ def main(argv=None) -> int:
         front_doors_phase(torch, dev, runs, trained)
     del trained
 
+    with phase("decisions: the CPU's readings of the trained and early "
+               "weights (a subprocess since the training phase) against the "
+               "card's"):
+        decisions_wait(decisions)
+
     kernels = []
-    for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6):
+    for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6, rec_combine):
         path = MAIN_PATH[rec["name"]]
         rec["main_path"] = path
         rec["launches"] = runs.counts[path][rec["name"]]

@@ -3,6 +3,16 @@
 // (norm prologue) form, and one second pass that combines vocabulary
 // splits.
 //
+// A vocabulary-split head (model parallelism: each rank holds columns
+// [col0, col0 + V) of the whole head) runs the same kernels in their
+// partials mode: every split writes its (max, sum, argmax) triple with
+// global column indices and no combine runs; the wrapper gathers the
+// ranks' triples (a few KB) and runs the same combine as a launch of its
+// own over all of them (exit_confidence_combine_launch). The combine
+// takes splits in any number and order and ties to the lowest global
+// index, so the result is the one-rank kernel's up to the order in which
+// the sums of the splits are added.
+//
 // Replaces: src/repro/kernels/exit_confidence/kernel.py
 //   * exit_confidence_pallas (pl.pallas_call at :119): h (B, D) @ w (D, V)
 //     -> conf = max_c softmax(h w)_c (f32), pred = argmax (i32), by an
@@ -109,6 +119,8 @@ struct Params {
   int* part_a;
   int64_t h_sg, h_sb;
   int g, b, d, v, norm_rows, splits, cols_per_split;
+  int col0;             // global index of local column 0 (partials mode)
+  int parts_only;       // write every split's triple, combine nothing
 };
 
 struct Stat {
@@ -158,16 +170,17 @@ __device__ __forceinline__ void write_result(const Params& p, int64_t i, const S
   p.pred[i] = x.a == kNoArg ? 0 : x.a;
 }
 
-// a row's result, or its split's partial triple when V is split
+// a row's result, or its split's partial triple when V is split or in
+// partials mode (the argmax as a global column index)
 __device__ __forceinline__ void write_row(const Params& p, int gi, int split, int row,
                                           const Stat x) {
-  if (p.splits == 1) {
+  if (p.splits == 1 && !p.parts_only) {
     write_result(p, static_cast<int64_t>(gi) * p.b + row, x);
   } else {
     const int64_t i = (static_cast<int64_t>(gi) * p.splits + split) * p.b + row;
     p.part_m[i] = x.m;
     p.part_s[i] = x.s;
-    p.part_a[i] = x.a;
+    p.part_a[i] = x.a == kNoArg ? kNoArg : x.a + p.col0;
   }
 }
 
@@ -381,7 +394,7 @@ exit_confidence_small_kernel(const Params p) {
       fold(st, lg, c0 + cc);             // every lane holds the same stats
     }
   }
-  if (lane == 0) write_result(p, static_cast<int64_t>(gi) * p.b + row, st);
+  if (lane == 0) write_row(p, gi, 0, row, st);
 }
 
 // ----------------------------------------------------- tensor_core variant
@@ -809,7 +822,7 @@ cudaError_t set_smem(const void* kernel, size_t smem) {
 
 int launch_combine(const Params& p, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  if (e != cudaSuccess || p.splits == 1 || p.parts_only) return static_cast<int>(e);
   const int64_t n = static_cast<int64_t>(p.g) * p.b;
   exit_confidence_combine<<<static_cast<unsigned>((n + kCombineWarps - 1) / kCombineWarps),
                             kCombineWarps * 32, 0, stream>>>(p);
@@ -912,26 +925,32 @@ int launch_variant(const Params& p, int dtype, int variant, void* normed,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-bool bad_shape(int g, int b, int d, int v, int splits, int cols_per_split) {
+bool bad_shape(int g, int b, int d, int v, int splits, int cols_per_split, int col0,
+               int parts_only) {
   return g < 1 || b < 1 || d < 1 || v < 1 || splits < 1 || cols_per_split < 1 ||
-         static_cast<int64_t>(splits) * cols_per_split < v || g > 65535 || splits > 65535;
+         static_cast<int64_t>(splits) * cols_per_split < v || g > 65535 || splits > 65535 ||
+         col0 < 0 || static_cast<int64_t>(col0) + v > INT_MAX ||
+         (col0 != 0 && !parts_only);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (h and w share it). variant: 0 =
 // cuda_core, 1 = small_head, 2 = tensor_core. hbias: (G, V) f32 or null.
+// parts_only: write the (G, splits, B) triples, argmax offset by col0, and
+// leave conf / pred (may be null) to exit_confidence_combine_launch.
 // Each launcher returns cudaGetLastError() after its launches, or
 // cudaErrorInvalidValue for arguments its variant does not take.
 extern "C" int exit_confidence_launch(
     const void* h, int64_t h_sg, int64_t h_sb, const void* w, const float* hbias,
     float* conf, int* pred, float* part_m, float* part_s, int* part_a,
-    int g, int b, int d, int v, int splits, int cols_per_split, int dtype,
-    int variant, void* stream) {
-  if (bad_shape(g, b, d, v, splits, cols_per_split))
+    int g, int b, int d, int v, int splits, int cols_per_split, int col0,
+    int parts_only, int dtype, int variant, void* stream) {
+  if (bad_shape(g, b, d, v, splits, cols_per_split, col0, parts_only) ||
+      (parts_only && (part_m == nullptr || part_s == nullptr || part_a == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{h, nullptr, nullptr, w, hbias, conf, pred, part_m, part_s, part_a,
-           h_sg, h_sb, g, b, d, v, 1, splits, cols_per_split};
+           h_sg, h_sb, g, b, d, v, 1, splits, cols_per_split, col0, parts_only};
   return launch_variant<kNormNone>(p, dtype, variant, nullptr,
                                    static_cast<cudaStream_t>(stream));
 }
@@ -943,14 +962,39 @@ extern "C" int exit_confidence_fused_launch(
     const void* nbias, const void* w, const float* hbias,
     float* conf, int* pred, float* part_m, float* part_s, int* part_a,
     void* normed, int g, int b, int d, int v, int norm_rows, int kind,
-    int splits, int cols_per_split, int dtype, int variant, void* stream) {
-  if (bad_shape(g, b, d, v, splits, cols_per_split) || gamma == nullptr ||
-      (norm_rows != 1 && norm_rows != b))
+    int splits, int cols_per_split, int col0, int parts_only, int dtype, int variant,
+    void* stream) {
+  if (bad_shape(g, b, d, v, splits, cols_per_split, col0, parts_only) || gamma == nullptr ||
+      (norm_rows != 1 && norm_rows != b) ||
+      (parts_only && (part_m == nullptr || part_s == nullptr || part_a == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, gamma, nbias, w, hbias, conf, pred, part_m, part_s, part_a,
-           x_sg, x_sb, g, b, d, v, norm_rows, splits, cols_per_split};
+           x_sg, x_sb, g, b, d, v, norm_rows, splits, cols_per_split, col0, parts_only};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == kNormRms) return launch_variant<kNormRms>(p, dtype, variant, normed, s);
   if (kind == kNormLayer) return launch_variant<kNormLayer>(p, dtype, variant, normed, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the second pass on its own: conf / pred (G, B) from ``splits`` triples
+// (G, splits, B) that launches in partials mode wrote (the vocabulary
+// shards of every rank, gathered in rank order)
+extern "C" int exit_confidence_combine_launch(
+    const float* part_m, const float* part_s, const int* part_a, float* conf, int* pred,
+    int g, int splits, int b, void* stream) {
+  if (g < 1 || b < 1 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.conf = conf;
+  p.pred = pred;
+  p.part_m = const_cast<float*>(part_m);
+  p.part_s = const_cast<float*>(part_s);
+  p.part_a = const_cast<int*>(part_a);
+  p.g = g;
+  p.b = b;
+  p.splits = splits;
+  const int64_t n = static_cast<int64_t>(g) * b;
+  exit_confidence_combine<<<static_cast<unsigned>((n + kCombineWarps - 1) / kCombineWarps),
+                            kCombineWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

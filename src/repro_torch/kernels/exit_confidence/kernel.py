@@ -6,6 +6,12 @@ independent heads in one launch, and a head bias ``(G, V)`` natively. Each
 call runs one of three kernel variants, chosen by `exit_variant` from the
 dtype, D, V and the 16-byte alignment of the rows alone; the vocabulary is
 split over blocks by `plan`. The library is built on first call.
+
+A vocabulary shard (model parallelism) runs the same launch in partials
+mode (`exit_partials_cuda`, `exit_partials_fused_cuda`): each split's
+(max, sum, argmax) triple, argmax as a global column, and no combine; the
+caller gathers every rank's triples and combines them in a launch of its
+own (`exit_combine_cuda`, counted as the kernel ``exit_confidence_combine``).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from repro_torch.kernels._build import (check, count_launch, load,
 
 NAME = "exit_confidence"
 NAME_FUSED = "exit_confidence_fused"
+NAME_COMBINE = "exit_confidence_combine"
 SOURCE = Path(__file__).parent / "csrc" / "exit_confidence.cu"
 VARIANTS = ("tensor_core", "small_head", "cuda_core")
 _VARIANT_CODES = {"cuda_core": 0, "small_head": 1, "tensor_core": 2}
@@ -51,6 +58,7 @@ class Plan(NamedTuple):
 
 register_kernel(NAME, VARIANTS, {"tensor_core": TC_TILES})
 register_kernel(NAME_FUSED, VARIANTS, {"tensor_core": TC_TILES})
+register_kernel(NAME_COMBINE)
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -59,11 +67,13 @@ def _lib():
     lib = load(SOURCE)
     if lib.exit_confidence_launch.argtypes is None:
         lib.exit_confidence_launch.argtypes = (
-            [_P, _I64, _I64, _P, _P] + [_P] * 5 + [_I] * 8 + [_P])
+            [_P, _I64, _I64, _P, _P] + [_P] * 5 + [_I] * 10 + [_P])
         lib.exit_confidence_fused_launch.argtypes = (
-            [_P, _I64, _I64, _P, _P, _P, _P] + [_P] * 6 + [_I] * 10 + [_P])
+            [_P, _I64, _I64, _P, _P, _P, _P] + [_P] * 6 + [_I] * 12 + [_P])
+        lib.exit_confidence_combine_launch.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.exit_confidence_launch.restype = _I
         lib.exit_confidence_fused_launch.restype = _I
+        lib.exit_confidence_combine_launch.restype = _I
     return lib
 
 
@@ -142,8 +152,9 @@ def _head_bias(hbias, g, v):
         hbias.reshape(g, v).to(torch.float32).contiguous())
 
 
-def _launch_shape(h3, w3, variant):
-    """The plan and the outputs (conf, pred, partial triples) of a call."""
+def _launch_shape(h3, w3, variant, parts_only: bool):
+    """The plan and the outputs (conf, pred, partial triples) of a call;
+    ``parts_only``: the triples alone, even of one split."""
     g, b, d = h3.shape
     v = w3.shape[2]
     if variant == "cuda_core" and d * CUDA_CORE_ROWS * 4 > MAX_SMEM:
@@ -152,10 +163,12 @@ def _launch_shape(h3, w3, variant):
     sms = torch.cuda.get_device_properties(h3.device).multi_processor_count
     pl = plan(g, b, v, sms, *tile_shape(variant, b))
     dev = h3.device
-    conf = torch.empty((g, b), dtype=torch.float32, device=dev)
-    pred = torch.empty((g, b), dtype=torch.int32, device=dev)
+    conf = pred = None
+    if not parts_only:
+        conf = torch.empty((g, b), dtype=torch.float32, device=dev)
+        pred = torch.empty((g, b), dtype=torch.int32, device=dev)
     parts = (None, None, None)
-    if pl.splits > 1:
+    if pl.splits > 1 or parts_only:
         parts = (torch.empty((g, pl.splits, b), dtype=torch.float32, device=dev),
                  torch.empty((g, pl.splits, b), dtype=torch.float32, device=dev),
                  torch.empty((g, pl.splits, b), dtype=torch.int32, device=dev))
@@ -170,10 +183,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def exit_confidence_cuda(h, w, hbias=None):
-    """conf (…, B) f32 and pred (…, B) i32 of ``h @ w`` (+ ``hbias`` (…,
-    V)), one call of one variant. Raises when a gradient is wanted: the
-    kernel has no backward (`_build.refuse_grad`)."""
+def _outputs(squeeze, conf, pred, parts):
+    """(conf, pred), or in partials mode the triples (…, splits, B);
+    without the group axis when the call had none."""
+    out = parts if conf is None else (conf, pred)
+    return tuple(t[0] for t in out) if squeeze else out
+
+
+def _exit(h, w, hbias, col0):
+    """One call of the plain form: whole (``col0`` None) or in partials
+    mode with global columns from ``col0``."""
     refuse_grad(NAME, h, w, hbias)
     squeeze = h.ndim == 2
     h3, w3 = _grouped(h, w)
@@ -182,15 +201,55 @@ def exit_confidence_cuda(h, w, hbias=None):
     variant = exit_variant(h3.dtype, d, v,
                            rows_aligned(h3) and w3.data_ptr() % 16 == 0)
     hb = _head_bias(hbias, g, v)
-    pl, conf, pred, parts = _launch_shape(h3, w3, variant)
+    pl, conf, pred, parts = _launch_shape(h3, w3, variant, col0 is not None)
     status = _lib().exit_confidence_launch(
         h3.data_ptr(), h3.stride(0), h3.stride(1), w3.data_ptr(), _ptr(hb),
-        conf.data_ptr(), pred.data_ptr(), *map(_ptr, parts),
-        g, b, d, v, pl.splits, pl.cols_per_split, _DTYPE_CODES[h3.dtype],
+        _ptr(conf), _ptr(pred), *map(_ptr, parts),
+        g, b, d, v, pl.splits, pl.cols_per_split, col0 or 0,
+        int(col0 is not None), _DTYPE_CODES[h3.dtype],
         _VARIANT_CODES[variant],
         torch.cuda.current_stream(h3.device).cuda_stream)
     check(status, f"{NAME}/{variant}")
     count_launch(NAME, variant, _tile(variant, b))
+    return _outputs(squeeze, conf, pred, parts)
+
+
+def exit_confidence_cuda(h, w, hbias=None):
+    """conf (…, B) f32 and pred (…, B) i32 of ``h @ w`` (+ ``hbias`` (…,
+    V)), one call of one variant. Raises when a gradient is wanted: the
+    kernel has no backward (`_build.refuse_grad`)."""
+    return _exit(h, w, hbias, None)
+
+
+def exit_partials_cuda(h, w, hbias=None, *, col0: int):
+    """The (max logit f32, sum of exponentials f32, argmax i32) triples
+    (…, splits, B) of ``h @ w`` (+ ``hbias``) over the columns of ``w``,
+    which are columns ``col0 ..`` of a whole head: one launch in partials
+    mode, to be combined with the other shards' (`exit_combine_cuda`)."""
+    return _exit(h, w, hbias, int(col0))
+
+
+def exit_combine_cuda(part_m, part_s, part_a):
+    """conf (…, B) f32 and pred (…, B) i32 from the triples (…, P, B) of
+    P splits: the combine pass as a launch of its own."""
+    squeeze = part_m.ndim == 2
+    m, s, a = (t.unsqueeze(0) if squeeze else t for t in
+               (part_m, part_s, part_a))
+    if not (m.is_cuda and m.dtype == s.dtype == torch.float32
+            and a.dtype == torch.int32 and m.shape == s.shape == a.shape
+            and m.device == s.device == a.device and m.ndim == 3):
+        raise ValueError("exit_combine_cuda takes (…, P, B) f32 max / sum "
+                         "and i32 argmax triples on one CUDA device")
+    m, s, a = (t.contiguous() for t in (m, s, a))
+    g, p, b = m.shape
+    conf = torch.empty((g, b), dtype=torch.float32, device=m.device)
+    pred = torch.empty((g, b), dtype=torch.int32, device=m.device)
+    status = _lib().exit_confidence_combine_launch(
+        m.data_ptr(), s.data_ptr(), a.data_ptr(), conf.data_ptr(),
+        pred.data_ptr(), g, p, b,
+        torch.cuda.current_stream(m.device).cuda_stream)
+    check(status, NAME_COMBINE)
+    count_launch(NAME_COMBINE)
     return (conf[0], pred[0]) if squeeze else (conf, pred)
 
 
@@ -214,6 +273,17 @@ def exit_confidence_fused_cuda(x, gamma, nbias, w, hbias, *, kind: str):
     the activation dtype, ``@ w`` (+ ``hbias`` (…, V) or None), online
     softmax. One call of one variant. Raises when a gradient is wanted:
     the kernel has no backward (`_build.refuse_grad`)."""
+    return _exit_fused(x, gamma, nbias, w, hbias, kind, None)
+
+
+def exit_partials_fused_cuda(x, gamma, nbias, w, hbias, *, kind: str,
+                             col0: int):
+    """`exit_partials_cuda` of the fused form: the norm prologue, then
+    the triples of the vocabulary shard from column ``col0``."""
+    return _exit_fused(x, gamma, nbias, w, hbias, kind, int(col0))
+
+
+def _exit_fused(x, gamma, nbias, w, hbias, kind, col0):
     refuse_grad(NAME_FUSED, x, gamma, nbias, w, hbias)
     squeeze = x.ndim == 2
     x3, w3 = _grouped(x, w)
@@ -229,18 +299,18 @@ def exit_confidence_fused_cuda(x, gamma, nbias, w, hbias, *, kind: str):
                and w3.data_ptr() % 16 == 0)
     variant = exit_variant(x3.dtype, d, v, aligned)
     hb = _head_bias(hbias, g, v)
-    pl, conf, pred, parts = _launch_shape(x3, w3, variant)
+    pl, conf, pred, parts = _launch_shape(x3, w3, variant, col0 is not None)
     # the tensor-core path normalises the rows into this scratch first
     normed = torch.empty((g, b, d), dtype=x3.dtype, device=x3.device) \
         if variant == "tensor_core" else None
     status = _lib().exit_confidence_fused_launch(
         x3.data_ptr(), x3.stride(0), x3.stride(1), gm.data_ptr(), _ptr(nb),
-        w3.data_ptr(), _ptr(hb), conf.data_ptr(), pred.data_ptr(),
+        w3.data_ptr(), _ptr(hb), _ptr(conf), _ptr(pred),
         *map(_ptr, parts), _ptr(normed), g, b, d, v, gm.shape[1],
-        _NORM_CODES[kind],
-        pl.splits, pl.cols_per_split, _DTYPE_CODES[x3.dtype],
+        _NORM_CODES[kind], pl.splits, pl.cols_per_split, col0 or 0,
+        int(col0 is not None), _DTYPE_CODES[x3.dtype],
         _VARIANT_CODES[variant],
         torch.cuda.current_stream(x3.device).cuda_stream)
     check(status, f"{NAME_FUSED}/{variant}")
     count_launch(NAME_FUSED, variant, _tile(variant, b))
-    return (conf[0], pred[0]) if squeeze else (conf, pred)
+    return _outputs(squeeze, conf, pred, parts)

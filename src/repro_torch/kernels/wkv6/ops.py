@@ -2,20 +2,24 @@
 
 A CPU tensor runs the plain PyTorch version (`ref.wkv6_ref`); a CUDA
 tensor launches the hand-written kernel; any other device raises. There
-is no fallback from one to the other. ``DTensor`` inputs on the CPU (the
-dry run's model-parallel steps: batch-sharded or replicated, whole heads
-on every rank) run the plain version on each rank's shards; a CUDA
-``DTensor`` raises, as model-parallel serving is not ported.
+is no fallback from one to the other.
+
+``DTensor`` inputs (model parallelism) run the same dispatch on each
+rank's shards (`_wkv6_dtensor`): r, k, v and w split over the batch and
+over heads (the "model" split of the ``wr``/``wk``/``wv`` projections) or
+replicated, ``u`` sliced to the rank's heads; the result and the state
+come back as ``DTensor``s placed as ``r``. Heads are independent, so a
+head shard needs no communication; a split inside a head (over time or a
+head's channels) raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import no_cuda_dtensor
 from repro_torch.kernels.wkv6.kernel import wkv6_cuda
 from repro_torch.kernels.wkv6.ref import wkv6_ref
-from repro_torch.shards import (check_rows_placed, from_local, to_local,
-                                whole)
+from repro_torch.shards import (from_local, is_dtensor, shard_range,
+                                to_local, whole)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -40,13 +44,30 @@ def wkv6(r, k, v, w, u, *, chunk: int = 128):
     wrapper and changes nothing here (the kernel loops over T itself).
     """
     del chunk
-    no_cuda_dtensor("wkv6", r, k, v, w)
+    if is_dtensor(r):
+        return _wkv6_dtensor(r, k, v, w, u)
+    return _wkv6_local(r, k, v, w, u)
+
+
+def _wkv6_local(r, k, v, w, u):
     if r.device.type == "cpu":
-        # a DTensor's rows on each rank, k/v/w placed as r, u whole
-        check_rows_placed(r, "wkv6")
-        y, s = wkv6_ref(*(to_local(t, r) for t in (r, k, v, w)), whole(u, r))
-        return from_local(y, r), from_local(s, r)
+        return wkv6_ref(r, k, v, w, u)
     if r.device.type == "cuda":
         return wkv6_cuda(*_kernel_inputs(r, k, v, w, u))
     raise ValueError(f"wkv6: no kernel for device {r.device}")
 
+
+def _wkv6_dtensor(r, k, v, w, u):
+    """`wkv6` of ``DTensor`` r/k/v/w (B, H, T, ·) on each rank's batch
+    and head shard: k, v and w placed as r, ``u`` (H, dk) whole and
+    sliced to r's heads."""
+    if not all(p.is_replicate() or p.is_shard(0) or p.is_shard(1)
+               for p in r.placements):
+        raise ValueError(
+            f"wkv6: r placed {r.placements}; the recurrence takes whole "
+            f"heads on each rank (Shard on the batch or head axis, or "
+            f"Replicate), not a split over time or inside a head")
+    lo, n = shard_range(r, 1)
+    y, s = _wkv6_local(*(to_local(t, r) for t in (r, k, v, w)),
+                       whole(u, r)[lo:lo + n])
+    return from_local(y, r), from_local(s, r)

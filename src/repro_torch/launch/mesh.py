@@ -7,12 +7,15 @@ parallelism and the serving mesh.
 needs an initialised process group of that world size (the dry run
 starts a fake one, launch/dryrun.py) and never starts one itself.
 
-The sharded serving runtime (serving/sharded.py) is pure data
-parallelism: each replica holds both model halves and serves a
-contiguous shard of every micro-batch, so its mesh has one axis,
-"data". `ServingMesh` is the port's stand-in for `jax.sharding.Mesh`:
-devices laid out over named axes. A function builds it, so importing
-this module touches no device.
+The sharded serving runtime (serving/sharded.py) takes two kinds of
+mesh. `ServingMesh`, the port's stand-in for `jax.sharding.Mesh`
+(devices laid out over named axes), is pure data parallelism: each
+replica holds both model halves and serves a contiguous shard of every
+micro-batch, so its mesh has one axis, "data". A ``torch.distributed``
+`DeviceMesh` over ("data", "model") (`make_model_serving_mesh`) adds
+Megatron tensor parallelism: every rank of the process group runs the
+same serving loop on its shards. Functions build both, so importing this
+module touches no device.
 """
 from __future__ import annotations
 
@@ -68,6 +71,39 @@ def make_serving_mesh(replicas: int = 1, *, device=None) -> ServingMesh:
                 f"lists any number of replicas")
         devices = [torch.device("cuda", i) for i in range(replicas)]
     return ServingMesh(devices, ("data",))
+
+
+def make_model_serving_mesh(data: int = 1, model: int = 1, *, device=None):
+    """("data", "model") `DeviceMesh` of ``data`` x ``model`` serving
+    ranks on ``device`` (default cuda; "cpu" for gloo or threaded ranks).
+
+    The default process group must be initialised with a world size of
+    ``data * model`` (`make_mesh`). On ``cuda`` rank r serves on card r,
+    made its current device; asking for more cards than are visible
+    raises, as `make_serving_mesh` does. Nothing falls back to fewer ranks
+    or to another device."""
+    import torch.distributed as dist
+    if data < 1 or model < 1:
+        raise ValueError(f"data={data} and model={model} must be >= 1")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count()
+        if data * model > visible:
+            raise ValueError(
+                f"a ({data}, {model}) mesh needs {data * model} cards but "
+                f"only {visible} local device(s) visible; on the CPU pass "
+                f"device='cpu'")
+        if dist.is_initialized():
+            torch.cuda.set_device(dist.get_rank())
+    return make_mesh((data, model), ("data", "model"), device=dev.type)
+
+
+def serving_axis_map(mesh) -> Dict[str, object]:
+    """Logical axes of the serving forward on ``mesh``: rows over "data",
+    the Megatron split over "model" where the mesh has that axis."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return {"batch": ("data",),
+            "model": "model" if "model" in names else None, "seq": None}
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,

@@ -13,9 +13,12 @@ The sharded serving runtime (serving/sharded.py) places its launches'
 rows with ``sanitize_spec`` (bucket caps are pow2-padded then rounded up
 to a multiple of the replica count, so the row axis divides the "data"
 axis) and its parameters with ``param_shardings``, which replicates
-every leaf on the 1-D serving mesh. The dry run (launch/dryrun.py) and
-the model-parallel train step place parameters, optimizer state,
-batches and decode caches on the production mesh.
+every leaf on the 1-D serving mesh and splits them Megatron-style over
+the "model" axis of a ("data", "model") `DeviceMesh` ("fsdp" unmapped),
+placed by `distribute_tree` without a collective (``scatter=False``).
+The dry run (launch/dryrun.py) and the model-parallel train step place
+parameters, optimizer state, batches and decode caches on the
+production mesh.
 """
 from __future__ import annotations
 
@@ -127,11 +130,14 @@ def cache_shardings(mesh, caches, multi_pod: bool):
                          caches)
 
 
-def distribute_tree(mesh, tree, shardings):
+def distribute_tree(mesh, tree, shardings, *, scatter: bool = True):
     """Each leaf of ``tree`` as a ``DTensor`` on the `DeviceMesh` ``mesh``,
     placed by the `NamedSharding` at its path in ``shardings`` (a single
     `NamedSharding` applies to every leaf). A leaf on the meta device, or
-    a fake tensor, stays one: its local shard is made, not scattered."""
+    a fake tensor, stays one: its local shard is made, not scattered.
+    ``scatter`` False: every rank holds the same whole tree (serving ranks
+    that built it from one seed or checkpoint), and each takes its shards
+    from its own copy, with no collective."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     def place(path, x):
@@ -143,7 +149,8 @@ def distribute_tree(mesh, tree, shardings):
             return DTensor.from_local(local, mesh, placements,
                                       run_check=False, shape=x.shape,
                                       stride=x.stride())
-        return distribute_tensor(x, mesh, placements)
+        return distribute_tensor(x, mesh, placements,
+                                 src_data_rank=0 if scatter else None)
 
     return map_with_path(place, tree)
 

@@ -12,9 +12,12 @@ float32 and the shifted ``prev`` is cast back to the compute dtype; the
 lerps run in the compute dtype; the decay's LoRA runs in the compute
 dtype and its clip/exp/exp in float32, so ``w`` is float32; ``y`` comes
 back float32 and is cast to the compute dtype before the output gate.
-Under a bound mesh a full-sequence pass gathers the projections over
-"model" once, flat, before the head split, as the reference constrains
-them: the recurrence then runs on whole heads of each batch shard.
+Under a bound mesh the projections stay split over "model" on whole
+heads (`split_heads`; the decay, replicated, is sliced to them) and the
+recurrence runs on each rank's heads of its batch shard (`wkv6` on
+``DTensor``s). The reference constrains the projections whole before
+the head split instead; the values are the same, as heads are
+independent.
 """
 from __future__ import annotations
 
@@ -96,7 +99,7 @@ def time_mix(p, x, state, *, num_heads: int, chunk: int = 128):
 
     Returns (out (B, S, D), new_state). A multi-token pass starts the
     recurrence from a zero state, as the reference's kernel call does."""
-    b, s, d = x.shape
+    _, s, d = x.shape
     hd = d // num_heads
     x = constrain(x, "batch", None, None)
     last, wkv_state = state
@@ -106,12 +109,6 @@ def time_mix(p, x, state, *, num_heads: int, chunk: int = 128):
     xr, xk, xv, xw, xg = (x + (prev - x) * mu[i] for i in range(5))
 
     def heads(t):                   # (B, S, D) -> (B, H, S, hd) view
-        # gathered flat on full-sequence passes only: at decode (s == 1)
-        # the gather costs more than it saves, and only whole heads are
-        # needed there
-        if s > 1:
-            return constrain(t, "batch", None, None).reshape(
-                b, s, num_heads, hd).transpose(1, 2)
         return split_heads(t, num_heads, hd).transpose(1, 2)
 
     r = heads(xr @ p["wr"])

@@ -405,9 +405,13 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
         if cfg.num_classes:
             return pool_hidden(cfg, hn) @ w                # (B, C)
         # the sequence whole (gathered from a sequence split) before the
-        # vocabulary-split head, as Megatron's sequence parallelism does
+        # vocabulary-split head, as Megatron's sequence parallelism does;
+        # the logits are pinned so that their gradient reaches the head's
+        # product vocabulary-split too: left to the loss's backward it can
+        # come split on the sequence, which the product's flattened rows
+        # carry as a strided shard no matmul strategy takes
         hn = constrain(hn, "batch", None, None)
-        return constrain(hn @ w, "batch", None, "model")   # (B, S, V)
+        return constrain(hn @ w, "batch", None, "model", pin=True)
 
     def ce(logits):
         if cfg.num_classes:

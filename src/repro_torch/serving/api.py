@@ -9,7 +9,8 @@
   and returns a typed `ServeReport`. The port runs the sequential,
   batched and sharded paths (bucketed, scan or auto edge phase, any
   offload codec; the sharded runtime over R replicas of a ``mesh`` with
-  the depth-K offload pipeline) and the decode runtime
+  the depth-K offload pipeline, or Megatron-split over a ("data",
+  "model") `DeviceMesh`) and the decode runtime
   (``workload="decode"``, serving/decode.py) and the distributed runtime
   (serving/distributed.py: one process of a cluster, its batch slice and
   the host-side exchange; ``exchange``/``init_state``/``stream_offset``
@@ -578,9 +579,13 @@ def serve(runtime: EdgeCloudRuntime, params, stream, cost: CostModel,
     a JSON config:
 
     ``mesh``           explicit `launch.mesh.ServingMesh` with a "data"
-                       axis (sharded / distributed paths; without one they
+                       axis, or a ``torch.distributed`` `DeviceMesh` with
+                       "data" and "model" axes (model parallelism: every
+                       rank of its process group makes the same call;
+                       `launch.mesh.make_model_serving_mesh`), for the
+                       sharded / distributed paths; without one they
                        build a 1-D mesh of ``config.replicas`` replicas on
-                       the runtime's device). A mesh on another path
+                       the runtime's device. A mesh on another path
                        raises the reference's ``ValueError``.
     ``exchange``       cross-host transport override (distributed path).
     ``init_state``     controller snapshot to restore before serving —
@@ -769,7 +774,9 @@ class Engine:
     call between arrivals. The report gains a ``scheduler`` section
     (p50/p99 latency, shed counts by reason, batch fill). ``clock``
     injects a monotonic time source for the scheduler. ``mesh`` is the
-    sharded session's explicit `ServingMesh`.
+    sharded session's explicit `ServingMesh` or `DeviceMesh` (as in
+    `serve`; over a `DeviceMesh` every rank runs the same session and
+    submits the same samples).
     """
 
     def __init__(self, runtime: EdgeCloudRuntime, params, cost: CostModel,
@@ -965,11 +972,14 @@ class TenantSpec:
     mixed freely across tenants), parameters, cost model, and the
     per-tenant `ServingConfig` describing its session (batch size, policy
     knobs, workload). Scheduler fields stay on the shared engine — a
-    tenant config asking for its own scheduler is rejected."""
+    tenant config asking for its own scheduler is rejected. ``mesh``: the
+    tenant's sharded session's explicit mesh, as `Engine`'s (the port's
+    addition; the reference's tenants take none)."""
     runtime: Any
     params: Any
     cost: CostModel
     config: ServingConfig
+    mesh: Any = None
 
 
 class MultiTenantEngine:
@@ -1022,7 +1032,8 @@ class MultiTenantEngine:
         self._paths: Dict[str, str] = {}
         for name, spec in tenants.items():
             sess, path = _build_session(spec.runtime, spec.params,
-                                        spec.cost, spec.config)
+                                        spec.cost, spec.config,
+                                        mesh=spec.mesh)
             self._sessions[name] = sess
             self._paths[name] = path
         self._clock = clock if clock is not None else time.monotonic

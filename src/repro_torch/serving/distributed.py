@@ -96,9 +96,9 @@ from repro_torch.serving.batched import OffloadQueue, _edge_phase, _offload_scal
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvstore import (CoordinatorKV, FileKV, KVKeyExists,
                                          KVTimeout, open_tcp_store)
-from repro_torch.serving.sharded import (_BatchCtx, _data_devices, _data_put,
-                                         _drive_pipeline, _replicate_params,
-                                         _ReplicatedRuntime, _resolve_cloud,
+from repro_torch.serving.sharded import (_BatchCtx, _check_lockstep,
+                                         _drive_pipeline, _placement,
+                                         _resolve_cloud,
                                          _serve_result, _shard_sizes)
 from repro_torch.serving.simulator import EdgeCloudRuntime
 
@@ -351,7 +351,16 @@ class RejoinAck:
 class _HeartbeatMonitor:
     """Tracks per-host heartbeat stamps; a host is stale once its stamp
     has not advanced for the exchange's heartbeat timeout (the baseline
-    is the first observation, so detection takes at most one timeout)."""
+    is the first observation, so detection takes at most one timeout).
+
+    A host with no stamp at all has not started its heartbeat yet: it may
+    still be starting up (importing, building its model) on a loaded
+    machine, which a frozen stamp cannot be told apart from. It is stale
+    only once it has shown no stamp for STARTUP_TIMEOUT, so a host that
+    dies before its first stamp is declared dead within STARTUP_TIMEOUT
+    (plus one poll) of the first look at it. (The reference's monitor
+    takes a missing stamp as a frozen one and fences a host that starts
+    later than one heartbeat timeout.)"""
 
     def __init__(self, exchange: "ResilientExchange"):
         self._ex = exchange
@@ -364,10 +373,15 @@ class _HeartbeatMonitor:
         if prev is None or prev[0] != stamp:
             self._seen[h] = (stamp, now)
             return False
-        return now - prev[1] > self._ex.heartbeat_timeout
+        limit = (self._ex.heartbeat_timeout if stamp is not None
+                 else STARTUP_TIMEOUT)
+        return now - prev[1] > limit
 
 
 _FT_EPOCH = [0]   # distinct KV namespace per ResilientExchange instance
+# seconds a host may show no heartbeat stamp at all before it is declared
+# dead (`_HeartbeatMonitor`): room for a worker's start-up on a loaded host
+STARTUP_TIMEOUT = 60.0
 
 
 class ResilientExchange:
@@ -385,7 +399,8 @@ class ResilientExchange:
     * **bounded gather + verdict** — the acting arbiter (lowest-id live
       host) collects round-r payloads, waiting on a missing host only
       while its heartbeat advances; once the heartbeat has been stale
-      for ``heartbeat_timeout`` the host is declared dead. The arbiter
+      for ``heartbeat_timeout`` (a host that has not stamped yet: for
+      STARTUP_TIMEOUT) the host is declared dead. The arbiter
       publishes a round *verdict* (fold set + membership map) that every
       host applies identically, so all mirrors agree on exactly which
       shard summaries fold — the survivors' controller evolution stays
@@ -916,12 +931,12 @@ def _serve_stream_distributed(runtime: EdgeCloudRuntime, params, stream,
     round_base = exchange.next_round if ft else 0
 
     # placement as in the sharded runtime: a call over the host's
-    # replicas is one call per replica; one replica is one call
+    # replicas is one call per replica, one replica is one call; a
+    # DeviceMesh runs the host's calls over its ranks (model parallelism)
     if mesh is None:
         mesh = make_serving_mesh(replicas, device=runtime.device)
-    put = _data_put(mesh)
-    params = _replicate_params(mesh, params, runtime, _data_devices(mesh))
-    replicated = _ReplicatedRuntime(runtime)
+    put, params, replicated = _placement(mesh, params, runtime)
+    spmd = None if isinstance(mesh, ServingMesh) else mesh
 
     ctl = SplitEEController(cost, beta=beta, side_info=side_info,
                             **(controller_kwargs or {}))
@@ -962,6 +977,8 @@ def _serve_stream_distributed(runtime: EdgeCloudRuntime, params, stream,
         conf_paths, batch_preds = _edge_phase(
             replicated, params, tokens, arms[lo:hi], cost, queue,
             side_info=side_info, put=put, replicas=replicas)
+        if spmd is not None:
+            _check_lockstep(spmd, arms[lo:hi], conf_paths, cost)
 
         pending = queue.flush_async(
             min_rows=replicas, depth=overlap_depth if overlap else None)

@@ -19,8 +19,23 @@ pipeline out and overlaps it:
     batched path's one call on the same tensors. Parameters are placed by
     `launch/shardings.py:param_shardings`, which replicates every leaf on
     the 1-D serving mesh; a leaf already on a replica's device is not
-    copied (on the CPU the replicas share one tree). A "model" axis would
-    split parameters Megatron-style: model parallelism, not ported yet.
+    copied (on the CPU the replicas share one tree).
+  * **model parallelism** — a ``torch.distributed`` `DeviceMesh` with
+    ("data", "model") axes (`launch/mesh.py:make_model_serving_mesh`)
+    places the parameters Megatron-style by `param_shardings` with
+    "model" mapped and "fsdp" not (`_distribute_params`), and every call's
+    rows over "data" as ``DTensor``s (`_mesh_put`). SPMD: every rank of the
+    process group runs this same serving loop on the same stream and
+    seed; the numpy controller is deterministic, so the ranks stay in
+    lockstep. Each half runs under `mesh_rules` on the rank's shards
+    (attention and WKV6 on its head shards, the exit on its vocabulary
+    shard, combined across "model"), and its confidences, predictions and
+    hidden rows come back whole on every rank (`_MeshRuntime`), so no
+    rank acts on a shard of a confidence. Each micro-batch's arms and
+    exit decisions are compared across ranks (`_check_lockstep`) and a
+    divergence raises, before it could wedge a collective. A mesh whose
+    "model" axis has size 1, or that has none, serves as the data-only
+    mesh does.
   * **per-replica bandit statistics** — each replica owns a contiguous
     shard of the micro-batch; its arms are its slice of the global
     frozen-state selection, and its update statistics are summarized by
@@ -59,12 +74,17 @@ import torch
 from repro_torch.core.controller import SplitEEController
 from repro_torch.core.rewards import CostModel
 from repro_torch.data.stream import microbatches
-from repro_torch.launch.mesh import ServingMesh, make_serving_mesh
-from repro_torch.launch.shardings import param_shardings, sanitize_spec
-from repro_torch.models.transformer import map_tree
+from repro_torch.launch.mesh import (ServingMesh, make_serving_mesh,
+                                     serving_axis_map)
+from repro_torch.launch.shardings import (distribute_tree, param_shardings,
+                                          sanitize_spec)
+from repro_torch.models.transformer import ParamTree, map_tree
 from repro_torch.serving.batched import OffloadQueue, _offload_scale
 from repro_torch.serving.offload_codec import OffloadCodec
 from repro_torch.serving.simulator import EdgeCloudRuntime
+from repro_torch.sharding.rules import (mesh_axis_sizes, mesh_rules,
+                                        spec_placements)
+from repro_torch.shards import placed, whole
 
 
 def _shard_sizes(total: int, replicas: int) -> List[int]:
@@ -182,15 +202,13 @@ class _ReplicatedRuntime:
             params, (hidden,), (0, 0))
 
 
-def _replicate_params(mesh: ServingMesh, params, runtime: EdgeCloudRuntime,
-                      devices: List[torch.device]) -> list:
-    """One parameter tree per data replica, placed by `param_shardings`.
+def _axis_names(mesh):
+    """The axis names of a `ServingMesh` or a `DeviceMesh`."""
+    return (mesh.axis_names if isinstance(mesh, ServingMesh)
+            else tuple(mesh.mesh_dim_names or ()))
 
-    On the 1-D serving mesh every leaf replicates, so each replica holds
-    the whole tree; a tree already on a replica's device is that
-    replica's tree, uncopied. A mesh with a "model" axis splits leaves
-    Megatron-style, which is model parallelism and raises; so do mesh
-    devices of another kind than the runtime's and the parameters'."""
+
+def _check_devices(devices, params, runtime: EdgeCloudRuntime):
     home = params["embed"].device
     kinds = {d.type for d in devices}
     if kinds != {runtime.device.type} or home.type != runtime.device.type:
@@ -198,22 +216,129 @@ def _replicate_params(mesh: ServingMesh, params, runtime: EdgeCloudRuntime,
             f"mesh devices {[str(d) for d in devices]} do not match the "
             f"runtime's device {runtime.device} and the parameters' "
             f"{home}")
-    amap = {"model": "model" if "model" in mesh.axis_names else None,
+
+
+def _serving_shardings(mesh, params):
+    """`param_shardings` of serving: "model" mapped where the mesh has
+    that axis, "fsdp" not (every data replica holds its model shard)."""
+    amap = {"model": "model" if "model" in _axis_names(mesh) else None,
             "fsdp": None}
-    split = []
-    map_tree(lambda s: split.append(s) if not s.replicated else None,
-             param_shardings(mesh, params, axis_map=amap))
-    if split:
-        raise NotImplementedError(
-            f"the mesh's axes {mesh.axis_names} split {len(split)} "
-            f"parameter leaves (a 'model' axis places them Megatron-style): "
-            f"model parallelism is not ported yet; serve over a 1-D "
-            f"('data',) mesh")
+    return param_shardings(mesh, params, axis_map=amap)
+
+
+def _replicate_params(mesh: ServingMesh, params, runtime: EdgeCloudRuntime,
+                      devices: List[torch.device]) -> list:
+    """One parameter tree per data replica, placed by `param_shardings`.
+
+    On the 1-D serving mesh every leaf replicates, so each replica holds
+    the whole tree; a tree already on a replica's device is that
+    replica's tree, uncopied. The replicas are devices of this process,
+    so a "model" axis of size > 1, which splits leaves over ranks, takes a
+    `DeviceMesh` and raises here (one of size 1 splits nothing); so do
+    mesh devices of another kind than the runtime's and the parameters'."""
+    _check_devices(devices, params, runtime)
+    if mesh.shape.get("model", 1) > 1:
+        raise ValueError(
+            f"a ServingMesh lists the devices of one process; its 'model' "
+            f"axis of size {mesh.shape['model']} would split parameters "
+            f"over ranks: serve over a torch.distributed DeviceMesh "
+            f"(launch.mesh.make_model_serving_mesh)")
 
     held = set()
     map_tree(lambda t: held.add(t.device), params)
     return [params if held == {dev} else map_tree(lambda t: t.to(dev), params)
             for dev in devices]
+
+
+def _mesh_put(mesh, device: torch.device):
+    """Placement closure of a `DeviceMesh`: an array's leading axis split
+    over "data" (`sanitize_spec`: replicated where the rows do not divide
+    it), replicated over "model", as a ``DTensor`` on ``device``. Every
+    rank holds the same whole array and takes its rows locally."""
+    def put(arr):
+        t = arr if isinstance(arr, torch.Tensor) else torch.as_tensor(
+            np.asarray(arr))
+        t = t.to(device)
+        spec = sanitize_spec(mesh, ("data",) + (None,) * (t.ndim - 1),
+                             t.shape)
+        return placed(t, mesh, spec_placements(mesh, spec))
+    return put
+
+
+def _distribute_params(mesh, params, runtime: EdgeCloudRuntime):
+    """The parameter tree on a `DeviceMesh`, placed by `param_shardings`
+    ("model" mapped, "fsdp" not): each rank takes its shards from its own
+    whole copy (every rank holds the same tree), with no collective."""
+    _check_devices([torch.device(mesh.device_type)], params, runtime)
+    return ParamTree(distribute_tree(mesh, params,
+                                     _serving_shardings(mesh, params),
+                                     scatter=False))
+
+
+class _MeshRuntime:
+    """`EdgeCloudRuntime`'s halves over a `DeviceMesh`: each half runs
+    under `mesh_rules` on the rank's parameter shards and the rows
+    `_mesh_put` placed, and its outputs (confidences, predictions, hidden
+    rows) come back whole on every rank as plain tensors on its device."""
+
+    def __init__(self, runtime: EdgeCloudRuntime, mesh):
+        self.runtime = runtime
+        self.mesh = mesh
+        self.axis_map = serving_axis_map(mesh)
+
+    def _whole(self, fn, *args):
+        with mesh_rules(self.mesh, self.axis_map):
+            return tuple(whole(t) for t in fn(*args))
+
+    def edge_fn(self, params, batch, depth: int):
+        return self._whole(self.runtime.edge_fn, params, batch, depth)
+
+    def edge_fn_s(self, params, batch, depth: int):
+        return self._whole(self.runtime.edge_fn_s, params, batch, depth)
+
+    def edge_scan_fn(self, params, batch, depths):
+        return self._whole(self.runtime.edge_scan_fn, params, batch, depths)
+
+    def cloud_fn(self, params, hidden, depth: int):
+        return self._whole(self.runtime.cloud_fn, params, hidden, depth)
+
+
+def _placement(mesh, params, runtime: EdgeCloudRuntime):
+    """(put, params, halves) of serving over ``mesh``: a `ServingMesh`'s
+    in-process replicas, or a `DeviceMesh`'s SPMD ranks."""
+    if isinstance(mesh, ServingMesh):
+        devices = _data_devices(mesh)
+        return (_data_put(mesh),
+                _replicate_params(mesh, params, runtime, devices),
+                _ReplicatedRuntime(runtime))
+    return (_mesh_put(mesh, runtime.device),
+            _distribute_params(mesh, params, runtime),
+            _MeshRuntime(runtime, mesh))
+
+
+def _check_lockstep(mesh, arms, conf_paths, cost: CostModel) -> None:
+    """Raise unless every rank of the `DeviceMesh` drew the same arms and
+    made the same exit decisions for this micro-batch: a rank that went
+    its own way would next wait in a collective the others never join."""
+    import torch.distributed as dist
+    exits = [float(c[-1]) >= cost.alpha or int(a) + 1 == cost.num_layers
+             for a, c in zip(arms, conf_paths)]
+    mine = torch.as_tensor(np.concatenate([np.asarray(arms, np.int64),
+                                           np.asarray(exits, np.int64)]),
+                           device=mesh.device_type)
+    # rank by rank along each mesh axis: equal along every axis is equal
+    # over the mesh
+    for m, name in enumerate(mesh.mesh_dim_names):
+        if mesh.size(m) == 1:
+            continue
+        peers = [torch.empty_like(mine) for _ in range(mesh.size(m))]
+        dist.all_gather(peers, mine, group=mesh.get_group(m))
+        differ = [i for i, t in enumerate(peers) if not torch.equal(t, mine)]
+        if differ:
+            raise RuntimeError(
+                f"serving ranks diverged: this micro-batch's arms and exit "
+                f"decisions differ on {name!r} ranks {differ} from this "
+                f"rank's ({mesh.get_local_rank(m)})")
 
 
 @dataclasses.dataclass
@@ -384,12 +509,13 @@ class _ShardedSession:
                 f"overlap_depth must be >= 1, got {overlap_depth}")
         if mesh is None:
             mesh = make_serving_mesh(replicas, device=runtime.device)
-        if "data" not in mesh.axis_names:
+        if "data" not in _axis_names(mesh):
             raise ValueError(
-                f"mesh needs a 'data' axis, got {mesh.axis_names}")
-        if replicas > mesh.shape["data"]:
+                f"mesh needs a 'data' axis, got {_axis_names(mesh)}")
+        data = mesh_axis_sizes(mesh)["data"]
+        if replicas > data:
             raise ValueError(f"replicas={replicas} exceeds data axis "
-                             f"size {mesh.shape['data']}")
+                             f"size {data}")
 
         self.runtime = runtime
         self.cost = cost
@@ -402,10 +528,9 @@ class _ShardedSession:
         self.edge_mode = edge_mode
         self._edge_phase = select_edge_phase(edge_mode)
 
-        devices = _data_devices(mesh)
-        self.put = _data_put(mesh)
-        self.params = _replicate_params(mesh, params, runtime, devices)
-        self._replicated = _ReplicatedRuntime(runtime)
+        self.put, self.params, self._replicated = _placement(
+            mesh, params, runtime)
+        self._spmd = None if isinstance(mesh, ServingMesh) else mesh
 
         self.ctl = SplitEEController(cost, beta=beta, side_info=side_info,
                                      **(controller_kwargs or {}))
@@ -434,6 +559,8 @@ class _ShardedSession:
             self._replicated, self.params, tokens, arms, self.cost,
             self.queue, side_info=self.side_info, put=self.put,
             replicas=self.replicas)
+        if self._spmd is not None:
+            _check_lockstep(self._spmd, arms, conf_paths, self.cost)
 
         # ---- cloud: dispatch the flush; resolve now or K batches later -
         pending = self.queue.flush_async(
@@ -523,7 +650,10 @@ def _serve_stream_sharded(runtime: EdgeCloudRuntime, params, stream,
     ``replicas``  data-parallel replica count (must fit the mesh's
                   "data" axis; a 1-D mesh of `replicas` replicas on the
                   runtime's device is built when ``mesh`` is None).
-    ``mesh``      explicit `ServingMesh` with a "data" axis.
+    ``mesh``      explicit `ServingMesh` with a "data" axis, or a
+                  `DeviceMesh` with "data" and "model" axes (model
+                  parallelism; every rank of its process group calls
+                  this with the same arguments).
     ``overlap``   pipeline the offload queue: batch t's cloud flush is
                   resolved only after up to ``overlap_depth`` later
                   batches have dispatched their edge work. Off: cloud

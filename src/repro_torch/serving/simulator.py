@@ -7,6 +7,11 @@ Two halves of the split, on one device:
       a modality stub's ``embeds`` (B, S, D);
   cloud_fn(params, hidden, depth) — layers depth+2..L + the final head.
 
+Both halves take ``DTensor`` parameters and rows (the sharded runtime
+over a ("data", "model") `DeviceMesh`, under `mesh_rules`): the forward
+then runs Megatron-split, and the exit returns ``DTensor`` confidences
+split as the rows.
+
 The offload payload between them is the (B, S, D) activation after the
 split layer; its byte size is metered per sample and is what the paper's
 `o` abstracts. ``edge_fn_s`` (SplitEE-S) also returns the confidences of
@@ -40,6 +45,7 @@ from repro_torch.models.transformer import (check_family, _exit_w,
                                             grouped_exits, layer_params,
                                             pool_hidden)
 from repro_torch.serving.offload_codec import OffloadCodec
+from repro_torch.shards import is_dtensor
 
 
 @dataclasses.dataclass
@@ -56,6 +62,14 @@ class EdgeCloudRuntime:
 
     # ---------------------------------------------------------------- parts
 
+    def _on_device(self, x):
+        """``x`` as a tensor on the runtime's device; a ``DTensor`` (rows
+        placed on a mesh by the sharded runtime) as it is."""
+        if is_dtensor(x):
+            return x
+        return torch.as_tensor(x if isinstance(x, torch.Tensor)
+                               else np.asarray(x), device=self.device)
+
     def _inputs(self, params, batch):
         """The batch on the runtime's device: its token ids, or a modality
         stub's ``embeds`` (B, S, D)."""
@@ -64,10 +78,8 @@ class EdgeCloudRuntime:
             raise ValueError(f"params on {emb.device}, runtime on "
                              f"{self.device}")
         if "embeds" in batch:
-            return {"embeds": torch.as_tensor(batch["embeds"],
-                                              device=self.device)}
-        return {"tokens": torch.as_tensor(np.asarray(batch["tokens"]),
-                                          device=self.device)}
+            return {"embeds": self._on_device(batch["embeds"])}
+        return {"tokens": self._on_device(batch["tokens"])}
 
     def _embed(self, params, batch):
         x = embed_inputs(params, self.cfg, self._inputs(params, batch))
@@ -145,8 +157,7 @@ class EdgeCloudRuntime:
         depth. The launch sequence depends only on the batch shape."""
         out = forward_exits_masked(params, self.cfg,
                                    self._inputs(params, batch),
-                                   torch.as_tensor(depths,
-                                                   device=self.device),
+                                   self._on_device(depths),
                                    window=0, fused_exit=self.fused_exit)
         return out["conf"], out["pred"], out["hidden"]
 

@@ -20,16 +20,18 @@ reference's ``PartitionSpec``.
 Consumers: the dry run (launch/dryrun.py) and the model-parallel train
 step bind the (data, model) production mesh; the sharded serving
 runtime (serving/sharded.py) reads ``param_specs`` for parameter
-placement on its 1-D "data" mesh, where every leaf replicates.
+placement, every leaf replicated on its 1-D "data" mesh and
+Megatron-split on a ("data", "model") mesh, whose forward it runs under
+`mesh_rules`.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
+import weakref
 from typing import Any, Dict, Optional, Tuple
-
-import numpy as np
 
 from repro_torch.shards import is_dtensor
 
@@ -76,14 +78,23 @@ def logical_size(name: str) -> int:
     if mesh is None:
         return 1
     sizes = mesh_axis_sizes(mesh)
-    return int(np.prod([sizes[a] for a in _axes((_axis_map() or {}).get(name))]))
+    return math.prod(sizes[a] for a in _axes((_axis_map() or {}).get(name)))
+
+
+# a `DeviceMesh`'s axis sizes, kept per mesh: its ``shape`` walks its
+# layout on every read, and the serving forward asks for it at every
+# `constrain`
+_SIZES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
     """Axis name -> size, for a `DeviceMesh` or a `ServingMesh`."""
-    if isinstance(mesh.shape, dict):
+    if not hasattr(mesh, "mesh_dim_names"):          # a ServingMesh
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    sizes = _SIZES.get(mesh)
+    if sizes is None:
+        sizes = _SIZES[mesh] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return sizes
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -100,7 +111,7 @@ def sanitize_spec(mesh, spec: Spec, shape) -> Spec:
     out = []
     for dim, axes in zip(shape, tuple(spec) + (None,) * (len(shape)
                                                          - len(spec))):
-        n = int(np.prod([sizes[a] for a in _axes(axes)]))
+        n = math.prod(sizes[a] for a in _axes(axes))
         out.append(axes if axes is not None and dim % n == 0 else None)
     return tuple(out)
 
@@ -110,22 +121,30 @@ def spec_placements(mesh, spec: Spec):
     per mesh axis, ``Shard(d)`` for the tensor dimension whose entry names
     that axis, else ``Replicate()``. A dimension split over several axes
     (("pod", "data")) is split major to minor in mesh-axis order, as the
-    reference's mesh splits it."""
+    reference's mesh splits it. An axis of size 1 splits nothing and is
+    ``Replicate()`` (the same layout, which ``DTensor``'s reshapes also
+    take where the dimension has size 1)."""
     from torch.distributed.tensor import Replicate, Shard
     owner = {a: d for d, entry in enumerate(spec) for a in _axes(entry)}
-    return tuple(Shard(owner[a]) if a in owner else Replicate()
-                 for a in mesh.mesh_dim_names)
+    sizes = mesh_axis_sizes(mesh)
+    return tuple(Shard(owner[a]) if a in owner and sizes[a] > 1
+                 else Replicate() for a in mesh.mesh_dim_names)
 
 
-def constrain(x, *logical):
+def constrain(x, *logical, pin: bool = False):
     """Redistribute ``x`` to its logical spec on the bound mesh (the
-    identity when no mesh is bound or ``x`` is not a ``DTensor``)."""
+    identity when no mesh is bound or ``x`` is not a ``DTensor``).
+
+    ``pin``: redistribute even when ``x`` is placed so already, which
+    puts a node in the graph whose backward brings ``x``'s gradient back
+    to the same placements (else the gradient keeps whatever placement
+    the ops after ``x`` gave it)."""
     mesh = current_mesh()
     if mesh is None or not is_dtensor(x):
         return x
     spec = sanitize_spec(mesh, logical_to_spec(*logical), x.shape)
     placements = spec_placements(mesh, spec)
-    if tuple(x.placements) == placements:
+    if tuple(x.placements) == placements and not pin:
         return x
     return x.redistribute(mesh, placements)
 

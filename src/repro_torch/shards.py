@@ -77,6 +77,19 @@ def from_local(local, like, placements=None):
                               placements or like.placements, run_check=False)
 
 
+def placed(t, mesh, placements):
+    """``t`` as a ``DTensor`` on ``mesh`` placed as ``placements``. A
+    plain ``t`` must be the same whole tensor on every rank: each rank
+    takes its slice where ``placements`` split it, with no collective."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(mesh, placements)
+    return t
+
+
 def batch_placements(like):
     """Placements of a tensor that holds, on each rank, values for the
     rows ``like`` holds on its first (batch) dimension: split as ``like``

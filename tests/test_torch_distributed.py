@@ -899,3 +899,48 @@ def test_respawn_distributed_relays_argv(monkeypatch, capsys):
     captured = capsys.readouterr()
     assert captured.out == "out0\n"
     assert "worker 1 exited 3 (cluster continued without it)" in captured.err
+
+
+def test_a_host_starting_after_one_heartbeat_timeout_is_not_fenced(tmp_path):
+    """The cause of round-0 fencing under load: a host whose heartbeat
+    has not started yet (still importing and building on a loaded
+    machine) shows no stamp at all. It is waited for up to
+    STARTUP_TIMEOUT, not declared dead after one heartbeat timeout:
+    here it starts 4 timeouts late and both hosts fold round 0."""
+    kv = str(tmp_path / "kv")
+    hb = 0.25
+    ex0 = _mk_exchange(FileKV(kv), 0, 2, heartbeat_timeout=hb)
+    got = {}
+
+    def late_host():
+        time.sleep(4 * hb)
+        ex1 = _mk_exchange(FileKV(kv), 1, 2, heartbeat_timeout=hb)
+        got[1] = ex1.gather(b"p1")
+        ex1.close()
+
+    t = threading.Thread(target=late_host)
+    t.start()
+    got[0] = ex0.gather(b"p0")
+    t.join(timeout=30)
+    ex0.close()
+    for h in (0, 1):
+        assert got[h].removed == [] and got[h].fold == [0, 1], h
+        assert got[h].payloads == [b"p0", b"p1"], h
+
+
+def test_a_host_that_never_starts_is_declared_dead_within_startup_timeout(
+        tmp_path, monkeypatch):
+    """A host that dies before its first heartbeat stamp is still
+    detected: removed in round 0 within STARTUP_TIMEOUT plus a poll of
+    the round's first look at it (the bound the monitor states)."""
+    startup = 1.0
+    monkeypatch.setattr(tdist, "STARTUP_TIMEOUT", startup)
+    ex0 = _mk_exchange(FileKV(str(tmp_path / "kv")), 0, 2,
+                       heartbeat_timeout=0.25)
+    t0 = time.monotonic()
+    res = ex0.gather(b"p0")
+    wall = time.monotonic() - t0
+    ex0.close()
+    assert res.removed == [1] and res.fold == [0] and res.members == [0]
+    assert startup < ex0.reconfigurations[0]["detect_s"] < startup + 0.5
+    assert wall < startup + 1.0

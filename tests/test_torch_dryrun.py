@@ -349,3 +349,41 @@ def test_flops_are_counted_per_device_not_globally():
                 with tdry.marked_propagation(), counter:
                     x @ w
                 assert counter.flops == want, (w_pl, counter.flops)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-3-2b"])
+def test_multipod_train_step_backward_runs_on_a_small_mesh(arch):
+    """The decoder-only LMs' multi-pod train step on a (2, 2, 4) ("pod",
+    "data", "model") fake mesh, at the smoke config and a batch of 8 x 64
+    (2 rows a data shard, fewer than the 4 "model" ranks, as train_4k's
+    256 rows over the production mesh's 32 x 16): the loss and its
+    backward run. Without the logits' pinned placement the head's
+    gradient reached ``aten.mm`` with a strided shard of its flattened
+    rows and sharding propagation failed, as the full-size
+    ``--multipod`` train_4k run did."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import axis_map, make_mesh
+    from repro_torch.launch.shardings import distribute_tree
+    from repro_torch.models.transformer import ParamTree
+    from repro_torch.sharding.rules import mesh_rules
+    cfg = get_smoke_config(arch)
+    model = t_build_model(cfg)
+    with tdry.fake_world(16):
+        mesh = make_mesh((2, 2, 4), ("pod", "data", "model"), device="cpu")
+        with FakeTensorMode():
+            _, args, in_sh, cfg, _ = tdry.build_step(arch, "train_4k", mesh,
+                                                     True, cfg=cfg)
+            params = ParamTree(distribute_tree(
+                mesh, tdry._fake_like(args[0]), in_sh[0])).requires_grad_(True)
+            batch = distribute_tree(
+                mesh, {k: torch.empty((8, 64), dtype=v.dtype)
+                       for k, v in args[2].items()}, in_sh[2])
+            with mesh_rules(mesh, axis_map(True)), tdry.marked_propagation():
+                loss = model.train_loss(params, batch, remat=True)
+                loss.backward()
+            grad = params["exit_w"].grad if "exit_w" in params \
+                else params["layers"]["exit_w"].grad
+    assert loss.shape == () and grad is not None
+    assert grad.shape == (args[0]["exit_w"] if "exit_w" in args[0]
+                          else args[0]["layers"]["exit_w"]).shape

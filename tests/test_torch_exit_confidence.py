@@ -156,3 +156,127 @@ def test_fused_rejects_unknown_kind_and_device():
     m = torch.empty((2, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         exit_confidence(m, torch.empty((4, 2), device="meta"))
+
+
+# ------------------------------------------- vocabulary shards (partials)
+
+def _shard_edges(v, shards):
+    """Column edges of ``shards`` contiguous shards of V, uneven where V
+    does not divide (the first shards take the remainder)."""
+    base, rem = divmod(v, shards)
+    sizes = [base + (1 if i < rem else 0) for i in range(shards)]
+    return np.concatenate([[0], np.cumsum(sizes)]).tolist()
+
+
+def _combined(h, w, bias, shards, norm=None):
+    """conf, pred through the partials of each shard, gathered in shard
+    order and combined: the plain form of the vocabulary-split exit."""
+    from repro_torch.kernels.exit_confidence.ref import (
+        combine_partials_ref, exit_partials_fused_ref, exit_partials_ref)
+    edges = _shard_edges(w.shape[-1], shards)
+    parts = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        wb = w[..., lo:hi]
+        bb = None if bias is None else bias[..., lo:hi]
+        parts.append(exit_partials_ref(h, wb, bb, col0=lo) if norm is None
+                     else exit_partials_fused_ref(h, norm[0], wb, bb,
+                                                  kind=norm[1], col0=lo))
+    return combine_partials_ref(*(torch.cat([p[i] for p in parts], dim=-2)
+                                  for i in range(3)))
+
+
+def _check_close(want, got):
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-7)
+    assert torch.equal(got[1], want[1])
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_partials_and_combine_equal_whole_rows(shards, grouped):
+    """V = 37 (divides none of 2, 3, 4) split into contiguous shards, each
+    shard's triple with global columns, combined: the whole-row plain
+    version's conf (1e-6: the sums add in another order) and pred, and
+    the reference's."""
+    from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
+    rng = np.random.default_rng(shards)
+    lead = (3,) if grouped else ()
+    h = _rand(rng, *lead, 6, 16)
+    w, bias = _rand(rng, *lead, 16, 37, scale=0.3), _rand(rng, *lead, 37)
+    want = exit_confidence_ref(_t(h), _t(w), _t(bias))
+    _check_close(want, _combined(_t(h), _t(w), _t(bias), shards))
+    if not grouped:
+        _check(j_exit(jnp.asarray(h), jnp.asarray(w), jnp.asarray(bias),
+                      block_v=16, **INTERP),
+               _combined(_t(h), _t(w), _t(bias), shards))
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_partials_ties_across_a_shard_boundary_go_to_the_lowest_column(
+        shards):
+    """Equal maxima in two shards (columns 5 and 30 of 37, and 12 / 13 on
+    both sides of a 2-shard edge at 19 when it lies there): the lowest
+    global column wins, as in the whole row."""
+    d, v = 8, 37
+    h = torch.ones(3, d)
+    for cols in ((5, 30), (18, 19), (12, 36)):
+        w = torch.zeros(d, v)
+        for c in cols:
+            w[:, c] = 2.0
+        conf, pred = _combined(h, w, None, shards)
+        assert (pred == min(cols)).all(), (cols, pred)
+        _check_close(exit_confidence(h, w), (conf, pred))
+
+
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_fused_partials_and_combine_equal_whole_rows(kind, per_row):
+    """The fused form's partials (the exit norm, shared or per-row
+    parameters, before each shard's product) combined over 3 shards equal
+    the whole-row fused plain version."""
+    from repro_torch.kernels.exit_confidence.ref import \
+        exit_confidence_fused_ref
+    rng = np.random.default_rng(5)
+    x, w = _rand(rng, 6, 16, scale=3.0), _rand(rng, 16, 37, scale=0.3)
+    rows = (6, 16) if per_row else (16,)
+    norm = {"scale": _t(1.0 + _rand(rng, *rows, scale=0.1)),
+            "bias": _t(_rand(rng, *rows, scale=0.1))}
+    want = exit_confidence_fused_ref(_t(x), norm, _t(w), kind=kind)
+    _check_close(want, _combined(_t(x), _t(w), None, 3, norm=(norm, kind)))
+
+
+def test_partials_and_combine_dispatch_by_device():
+    """`exit_partials`, `exit_partials_fused` and `exit_combine` run the
+    plain versions on CPU tensors (counting no launch) and raise on other
+    devices; the CUDA bindings refuse CPU tensors before any build."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.exit_confidence.kernel import (
+        exit_combine_cuda, exit_partials_cuda)
+    from repro_torch.kernels.exit_confidence.ops import (
+        exit_combine, exit_partials, exit_partials_fused)
+    from repro_torch.kernels.exit_confidence.ref import (
+        exit_confidence_fused_ref, exit_confidence_ref)
+    rng = np.random.default_rng(13)
+    h, w = _t(_rand(rng, 5, 16)), _t(_rand(rng, 16, 9, scale=0.3))
+    norm = {"scale": torch.ones(16)}
+    reset_launch_counts()
+    parts = [exit_partials(h, w[:, :4], col0=0),
+             exit_partials(h, w[:, 4:], col0=4)]
+    tri = [torch.cat([p[i] for p in parts]) for i in range(3)]
+    _check_close(exit_confidence_ref(h, w), exit_combine(*tri))
+    fparts = [exit_partials_fused(h, norm, w[:, :4], kind="rmsnorm"),
+              exit_partials_fused(h, norm, w[:, 4:], kind="rmsnorm", col0=4)]
+    _check_close(exit_confidence_fused_ref(h, norm, w, kind="rmsnorm"),
+                 exit_combine(*(torch.cat([p[i] for p in fparts])
+                                for i in range(3))))
+    assert not any(launch_counts().values())
+    meta = torch.empty((2, 5), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        exit_combine(meta, meta, meta)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        exit_partials(torch.empty((5, 16), device="meta"),
+                      torch.empty((16, 9), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        exit_combine_cuda(*tri)
+    with pytest.raises(ValueError, match="CUDA"):
+        exit_partials_cuda(h, w, col0=0)

@@ -101,7 +101,8 @@ def test_launch_counts_cover_every_kernel():
     from repro_torch.kernels import SOURCES, launch_counts, reset_launch_counts
     reset_launch_counts()
     assert launch_counts() == {"flash_attention": 0, "exit_confidence": 0,
-                               "exit_confidence_fused": 0, "wkv6": 0}
+                               "exit_confidence_fused": 0,
+                               "exit_confidence_combine": 0, "wkv6": 0}
     assert all(Path(s).exists() for s in SOURCES)
 
 

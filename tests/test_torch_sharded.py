@@ -19,8 +19,10 @@ sharding/rules.py), and the batched-module pieces only it sets
 * `Engine` / `MultiTenantEngine` over the sharded path equal the one-shot
   `serve()` and the reference's engines;
 * the mesh errors: the reference's messages where it has them; a "model"
-  axis, a mesh on other devices than the parameters' and a CUDA mesh on
-  a CPU-only host raise, and nothing falls back.
+  axis of size 2 on the in-process `ServingMesh` (model parallelism takes
+  a `DeviceMesh`: tests/test_torch_model_serving.py), a mesh on other
+  devices than the parameters' and a CUDA mesh on a CPU-only host raise,
+  and nothing falls back.
 """
 import dataclasses
 import json
@@ -673,15 +675,25 @@ def test_mesh_errors_match_reference(bed):
 
 
 def test_model_axis_and_foreign_devices_raise(bed):
-    """A "model" axis splits parameters Megatron-style (model
-    parallelism, not ported); a mesh on other devices than the runtime's
-    and the parameters' raises; neither falls back."""
+    """A `ServingMesh` lists the devices of one process: a "model" axis of
+    size 2 would split parameters over ranks, so it raises and names the
+    `DeviceMesh` that model parallelism takes
+    (tests/test_torch_model_serving.py); one of size 1 splits nothing and
+    serves as the data-only mesh. A mesh on other devices than the
+    runtime's and the parameters' raises. Nothing falls back."""
     b = bed["elasticbert12"]
     model = ServingMesh(np.full((2, 2), "cpu", dtype=object),
                         ("data", "model"))
-    with pytest.raises(NotImplementedError, match="model parallelism"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         serve(b["trt"], b["tp"], _streams()[1], b["tcost"],
               ServingConfig(batch_size=8, replicas=2), mesh=model)
+    one = ServingMesh(np.full((2, 1), "cpu", dtype=object),
+                      ("data", "model"))
+    config = ServingConfig(batch_size=8, replicas=2, overlap=False)
+    _assert_bitwise(serve(b["trt"], b["tp"], _streams()[1], b["tcost"],
+                          config, mesh=one),
+                    serve(b["trt"], b["tp"], _streams()[1], b["tcost"],
+                          config))
     with pytest.raises(ValueError, match="do not match the runtime"):
         serve(b["trt"], b["tp"], _streams()[1], b["tcost"],
               ServingConfig(batch_size=8, mesh=True),

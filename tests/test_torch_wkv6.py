@@ -170,3 +170,38 @@ def test_cuda_binding_rejects_cpu_tensors():
     arrs = [torch.from_numpy(a) for a in _inputs(2, 1, 2, 3, 8, 8)]
     with pytest.raises(ValueError, match="one CUDA device"):
         wkv6_cuda(*arrs)
+
+
+@pytest.mark.parametrize("mesh_shape,placements", [
+    ((1, 2), ("R", "S1")),         # heads over "model"
+    ((2, 2), ("S0", "S1")),        # batch over "data", heads over "model"
+    ((2, 1), ("S0", "R")),         # batch only
+])
+def test_dtensor_head_shards_equal_the_whole_call(mesh_shape, placements):
+    """``DTensor`` r/k/v (and a replicated w, placed as r by the wrapper)
+    split over heads and the batch: each rank runs its shard with ``u``
+    sliced to its heads; the result and the state, placed as r, gathered
+    whole, equal the whole call (the same float32 loop per head:
+    bitwise). A split inside a head (dk) or over time raises."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from _threaded_ranks import run_ranks
+    from repro_torch.launch.mesh import make_mesh
+    r, k, v, w, u = (torch.from_numpy(a) for a in _inputs(3, 2, 4, 9, 8, 8))
+    want = wkv6(r, k, v, w, u)
+    pl = [Shard(int(p[1])) if p.startswith("S") else Replicate()
+          for p in placements]
+
+    def rank(_):
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        rd, kd, vd = (distribute_tensor(t, mesh, pl) for t in (r, k, v))
+        wd = distribute_tensor(w, mesh, [Replicate(), Replicate()])
+        y, s = wkv6(rd, kd, vd, wd, u)
+        assert y.placements == s.placements == rd.placements
+        for bad in (Shard(3), Shard(2)):
+            split = distribute_tensor(r, mesh, [Replicate(), bad])
+            with pytest.raises(ValueError, match="whole heads"):
+                wkv6(split, split, split, split, u)
+        return y.full_tensor(), s.full_tensor()
+
+    for y, s in run_ranks(rank, mesh_shape[0] * mesh_shape[1]).values():
+        assert torch.equal(y, want[0]) and torch.equal(s, want[1])
