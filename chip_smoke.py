@@ -189,8 +189,12 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    kernel and `attention_backward` at the TP = 2 shard; meanwhile runs
    `repro_torch.launch.dryrun` for qwen3-1.7b x train_4k and
    mixtral-8x22b x decode_32k on the fake (16, 16) mesh (two
-   subprocesses on the host, started with the phase) and prints their
-   per-device numbers;
+   subprocesses on the host, started with the phase, with the CLI's
+   default depth fit) and prints their per-device numbers, each depth
+   fit's points and its extrapolation against the full-depth walk (held:
+   flops and every collective equal, bytes accessed within a relative
+   1e-5; both archs are uniform in depth), then runs one `--refit` over
+   their records and holds the refit the same way;
 9. drives the front doors (`front_doors_phase`): the 200-step weights
    trained in 7. saved with `checkpoint.save_pytree` under ``build/`` (bytes and
    seconds printed) and read back with `load_pytree` against the card
@@ -5126,6 +5130,17 @@ MP_STEPS = 3                # train steps of each model-parallel run
 MP_TP2 = 2                  # ranks of the threaded run sharing the card
 MP_DRYRUN = (("qwen3-1.7b", "train_4k"), ("mixtral-8x22b", "decode_32k"))
 MP_DRYRUN_TIMEOUT_S = 300
+MP_REFIT_TIMEOUT_S = 120
+# the depth fit of a uniform arch vs its full-depth walk: flops and
+# collectives are linear in depth and must be equal; bytes accessed
+# within a relative MP_FIT_BYTES_RTOL. A train step's bytes also hold a
+# term quadratic in depth, which a line through L = 1 and 2 misses: the
+# backward of each layer's view of a stacked (L, ...) leaf
+# (``select_backward``) writes the whole leaf, and the leaf's gradient
+# sums L of them. There the fit lies below the walk, within
+# MP_FIT_TRAIN_BYTES_RTOL
+MP_FIT_BYTES_RTOL = 1e-5
+MP_FIT_TRAIN_BYTES_RTOL = 1e-4
 # model-parallel vs unbound, f32 round-off of other reduction orders:
 # losses at MP_LOSS_RTOL, step-0 gradients at MP_GRAD_RTOL (max |err|
 # over max |unbound| per leaf), the parameters after MP_STEPS steps
@@ -5342,13 +5357,43 @@ def on_threaded_ranks(torch, tp: int, fn):
     return results
 
 
+def hold_depth_fit(label: str, rec: dict) -> None:
+    """Print a dry-run record's depth fit (its points, and
+    ``extrapolated`` against the full-depth walk's top-level terms) and
+    fail unless the fit's flops and every collective equal the walk's and
+    its bytes accessed lie within MP_FIT_BYTES_RTOL (a train step's at
+    most MP_FIT_TRAIN_BYTES_RTOL below)."""
+    from repro_torch.configs import INPUT_SHAPES
+    fit, pts = rec["extrapolated"], rec["extrapolated"]["fit_points"]
+    rel = (fit["bytes_accessed"] - rec["bytes_accessed"]) / \
+        rec["bytes_accessed"]
+    low = -MP_FIT_TRAIN_BYTES_RTOL \
+        if INPUT_SHAPES[rec["shape"]].kind == "train" else -MP_FIT_BYTES_RTOL
+    print(f"  {label}: fit points L = {pts['l1']}, {pts['l2']} (flops "
+          f"{pts['flops']}, bytes {pts['bytes']}, collective bytes "
+          f"{pts['coll_bytes']}); fit / walk: flops {fit['flops']:.6e} / "
+          f"{rec['flops']:.6e}, bytes accessed {fit['bytes_accessed']:.6e} "
+          f"/ {rec['bytes_accessed']:.6e} (relative {rel:+.3e}), "
+          f"collectives " + ", ".join(
+              f"{k} {v['count']} / {rec['collectives'][k]['count']} "
+              f"({v['bytes']} / {rec['collectives'][k]['bytes']} B)"
+              for k, v in fit["collectives"].items()
+              if isinstance(v, dict) and (v["count"] or v["bytes"])))
+    if fit["flops"] != rec["flops"] or \
+            fit["collectives"] != rec["collectives"] or \
+            not low <= rel <= MP_FIT_BYTES_RTOL:
+        fail(f"{label}: the depth fit differs from the full-depth walk")
+
+
 @contextlib.contextmanager
 def mp_dry_runs():
     """`python -m repro_torch.launch.dryrun` for MP_DRYRUN on the fake
     (16, 16) mesh, each in a subprocess started on entry (they run on the
     host's cores while the block uses the card) and awaited on a clean
     exit: prints its per-device argument and temp GB, flops and
-    collective counts. Every subprocess is killed on the way out."""
+    collective counts, and holds its depth fit (`hold_depth_fit`). Then
+    one ``--refit`` over their records, held the same way. Every
+    subprocess is killed on the way out."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out_dir = ROOT / "chiprun_out" / "dryrun"
     t0 = time.perf_counter()
@@ -5381,6 +5426,24 @@ def mp_dry_runs():
                   f"{k} {v['count']} ({v['bytes']} B)"
                   for k, v in rec["collectives"].items()
                   if isinstance(v, dict) and v["count"]))
+        hold_depth_fit(f"depth fit {arch} x {shape}", rec)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--refit",
+         "--out", str(out_dir)], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=MP_REFIT_TIMEOUT_S)
+    refit_s = time.perf_counter() - t1
+    for arch, shape in MP_DRYRUN:
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith(f"[refit] {arch} x {shape}:")]
+        if proc.returncode != 0 or len(line) != 1:
+            fail(f"--refit {arch} x {shape}: exit {proc.returncode}\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        print(f"  {line[0]}")
+        hold_depth_fit(f"refit {arch} x {shape}", json.loads(
+            (out_dir / f"{arch}_{shape}_single_pod_16x16.json").read_text()))
+    print(f"  --refit over {out_dir.relative_to(ROOT)}: {refit_s:.1f} s "
+          f"wall, start-up included")
 
 
 def model_parallel_phase(torch, dev, runs: Runs):

@@ -4,7 +4,8 @@ record what one device would hold, compute and exchange.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x22b \
         --shape train_4k [--multipod] [--out build/dryrun]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--no-fit]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --refit [--arch A]
 
 The counterpart of ``jax.jit(...).lower(...).compile()`` on 256 or 512
 forced host devices is ``FakeTensorMode`` over a fake process group
@@ -31,15 +32,32 @@ Per combo it writes the reference's JSON keys, from this rank's view:
   local shard's shapes (``torch.utils.flop_counter``'s formulas), so a
   replicated operand is counted on every rank that computes it;
 * ``bytes_accessed``: the sum of each non-view op's operand and result
-  bytes, local;
+  bytes, local (metadata queries such as ``prim.device`` read none);
 * ``collectives``: count and result bytes per kind of the functional
   collectives ``DTensor`` issues;
 * ``params`` and ``active_params``.
 
-The step runs at full depth and every op is counted, so the reference's
-HLO parsers (``parse_collective_bytes``, ``parse_dot_flops``), its depth
-fit and ``--refit`` (which exist because XLA counts a scan body once)
-have no counterpart: ``extrapolated`` holds the full-depth numbers.
+The step runs at full depth and every op is counted, so these top-level
+numbers are exact full-depth counts (the reference's XLA counts a scan
+body once, and its HLO parsers ``parse_collective_bytes`` and
+``parse_dot_flops`` have no counterpart here; a ``--no-fit`` record is
+exact, not a lower bound).
+
+``extrapolated`` is the reference's depth fit (`depth_fit`): the same
+step run at L1 = k and L2 = 2k layers (k the hybrid shared-attention
+period, else 1) and extrapolated linearly to the full depth: flops,
+``bytes_accessed``, each collective's count and bytes, with the two
+points under ``fit_points``. Flops and collectives are linear in depth,
+so where the full depth is a multiple of k the fit equals the walk in
+them. ``bytes_accessed`` is too, but for a train step's term quadratic
+in depth (the backward of each layer's view of a stacked (L, ...) leaf
+writes the whole leaf), which the fit misses. zamba2-1.2b's 38 layers
+are not a multiple of its k = 6, and there the fit and the walk differ
+(the record holds both). ``memory`` is never fitted: the peak is not
+linear in depth, and only the full-depth walk proves the fit in memory.
+``--no-fit`` skips the fit (no ``extrapolated`` key; the multi-pod
+pass), and ``--refit`` re-derives only ``extrapolated`` of existing
+single-pod records, on the mesh each names, from two reduced-depth runs.
 
 Importing this module sets no environment variable and starts no
 process group: `run_combo` starts a fake one when none is up, and
@@ -52,6 +70,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import threading
 import time
 from typing import Any, Dict
@@ -97,6 +116,14 @@ def fake_world(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def _world_up_to(world_size: int):
+    """`fake_world` of ``world_size`` ranks, or nothing when a process
+    group is already up (the caller's)."""
+    import torch.distributed as dist
+    return contextlib.nullcontext() if dist.is_initialized() \
+        else fake_world(world_size)
 
 
 def _tensor_bytes(x) -> int:
@@ -175,8 +202,10 @@ def device_alltoall(counter):
 
 class StepCounter(TorchDispatchMode):
     """Counts one rank's work: the flops of each matmul-like op at its
-    local shapes, each non-view op's operand + result bytes, and the
-    functional collectives by kind (count, result bytes).
+    local shapes, each non-view op's operand + result bytes (but for the
+    ``prim`` namespace's metadata queries, such as ``prim.device`` on a
+    fake tensor, which read no data), and the functional collectives by
+    kind (count, result bytes).
 
     On a ``DTensor`` op it returns NotImplemented, so ``DTensor`` runs and
     its local ops come back here (a mode entered around ``DTensor`` code
@@ -209,7 +238,7 @@ class StepCounter(TorchDispatchMode):
             rec = self.collectives[kind]
             rec["count"] += 1
             rec["bytes"] += sum(map(_tensor_bytes, _flat_tensors(out)))
-        if not func.is_view:
+        if not func.is_view and func.namespace != "prim":
             self.bytes_accessed += sum(
                 map(_tensor_bytes, _flat_tensors((args, kwargs, out))))
         return out
@@ -338,19 +367,71 @@ def _total(snapshot) -> int:
     return int(sum(dev.get("Total", 0) for dev in snapshot.values()))
 
 
+def depth_fit(arch: str, shape_name: str, mesh, multi_pod: bool,
+              remat: bool, full_layers: int, k: int, *,
+              cfg=None) -> Dict[str, Any]:
+    """Extrapolate the per-device flops, bytes accessed and collectives
+    to ``full_layers`` from two reduced-depth runs of the step (L1 = k,
+    L2 = 2k; k respects the hybrid shared-attention period) on ``mesh``,
+    as the reference's fit does. ``cfg`` (default ``get_config(arch)``)
+    is the config whose depth is reduced. A process group of the mesh's
+    world must be up.
+
+    The runs are eager and count every layer, so unlike the reference's
+    compiles nothing has to unroll a layer scan: L2 - L1 is exactly k
+    layers' per-device cost."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    base = cfg or get_config(arch)
+    l1, l2 = k, 2 * k
+    points = []
+    for depth in (l1, l2):
+        with FakeTensorMode():
+            fn, args, in_sh, _, shape = build_step(
+                arch, shape_name, mesh, multi_pod, remat=remat,
+                cfg=_with_depth(base, depth))
+            *_, terms = run_step(mesh, multi_pod, fn, args, in_sh,
+                                 train=shape.kind == "train")
+        points.append(terms)
+    (f1, b1, co1), (f2, b2, co2) = (
+        (t["flops"], t["bytes_accessed"], t["collectives"]) for t in points)
+
+    def extrap(v1, v2):
+        slope = (v2 - v1) / (l2 - l1)
+        return v1 + slope * (full_layers - l1)
+
+    coll = {}
+    for key in co1:
+        if key == "total_bytes":
+            continue
+        coll[key] = {
+            "count": int(round(extrap(co1[key]["count"], co2[key]["count"]))),
+            "bytes": int(max(0, round(extrap(co1[key]["bytes"],
+                                             co2[key]["bytes"])))),
+        }
+    coll["total_bytes"] = sum(v["bytes"] for v in coll.values()
+                              if isinstance(v, dict))
+    return {
+        "flops": float(max(0.0, extrap(f1, f2))),
+        "bytes_accessed": float(max(0.0, extrap(b1, b2))),
+        "collectives": coll,
+        "fit_points": {"l1": l1, "l2": l2, "flops": [f1, f2],
+                       "bytes": [b1, b2],
+                       "coll_bytes": [co1["total_bytes"],
+                                      co2["total_bytes"]]},
+    }
+
+
 def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
               remat: bool = True, out_dir: str | None = None,
-              tag: str = "", quiet: bool = False, dp: int = 16,
-              tp: int = 16, cfg=None) -> Dict[str, Any]:
+              tag: str = "", quiet: bool = False, with_fit: bool = True,
+              dp: int = 16, tp: int = 16, cfg=None) -> Dict[str, Any]:
     """Dry-run one combo on the production mesh (a fake world of dp·tp,
     x2 with ``multi_pod``, started here when no process group is up) and
-    return its record; with ``out_dir``, also write it as JSON."""
-    import torch.distributed as dist
+    return its record; with ``with_fit``, also its `depth_fit` of the
+    same config under ``extrapolated``; with ``out_dir``, also write it
+    as JSON."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    world = dp * tp * (2 if multi_pod else 1)
-    ctx = contextlib.nullcontext() if dist.is_initialized() \
-        else fake_world(world)
-    with ctx:
+    with _world_up_to(dp * tp * (2 if multi_pod else 1)):
         mesh = make_production_mesh(multi_pod=multi_pod, dp=dp, tp=tp,
                                     device="cpu")
         t0 = time.time()
@@ -360,7 +441,12 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
             arg_bytes, out_bytes, temp, terms = run_step(
                 mesh, multi_pod, fn, args, in_sh,
                 train=shape.kind == "train")
+        walk_s = time.time() - t0
         n_dev = mesh.size()
+        fit = depth_fit(arch, shape_name, mesh, multi_pod, remat,
+                        cfg.num_layers, cfg.hybrid_attn_every or 1,
+                        cfg=cfg) if with_fit else None
+        fit_s = time.time() - t0 - walk_s
     result = {
         "arch": arch,
         "shape": shape_name,
@@ -368,7 +454,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                  else f"single_pod_{dp}x{tp}"),
         "num_devices": int(n_dev),
         "tag": tag,
-        "compile_s": round(time.time() - t0, 1),
+        "compile_s": round(walk_s, 1),
         **terms,
         "memory": {"argument_bytes": int(arg_bytes),
                    "output_bytes": int(out_bytes),
@@ -376,12 +462,14 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                    "generated_code_bytes": 0},
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
-        "extrapolated": {**terms, "fit_points": None},
     }
+    if fit is not None:
+        result["extrapolated"] = fit
     if not quiet:
         coll = result["collectives"]
         print(f"[dryrun] {arch} x {shape_name} x {result['mesh']}"
               f"{' #' + tag if tag else ''}: ran in {result['compile_s']}s"
+              + (f" (depth fit {fit_s:.1f}s)" if with_fit else "") +
               f"  flops={result['flops']:.3e}  "
               f"bytes={result['bytes_accessed']:.3e}  "
               f"coll={coll['total_bytes']:.3e}B ("
@@ -399,6 +487,34 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     return result
 
 
+def refit(out_dir: str, *, only_arch: str = "", remat: bool = True):
+    """Recompute only ``extrapolated`` (`depth_fit`) of the single-pod
+    records in ``out_dir``, each on the (dp, tp) mesh its ``mesh`` names
+    (a fake world of that size); every other key stays as written."""
+    import glob
+    for path in sorted(glob.glob(os.path.join(out_dir,
+                                              "*single_pod*.json"))):
+        with open(path) as f:
+            r = json.load(f)
+        if only_arch and r["arch"] != only_arch:
+            continue
+        dp, tp = map(int, re.fullmatch(r"single_pod_(\d+)x(\d+)",
+                                       r["mesh"]).groups())
+        cfg = get_config(r["arch"])
+        t0 = time.time()
+        with _world_up_to(dp * tp):
+            mesh = make_production_mesh(dp=dp, tp=tp, device="cpu")
+            fit = depth_fit(r["arch"], r["shape"], mesh, False, remat,
+                            cfg.num_layers, cfg.hybrid_attn_every or 1)
+        r["extrapolated"] = fit
+        with open(path, "w") as f:
+            json.dump(r, f, indent=1)
+        print(f"[refit] {r['arch']} x {r['shape']}: "
+              f"flops={fit['flops']:.3e} bytes={fit['bytes_accessed']:.3e} "
+              f"coll={fit['collectives']['total_bytes']:.3e} "
+              f"({time.time() - t0:.0f}s)", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -408,10 +524,21 @@ def main(argv=None):
                     help="all 10 archs x 4 shapes on the selected mesh")
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--no-fit", action="store_true",
+                    help="skip the depth-fit compiles (multi-pod pass: "
+                         "prove-it-lowers only, roofline is single-pod)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--dp", type=int, default=16)
     ap.add_argument("--tp", type=int, default=16)
+    ap.add_argument("--refit", action="store_true",
+                    help="recompute depth-fit extrapolations for existing "
+                         "single-pod JSONs only")
     args = ap.parse_args(argv)
+
+    if args.refit:
+        refit(args.out, only_arch=args.arch or "",
+              remat=not args.no_remat)
+        return
 
     if args.all:
         combos = [(a, s) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
@@ -424,8 +551,8 @@ def main(argv=None):
     for a, s in combos:
         try:
             run_combo(a, s, multi_pod=args.multipod, out_dir=args.out,
-                      remat=not args.no_remat, tag=args.tag, dp=args.dp,
-                      tp=args.tp)
+                      remat=not args.no_remat, tag=args.tag,
+                      with_fit=not args.no_fit, dp=args.dp, tp=args.tp)
         except Exception as e:  # noqa: BLE001 — report and continue
             failures.append((a, s, repr(e)[:300]))
             print(f"[dryrun] FAILED {a} x {s}: {repr(e)[:300]}", flush=True)

@@ -134,6 +134,12 @@ class CoordinatorKV:
       ``delete`` (the get would then block for the store's timeout);
     * ``get`` polls ``try_get`` until the key appears or ``timeout_s``
       passes (`KVTimeout`);
+    * an overwriting ``set`` is a ``set``, which gets no reply, followed
+      by a ``check`` of the key on the same connection, which does: the
+      server answers a connection's requests in order, so the call
+      returns once the server holds the value and another handle's later
+      read sees it (the reference's ``key_value_set`` is acknowledged
+      too). It costs one round trip per overwrite;
     * an exclusive ``set`` is ``compare_set(key, "", value)``: the store
       writes only when the key is absent and answers with the value the
       key then holds, so a second writer gets the first writer's value
@@ -162,6 +168,7 @@ class CoordinatorKV:
         with self._lock:
             if overwrite:
                 self._store.set(key, value)
+                self._store.check([key])
                 return
             if not value:
                 raise ValueError(f"exclusive set of {key!r} needs a "

@@ -32,6 +32,20 @@ and the config and model surface it reads.
 * Flops are counted per device, at each op's local shapes: a product
   whose weight is replicated over "model" counts the same on each rank
   of the model axis (global / data, not global / world).
+* The depth fit (`depth_fit`): on the same smoke combo and mesh, the
+  port's fit to 5 layers and the reference's own ``depth_fit`` (same
+  subprocess) share their fit points, and their flops agree within
+  ``FLOP_RTOL`` once the named ``DTensor`` excess, itself fitted, is
+  taken off. Their collective schedules (GSPMD's against ``DTensor``'s)
+  differ by design and are not compared. The fit equals the port's own
+  full-depth walk where the depth is a multiple of k (flops and every
+  collective exactly, ``bytes_accessed`` within ``FIT_BYTES_RTOL``, which
+  a train step's term quadratic in depth stays below at smoke size) for
+  a dense train step, an MoE decode step, an enc-dec prefill and the
+  hybrid zamba2 (k = 2 at smoke); at 5k + 1 layers zamba2's fit overshoots
+  its walk, by the gap the test names. ``--no-fit`` writes no
+  ``extrapolated``, and ``--refit`` rewrites only ``extrapolated``, each
+  record on the mesh it names.
 """
 import json
 import os
@@ -64,6 +78,8 @@ _ONE_THREAD = (" --xla_cpu_multi_thread_eigen=false"
                " intra_op_parallelism_threads=1")
 FLOP_RTOL = 0.01
 SMOKE_ARCH, SMOKE_SHAPE, SMOKE_MESH = "qwen3-1.7b", "train_4k", (2, 4)
+FIT_LAYERS = 5              # the depth both packages' fits extrapolate to
+FIT_BYTES_RTOL = 1e-5
 MULTIPOD = [("qwen3-1.7b", "train_4k"), ("mixtral-8x22b", "decode_32k")]
 
 
@@ -250,8 +266,12 @@ _REF_SMOKE = textwrap.dedent("""
     with mesh_rules(mesh, axis_map(False)):
         compiled = jax.jit(fn, in_shardings=in_sh).lower(*fargs).compile()
     mem = compiled.memory_analysis()
+    D.get_config = get_smoke_config          # the fit reduces this config
+    fit = D.depth_fit(args["arch"], args["shape"], mesh, False, True,
+                      args["fit_layers"], cfg.hybrid_attn_every or 1)
     print(json.dumps({"argument_bytes": int(mem.argument_size_in_bytes),
-                      "dot_flops": D.parse_dot_flops(compiled.as_text())}))
+                      "dot_flops": D.parse_dot_flops(compiled.as_text()),
+                      "fit": fit}))
 """)
 
 
@@ -279,7 +299,8 @@ def smoke_combo(monkeypatch_module):
     """(reference, port, port's flops by operand shapes, cfg) of the
     smoke combo."""
     stdout = _run(_REF_SMOKE, dict(arch=SMOKE_ARCH, shape=SMOKE_SHAPE,
-                                   mesh=list(SMOKE_MESH)), 8)
+                                   mesh=list(SMOKE_MESH),
+                                   fit_layers=FIT_LAYERS), 8)
     ref = json.loads(stdout.strip().splitlines()[-1])
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_mesh
@@ -315,15 +336,20 @@ def test_smoke_argument_bytes_equal_reference(smoke_combo):
     assert port["argument_bytes"] + count_bytes == ref["argument_bytes"]
 
 
-def test_smoke_dot_flops_within_one_percent_of_reference(smoke_combo):
-    ref, port, by_shapes, cfg = smoke_combo
+def _wo_excess(by_shapes, cfg):
+    """The flops of the products against a whole (D, F) wo transpose (the
+    MLP's input gradient run with its inner dim gathered; see the module
+    docstring) that a split inner dim would not do."""
     model = SMOKE_MESH[1]
-    # products against a whole (D, F) wo transpose: the MLP's input
-    # gradient run with its inner dim gathered (see the module docstring)
     whole = sum(f for shapes, f in by_shapes.items()
                 if len(shapes) == 2 and shapes[1] == (cfg.d_model,
                                                       cfg.d_ff))
-    excess = whole * (model - 1) // model
+    return whole * (model - 1) // model
+
+
+def test_smoke_dot_flops_within_one_percent_of_reference(smoke_combo):
+    ref, port, by_shapes, cfg = smoke_combo
+    excess = _wo_excess(by_shapes, cfg)
     got = port["flops"] - excess
     assert abs(got - ref["dot_flops"]) <= FLOP_RTOL * ref["dot_flops"], \
         (port["flops"], excess, ref["dot_flops"])
@@ -387,3 +413,152 @@ def test_multipod_train_step_backward_runs_on_a_small_mesh(arch):
     assert loss.shape == () and grad is not None
     assert grad.shape == (args[0]["exit_w"] if "exit_w" in args[0]
                           else args[0]["layers"]["exit_w"]).shape
+
+
+# --------------------------------------------------------------- depth fit
+
+FIT_COMBOS = [("qwen3-1.7b", "train_4k"), ("mixtral-8x22b", "decode_32k"),
+              ("seamless-m4t-large-v2", "prefill_32k"),
+              ("zamba2-1.2b", "decode_32k")]
+# zamba2 smoke (a shared block every k = 2 layers) at 5k + 1 = 11 layers:
+# the line through L = 2 and 4 counts the 11th layer as half a period,
+# shared block included; fit / walk of flops and of bytes accessed
+ZAMBA2_OFF_K_GAP = {"flops": 1.09706, "bytes_accessed": 1.09929}
+
+
+def _walk(arch, shape_name, mesh, cfg):
+    """The port's full-depth count of ``cfg``'s step on ``mesh``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fn, args, in_sh, _, shape = tdry.build_step(arch, shape_name, mesh,
+                                                    False, cfg=cfg)
+        return tdry.run_step(mesh, False, fn, args, in_sh,
+                             train=shape.kind == "train")[3]
+
+
+def _fit_and_walk(arch, shape_name, layers):
+    """(the fit to ``layers``, the walk at ``layers``) of ``arch``'s smoke
+    config on a fake (2, 4) mesh."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    base = get_smoke_config(arch)
+    with tdry.fake_world(int(np.prod(SMOKE_MESH))):
+        mesh = make_mesh(SMOKE_MESH, ("data", "model"), device="cpu")
+        fit = tdry.depth_fit(arch, shape_name, mesh, False, True, layers,
+                             base.hybrid_attn_every or 1, cfg=base)
+        return fit, _walk(arch, shape_name, mesh,
+                          tdry._with_depth(base, layers))
+
+
+def test_depth_fit_flops_match_the_reference_fit(smoke_combo, monkeypatch):
+    """The reference's ``depth_fit`` (its subprocess in `smoke_combo`) and
+    the port's, both to FIT_LAYERS from the smoke config at L = 1 and 2:
+    the same fit points, and flops within FLOP_RTOL once the named
+    ``DTensor`` excess, fitted from the same two runs, is taken off."""
+    ref, _, _, cfg = smoke_combo
+    from repro_torch.launch.mesh import make_mesh
+    counters = []
+
+    def counter():
+        counters.append(_ByOpCounter())
+        return counters[-1]
+    monkeypatch.setattr(tdry, "StepCounter", counter)
+    with tdry.fake_world(int(np.prod(SMOKE_MESH))):
+        mesh = make_mesh(SMOKE_MESH, ("data", "model"), device="cpu")
+        fit = tdry.depth_fit(SMOKE_ARCH, SMOKE_SHAPE, mesh, False, True,
+                             FIT_LAYERS, 1, cfg=cfg)
+    want = ref["fit"]
+    points = fit["fit_points"]
+    assert (points["l1"], points["l2"]) == \
+        (want["fit_points"]["l1"], want["fit_points"]["l2"]) == (1, 2)
+    e1, e2 = (_wo_excess(c.by_shapes, cfg) for c in counters)
+    excess = e1 + (e2 - e1) * (FIT_LAYERS - 1)
+    got = fit["flops"] - excess
+    assert abs(got - want["flops"]) <= FLOP_RTOL * want["flops"], \
+        (fit["flops"], excess, want["flops"])
+
+
+@pytest.mark.parametrize("arch,shape_name", FIT_COMBOS)
+def test_depth_fit_equals_the_walk_at_a_multiple_of_k(arch, shape_name):
+    from repro_torch.configs import get_smoke_config
+    k = get_smoke_config(arch).hybrid_attn_every or 1
+    fit, walk = _fit_and_walk(arch, shape_name, 5 * k)
+    assert (fit["fit_points"]["l1"], fit["fit_points"]["l2"]) == (k, 2 * k)
+    assert fit["flops"] == walk["flops"] > 0
+    assert fit["collectives"] == walk["collectives"]
+    assert fit["bytes_accessed"] == pytest.approx(walk["bytes_accessed"],
+                                                  rel=FIT_BYTES_RTOL)
+
+
+def test_depth_fit_off_a_multiple_of_k_differs_from_the_walk():
+    fit, walk = _fit_and_walk("zamba2-1.2b", "decode_32k", 11)
+    for key, gap in ZAMBA2_OFF_K_GAP.items():
+        assert fit[key] / walk[key] == pytest.approx(gap, abs=1e-4), key
+
+
+@pytest.fixture(scope="module")
+def fit_records(tmp_path_factory):
+    """Smoke records of qwen3-1.7b x decode_32k written by `main` on two
+    production meshes (32 x 8 with ``--no-fit``, 16 x 16 with the fit),
+    read before and after ``main(["--refit", ...])``, with what the refit
+    printed. The records' config is the smoke one (``get_config``
+    patched), so ``--refit`` reduces it as the runs did."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_smoke_config
+    out = tmp_path_factory.mktemp("dryrun")
+    base = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--out",
+            str(out)]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tdry, "get_config", get_smoke_config)
+    try:
+        tdry.main(base + ["--dp", "32", "--tp", "8", "--no-fit"])
+        tdry.main(base)
+        before = {p.name: json.loads(p.read_text())
+                  for p in out.glob("*.json")}
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            tdry.main(["--refit", "--out", str(out)])
+            tdry.refit(str(out), only_arch="mixtral-8x22b")      # none
+        after = {p.name: json.loads(p.read_text())
+                 for p in out.glob("*.json")}
+    finally:
+        mp.undo()
+    return before, after, printed.getvalue()
+
+
+NO_FIT = "qwen3-1.7b_decode_32k_single_pod_32x8.json"
+FITTED = "qwen3-1.7b_decode_32k_single_pod_16x16.json"
+
+
+def test_no_fit_writes_no_extrapolated(fit_records):
+    before, _, _ = fit_records
+    assert sorted(before) == sorted([NO_FIT, FITTED])
+    assert "extrapolated" not in before[NO_FIT]
+    assert before[FITTED]["extrapolated"]["fit_points"]["l1"] == 1
+
+
+def test_refit_rewrites_only_extrapolated_on_the_records_mesh(fit_records):
+    """Every key but ``extrapolated`` stays. The smoke config's 2 layers
+    are the fit's L2, so each fit equals its record's walk: flops and
+    collectives exactly, on 32 x 8 and 16 x 16, whose collective bytes
+    differ, so each record was refit on the mesh it names."""
+    before, after, _ = fit_records
+    for name in (NO_FIT, FITTED):
+        fit = after[name].pop("extrapolated")
+        before[name].pop("extrapolated", None)
+        assert after[name] == before[name], name
+        assert fit["flops"] == after[name]["flops"], name
+        assert fit["collectives"] == after[name]["collectives"], name
+        assert fit["bytes_accessed"] == pytest.approx(
+            after[name]["bytes_accessed"], rel=FIT_BYTES_RTOL), name
+    assert after[NO_FIT]["collectives"]["total_bytes"] != \
+        after[FITTED]["collectives"]["total_bytes"]
+
+
+def test_main_refit_prints_a_line_per_record(fit_records):
+    _, _, printed = fit_records
+    lines = [ln for ln in printed.splitlines() if ln.startswith("[refit]")]
+    assert len(lines) == 2, printed
+    assert all(ln.startswith("[refit] qwen3-1.7b x decode_32k: flops=")
+               for ln in lines), lines

@@ -11,8 +11,13 @@
 * a directory written by the port's `FileKV` reads in the reference's,
   and the other way round (the on-disk layout is the reference's);
 * `CoordinatorKV` without a store raises, and refuses an exclusive empty
-  value (``compare_set`` reads "" as absent).
+  value (``compare_set`` reads "" as absent);
+* an overwriting ``set`` through a connection whose bytes reach the
+  server late is held by the server when it returns: another handle
+  reads the new value at once (a bare ``TCPStore.set`` gets no reply).
 """
+import queue
+import socket
 import sys
 import threading
 import time
@@ -244,3 +249,80 @@ def test_coordinator_kv_barrier(tcp_server):
     assert len(done) == 3
     with pytest.raises(KVTimeout, match="1 of 2 arrived"):
         kvs[0].barrier("barrier/b", 2, 0.2)
+
+
+class _DelayingProxy:
+    """A TCP proxy on localhost in front of ``port`` that holds each chunk
+    a client sends for ``delay`` seconds before passing it on, in order;
+    the server's replies pass at once."""
+
+    def __init__(self, port: int, delay: float):
+        self.port_to, self.delay = port, delay
+        self.listener = socket.create_server(("localhost", 0))
+        self.port = self.listener.getsockname()[1]
+        self.sockets = [self.listener]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                client, _ = self.listener.accept()
+            except OSError:
+                return
+            server = socket.create_connection(("localhost", self.port_to))
+            self.sockets += [client, server]
+            self._pump(client, server, self.delay)
+            self._pump(server, client, 0.0)
+
+    @staticmethod
+    def _pump(src, dst, delay):
+        chunks = queue.Queue()
+
+        def read():
+            while True:
+                try:
+                    data = src.recv(65536)
+                except OSError:
+                    data = b""
+                chunks.put((time.monotonic() + delay, data))
+                if not data:
+                    return
+
+        def write():
+            while True:
+                due, data = chunks.get()
+                time.sleep(max(0.0, due - time.monotonic()))
+                try:
+                    if not data:
+                        dst.shutdown(socket.SHUT_WR)
+                        return
+                    dst.sendall(data)
+                except OSError:
+                    return
+        for fn in (read, write):
+            threading.Thread(target=fn, daemon=True).start()
+
+    def close(self):
+        for s in self.sockets:
+            s.close()
+
+
+def test_coordinator_overwrite_is_held_when_set_returns(tcp_server):
+    """A client whose bytes reach the server 0.3 s late: its overwriting
+    ``set`` returns only once the server holds the value, so a direct
+    handle's ``try_get`` right after it reads the new value (it read the
+    old one while ``set`` was a bare ``TCPStore.set``)."""
+    delay = 0.3
+    proxy = _DelayingProxy(tcp_server.port, delay)
+    try:
+        slow = CoordinatorKV(open_tcp_store("localhost", proxy.port,
+                                            is_master=False, timeout_s=30))
+        direct = CoordinatorKV(_client(tcp_server))
+        for i in range(2):
+            direct.set("acked/hb", f"old-{i}".encode(), overwrite=True)
+            t0 = time.monotonic()
+            slow.set("acked/hb", f"new-{i}".encode(), overwrite=True)
+            assert direct.try_get("acked/hb") == f"new-{i}".encode()
+            assert time.monotonic() - t0 >= delay
+    finally:
+        proxy.close()
