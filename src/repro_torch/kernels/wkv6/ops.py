@@ -1,8 +1,12 @@
 """Public RWKV6 WKV recurrence: dispatch by device.
 
-A CPU tensor runs the plain PyTorch version (`ref.wkv6_ref`); a CUDA
-tensor launches the hand-written kernel; any other device raises. There
-is no fallback from one to the other.
+A CPU tensor runs the plain PyTorch version (`ref.wkv6_ref`, whose
+gradient autograd takes); a CUDA tensor launches the hand-written kernel;
+any other device raises. There is no fallback from one to the other.
+
+On the card a gradient goes through `WKV6`: its forward is the kernel,
+its backward the hand-written backward kernel (`wkv6_backward_cuda`).
+The reference has no backward kernel (XLA differentiates its plain scan).
 
 ``DTensor`` inputs (model parallelism) run the same dispatch on each
 rank's shards (`_wkv6_dtensor`): r, k, v and w split over the batch and
@@ -16,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels._build import grad_wanted
+from repro_torch.kernels.wkv6.kernel import wkv6_backward_cuda, wkv6_cuda
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.shards import (from_local, is_dtensor, shard_range,
                                 to_local, whole)
@@ -35,13 +40,36 @@ def _kernel_inputs(r, k, v, w, u):
     return r, k, v, w.float(), u.float()
 
 
+class WKV6(torch.autograd.Function):
+    """The CUDA kernel's forward with `wkv6_backward_cuda` as its backward:
+    gradients for r, k, v, w and u, given y's cotangent and the final
+    state's (None when the state is unused)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        y, s = wkv6_cuda(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        return wkv6_backward_cuda(r, k, v, w, u, dy, ds)
+
+
 def wkv6(r, k, v, w, u, *, chunk: int = 128):
     """RWKV6 token-mix recurrence from a zero state; see ref.py.
 
     r, k, w: (B, H, T, dk); v: (B, H, T, dv); u: (H, dk). Returns
     (y (B, H, T, dv) f32, final_state (B, H, dk, dv) f32). ``chunk`` is
     the reference's time tile; it is accepted for parity with the JAX
-    wrapper and changes nothing here (the kernel loops over T itself).
+    wrapper and changes nothing here (the kernel loops over T itself). On
+    a CUDA tensor that wants a gradient (`_build.grad_wanted`) the call
+    goes through `WKV6`, after the casts to the kernel's dtypes (so
+    autograd carries them back), else straight to the kernel.
     """
     del chunk
     if is_dtensor(r):
@@ -53,6 +81,8 @@ def _wkv6_local(r, k, v, w, u):
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u)
     if r.device.type == "cuda":
+        if grad_wanted(r, k, v, w, u):
+            return WKV6.apply(*_kernel_inputs(r, k, v, w, u))
         return wkv6_cuda(*_kernel_inputs(r, k, v, w, u))
     raise ValueError(f"wkv6: no kernel for device {r.device}")
 

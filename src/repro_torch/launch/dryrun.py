@@ -47,13 +47,12 @@ exact, not a lower bound).
 step run at L1 = k and L2 = 2k layers (k the hybrid shared-attention
 period, else 1) and extrapolated linearly to the full depth: flops,
 ``bytes_accessed``, each collective's count and bytes, with the two
-points under ``fit_points``. Flops and collectives are linear in depth,
-so where the full depth is a multiple of k the fit equals the walk in
-them. ``bytes_accessed`` is too, but for a train step's term quadratic
-in depth (the backward of each layer's view of a stacked (L, ...) leaf
-writes the whole leaf), which the fit misses. zamba2-1.2b's 38 layers
-are not a multiple of its k = 6, and there the fit and the walk differ
-(the record holds both). ``memory`` is never fitted: the peak is not
+points under ``fit_points``. Flops, collectives and ``bytes_accessed``
+are linear in depth (a train step reads each stacked (L, ...) leaf's
+layers through one unbind, whose backward is one stack), so where the
+full depth is a multiple of k the fit equals the walk in them.
+zamba2-1.2b's 38 layers are not a multiple of its k = 6, and there the
+fit and the walk differ (the record holds both). ``memory`` is never fitted: the peak is not
 linear in depth, and only the full-depth walk proves the fit in memory.
 ``--no-fit`` skips the fit (no ``extrapolated`` key; the multi-pod
 pass), and ``--refit`` re-derives only ``extrapolated`` of existing

@@ -5,7 +5,10 @@ and the multi-exit classifier training the paper's experiments use
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke --steps 20
 
 runs the reference's recipe (sst2_like, 8192 samples, batch 64, lr 3e-4,
-200 steps unless ``--steps``); without ``--device`` it trains on cuda.
+200 steps unless ``--steps``); without ``--device`` it trains on cuda. An
+LM arch (``--arch rwkv6-3b``, no classes) trains as a language model on
+the same token sequences (the next-token loss, labels the tokens), where
+the reference's ``main`` refuses it.
 """
 from __future__ import annotations
 
@@ -65,7 +68,9 @@ def train_classifier(cfg, data: Dict[str, np.ndarray], *, steps: int,
                      batch_size: int, seed: int = 0, lr: float = 3e-4,
                      log_every: int = 20, remat: bool = False, device=None):
     """Train a multi-exit classifier (the paper's supervised fine-tune,
-    stage ii) on ``device`` (default cuda). Returns (params, model, log):
+    stage ii) on ``device`` (default cuda); an LM config (``num_classes``
+    0) trains on ``data``'s token sequences with ``labels`` (N, S) the
+    next-token targets. Returns (params, model, log):
     params frozen again (no gradient, the last step's gradients dropped)
     for serving, log a list of {step, loss, time} every ``log_every``
     steps and at the last. The loss is read (a device sync) only at a
@@ -124,14 +129,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.num_classes == 0:
-        raise SystemExit("train.py main targets classification testbeds; "
-                         "LM training has no entry point here")
     from repro_torch.data.synthetic import DOMAINS, VOCAB
-    cfg = dataclasses.replace(cfg, vocab_size=VOCAB,
-                              num_classes=DOMAINS[args.domain].num_classes,
-                              dtype="float32")
     data = make_dataset(args.domain, args.n_train, seed=0)
+    num_classes = DOMAINS[args.domain].num_classes
+    if cfg.num_classes == 0:
+        # an LM arch: next-token training on the domain's token sequences
+        num_classes = 0
+        data = {"tokens": data["tokens"], "labels": data["tokens"]}
+    cfg = dataclasses.replace(cfg, vocab_size=VOCAB, num_classes=num_classes,
+                              dtype="float32")
     _, _, log = train_classifier(cfg, data, steps=args.steps,
                                  batch_size=args.batch_size,
                                  device=args.device)

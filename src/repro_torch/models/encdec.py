@@ -31,7 +31,8 @@ from repro_torch.models.common import (apply_norm, dense_init, embed_init,
 from repro_torch.models.transformer import (ParamTree, cache_slices,
                                             check_family, init_device,
                                             init_stacked, layer_params,
-                                            map_tree, restack, stack_trees)
+                                            map_tree, restack, stack_trees,
+                                            unbind_layers)
 from repro_torch.sharding import constrain
 from repro_torch.sharding.rules import gather_fsdp
 
@@ -100,13 +101,15 @@ def _arange(b: int, s: int, device):
 def encode(params, cfg: ModelConfig, frames):
     """frames (B, S_src, D) stub embeddings -> the encoder output: every
     layer's bidirectional attention (with RoPE) and MLP, then the
-    encoder norm."""
+    encoder norm. The layers' views come from one `unbind_layers` of the
+    stack (a gradient's backward is then one ``stack`` a leaf)."""
     e = cfg.encoder
     x = frames.to(device=params["embed"].device, dtype=torch_dtype(cfg.dtype))
     b, s, _ = x.shape
     pos = _arange(b, s, x.device)
+    views = unbind_layers(params["enc_layers"])
     for i in range(e.num_layers):
-        lp = layer_params(params["enc_layers"], i)
+        lp = layer_params(params["enc_layers"], i, views=views)
         x = x + attn.attn_prefill(
             lp["attn"], apply_norm(x, lp["ln1"], cfg.norm), pos,
             num_heads=e.num_heads, num_kv_heads=e.num_kv_heads,
@@ -121,11 +124,19 @@ def encode(params, cfg: ModelConfig, frames):
 def cross_kv(params, cfg: ModelConfig, enc_out):
     """Every decoder layer's cross-attention (k, v) of the encoder output,
     stacked: (L, B, S_src, Hkv, hd) each."""
-    ks, vs = zip(*(attn.cross_attn_kv(
-        layer_params(params["dec_layers"], i)["cross_attn"], enc_out,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim)
-        for i in range(cfg.num_layers)))
+    ks, vs = _cross_kv_layers(params, cfg, enc_out)
     return torch.stack(ks), torch.stack(vs)
+
+
+def _cross_kv_layers(params, cfg: ModelConfig, enc_out, views=None):
+    """`cross_kv` per layer, unstacked: (ks, vs), L tensors each; each
+    layer's parameters from the decoder stack's `unbind_layers` ``views``
+    when given (`layer_params`)."""
+    return tuple(zip(*(attn.cross_attn_kv(
+        layer_params(params["dec_layers"], i, views=views)["cross_attn"],
+        enc_out,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim)
+        for i in range(cfg.num_layers))))
 
 
 def _dec_layer_full(cfg: ModelConfig, lp, x, positions, ckv, *,
@@ -157,14 +168,17 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
     """Teacher-forced decoder CE (shifted labels) at every exit + the
     final layer. ``remat`` recomputes each decoder layer in the backward
     (``torch.utils.checkpoint``, non-reentrant)."""
-    ckv = cross_kv(params, cfg, encode(params, cfg, batch["frames"]))
+    # one unbind of each decoder leaf, outside the checkpointed layers
+    views = unbind_layers(params["dec_layers"])
+    ckv = _cross_kv_layers(params, cfg, encode(params, cfg, batch["frames"]),
+                           views)
     x = embed_lookup(params["embed"], batch["tokens"])
     b, s, _ = x.shape
     positions = _arange(b, s, x.device)
     labels = batch["labels"].to(x.device).long()
 
     def body(xx, i):
-        lp = layer_params(params["dec_layers"], i)
+        lp = layer_params(params["dec_layers"], i, views=views)
         xx, _ = _dec_layer_full(cfg, lp, xx, positions, _layer_kv(ckv, i))
         hn = apply_norm(xx, lp["exit_norm"], cfg.norm)
         return xx, next_token_ce(_vocab_logits(hn, params), labels)

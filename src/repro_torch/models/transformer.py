@@ -8,10 +8,11 @@ Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names
 are the reference pytree's paths (``layers.attn.wq`` is
 ``params["layers"]["attn"]["wq"]``). Layers are stacked on a leading L
 axis, as in the reference's ``init_params``; per-layer views come from
-`layer_params`. The layer loop is a Python loop. `train_loss` is the
-joint multi-exit training loss; serving runs without gradient, the
-classifier through `forward_exits*`, autoregressive decode through
-`prefill` and the `decode_step*` functions over stacked cache trees.
+`layer_params` (in `train_loss` through one `unbind_layers`). The layer
+loop is a Python loop. `train_loss` is the joint multi-exit training
+loss; serving runs without gradient, the classifier through
+`forward_exits*`, autoregressive decode through `prefill` and the
+`decode_step*` functions over stacked cache trees.
 
 Model parallelism: with ``DTensor`` parameters and inputs under a bound
 mesh (`repro_torch.sharding.mesh_rules`), the `constrain` calls place the
@@ -87,14 +88,35 @@ def _is_tree(x) -> bool:
     return isinstance(x, (Mapping, ParamTree))
 
 
-def layer_params(layers, i: int, gather: bool = True) -> Dict[str, Any]:
-    """Views of layer ``i`` of a stacked-layer tree. Under a bound mesh a
-    parameter's view is gathered over the data axes (`gather_fsdp`), but
-    for the MoE's expert stacks, which stay split as the reference keeps
-    them; a cache tree's views are left as they are."""
-    return {k: layer_params(v, i, gather and k != "moe") if _is_tree(v)
-            else gather_fsdp(v[i]) if gather and isinstance(v, nn.Parameter)
-            else v[i] for k, v in layers.items()}
+def layer_params(layers, i: int, gather: bool = True,
+                 views=None) -> Dict[str, Any]:
+    """Views of layer ``i`` of a stacked-layer tree: ``v[i]`` of each
+    leaf, or entry ``i`` of its `unbind_layers` ``views``. Under a bound
+    mesh a parameter's view is gathered over the data axes
+    (`gather_fsdp`), but for the MoE's expert stacks, which stay split as
+    the reference keeps them; a cache tree's views are left as they
+    are."""
+    out = {}
+    for k, v in layers.items():
+        if _is_tree(v):
+            out[k] = layer_params(v, i, gather and k != "moe",
+                                  None if views is None else views[k])
+            continue
+        x = v[i] if views is None else views[k][i]
+        out[k] = gather_fsdp(x) if gather and isinstance(v, nn.Parameter) \
+            else x
+    return out
+
+
+def unbind_layers(layers):
+    """Every layer's views of a stacked-layer tree, one ``torch.unbind``
+    of each leaf (a tree of L-tuples, read through `layer_params`'s
+    ``views``). A gradient wants them: the backward of L ``v[i]`` views
+    writes L zero-filled leaf-sized gradients and sums them (quadratic in
+    depth), an unbind's is one ``stack``. Over ``DTensor`` leaves the
+    unbound layer axis is never split."""
+    return {k: unbind_layers(v) if _is_tree(v) else torch.unbind(v)
+            for k, v in layers.items()}
 
 
 def weights(tree):
@@ -418,8 +440,12 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
             return cross_entropy(logits, labels)
         return next_token_ce(logits, labels)
 
+    # one unbind of each stacked leaf, outside the checkpointed layers;
+    # each layer gathers its views inside, as it uses them
+    views = unbind_layers(params["layers"])
+
     def body(xx, i):
-        lp = layer_params(params["layers"], i)
+        lp = layer_params(params["layers"], i, views=views)
         xx, aux_i = _layer_full(cfg, params, lp, xx, positions, i,
                                 window=window)
         if not cfg.exits.enabled:
@@ -444,7 +470,7 @@ def train_loss(params, cfg: ModelConfig, batch: Mapping[str, Any], *,
                     params["final_norm"], cfg.norm)
     w = params.get("exit_w")
     if w is None:  # per-exit heads: the final exit is the last layer's head
-        w = params["layers"]["exit_w"][-1]
+        w = views["exit_w"][-1]
     w = gather_fsdp(w)
     loss = ce(logits_of(xf, w)) + 0.01 * aux / cfg.num_layers
     if cfg.exits.enabled:

@@ -673,6 +673,8 @@ class ResilientExchange:
                 "active": {str(h): int(a) for h, a in active.items()},
                 "removed": sorted(int(h) for h in dead),
                 "joined": sorted(int(h) for h in joined),
+                # to the millisecond: compare it at that resolution (a
+                # detection within 0.5 ms past a timeout reads as it)
                 "detect_s": (round(time.monotonic() - t0, 3)
                              if dead else 0.0)}
 

@@ -942,5 +942,8 @@ def test_a_host_that_never_starts_is_declared_dead_within_startup_timeout(
     wall = time.monotonic() - t0
     ex0.close()
     assert res.removed == [1] and res.fold == [0] and res.members == [0]
-    assert startup < ex0.reconfigurations[0]["detect_s"] < startup + 0.5
+    # detect_s is rounded to 3 decimals (the verdict of `_decide` in
+    # serving/distributed.py), so a detection within 0.5 ms after the
+    # timeout reads as the timeout itself: compare at that resolution
+    assert startup <= ex0.reconfigurations[0]["detect_s"] < startup + 0.5
     assert wall < startup + 1.0

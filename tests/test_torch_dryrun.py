@@ -39,8 +39,7 @@ and the config and model surface it reads.
   taken off. Their collective schedules (GSPMD's against ``DTensor``'s)
   differ by design and are not compared. The fit equals the port's own
   full-depth walk where the depth is a multiple of k (flops and every
-  collective exactly, ``bytes_accessed`` within ``FIT_BYTES_RTOL``, which
-  a train step's term quadratic in depth stays below at smoke size) for
+  collective exactly, ``bytes_accessed`` within ``FIT_BYTES_RTOL``) for
   a dense train step, an MoE decode step, an enc-dec prefill and the
   hybrid zamba2 (k = 2 at smoke); at 5k + 1 layers zamba2's fit overshoots
   its walk, by the gap the test names. ``--no-fit`` writes no

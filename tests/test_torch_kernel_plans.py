@@ -12,7 +12,8 @@ from repro_torch.kernels.exit_confidence import kernel as exit_kernel
 from repro_torch.kernels.exit_confidence.kernel import (exit_variant, plan,
                                                         tile_shape)
 from repro_torch.kernels.flash_attention.kernel import attention_variant
-from repro_torch.kernels.wkv6.kernel import wkv6_variant
+from repro_torch.kernels.wkv6.kernel import (wkv6_backward_variant,
+                                             wkv6_variant)
 
 H100_SMS = 132
 GRID_Y_Z = 65535
@@ -309,3 +310,39 @@ def test_wkv6_variant_needs_every_input_and_whole_16_byte_rows():
     assert wkv6_variant(*_wkv6_inputs("contiguous", F32, d=40)) == "vec16"
     assert wkv6_variant(*_wkv6_inputs("contiguous", BF16, d=36)) == "scalar"
     assert wkv6_variant(*_wkv6_inputs("contiguous", F32, d=2)) == "scalar"
+
+
+def _dy(layout, b=2, h=3, t=5, d=64):
+    """y's cotangent (B, H, T, dv) float32 in one of the layouts autograd
+    hands the backward: y's own (B, T, H, dv) memory, contiguous, or
+    rows off 16 bytes."""
+    return _wkv6_inputs(layout, F32, b, h, t, d)[0]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("layout,dy_layout,want", [
+    ("serving", "serving", "vec16"),      # time_mix's views, y's layout
+    ("serving", "contiguous", "vec16"),
+    ("contiguous", "offset1", "scalar"),  # dy alone off 16 bytes
+    ("offset1", "serving", "scalar"),
+    ("feature_stride2", "contiguous", "scalar"),
+])
+def test_wkv6_backward_variant(layout, dy_layout, want, dtype):
+    """The backward's variant is the forward's rule over r, k, v, w and
+    dy: vec16 only when all five have whole 16-byte rows."""
+    r, k, v, w = _wkv6_inputs(layout, dtype)
+    assert wkv6_backward_variant(r, k, v, w, _dy(dy_layout)) == want
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (BF16, 48, "vec16"),      # 96-byte r/k/v rows, 192-byte dy rows
+    (BF16, 8, "vec16"),
+    (BF16, 36, "scalar"),     # 72 bytes: not whole 16-byte pieces
+    (F32, 40, "vec16"),
+    (F32, 2, "scalar"),       # 8 bytes, dy's too
+])
+def test_wkv6_backward_variant_row_lengths(dtype, d, want):
+    """Contiguous rows of ``d`` features take vec16 only when r/k/v's (in
+    their dtype) and dy's (float32) are whole 16-byte pieces."""
+    r, k, v, w = _wkv6_inputs("contiguous", dtype, d=d)
+    assert wkv6_backward_variant(r, k, v, w, _dy("contiguous", d=d)) == want

@@ -47,7 +47,7 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import (FlashAttention,
                                                      attention_backward)
 from repro_torch.kernels.flash_attention.ref import gqa_ref
-from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels.wkv6.kernel import wkv6_backward_cuda, wkv6_cuda
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as ttf
@@ -341,11 +341,85 @@ def test_train_main_on_cpu(capsys):
     assert all(np.isfinite(float(ln.split()[3])) for ln in lines)
 
 
+def test_train_main_trains_an_lm_arch_on_cpu(capsys):
+    """``--arch rwkv6-3b --smoke``: an LM arch trains as a language model
+    on the domain's token sequences (the reference's main refuses it)."""
+    ttrain.main(["--device", "cpu", "--arch", "rwkv6-3b", "--smoke",
+                 "--steps", "3", "--n-train", "256"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines] == ["0", "2"]
+    losses = [float(ln.split()[3]) for ln in lines]
+    assert all(np.isfinite(losses)) and losses[0] > 1.0
+
+
 def test_train_main_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("this process has CUDA; the guard is for CPU-only hosts")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--smoke", "--steps", "1", "--n-train", "128"])
+
+
+# ------------------------------------- the backward over stacked leaves
+
+GRAPH_ARCHS = {
+    # family: (arch, overrides); smoke configs at 2 layers (enc-dec: 2 + 2)
+    "dense-cls": ("elasticbert12", {"vocab_size": VOCAB, "num_classes": 2}),
+    "dense-lm": ("qwen3-1.7b", {}),
+    "ssm": ("rwkv6-3b", {}),
+    "hybrid": ("zamba2-1.2b", {}),
+    "moe": ("phi3.5-moe-42b-a6.6b", {}),
+    "enc-dec": ("seamless-m4t-large-v2", {}),
+}
+
+
+def _graph_leaf_users(loss):
+    """{id of a leaf: the type names of the graph nodes that read it}."""
+    users, seen, stack = {}, set(), [loss.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if type(nxt).__name__ == "AccumulateGrad":
+                users.setdefault(id(nxt.variable), []).append(
+                    type(node).__name__)
+            stack.append(nxt)
+    return users
+
+
+@pytest.mark.parametrize("remat", [True, False])
+@pytest.mark.parametrize("family", sorted(GRAPH_ARCHS))
+def test_train_loss_reaches_each_stacked_leaf_through_one_unbind(family,
+                                                                 remat):
+    """`train_loss`'s backward reaches every stacked (L, ...) parameter
+    through one ``UnbindBackward0`` (its backward one ``stack``), and no
+    ``SelectBackward0`` reads such a leaf: L selects would each write a
+    zero-filled leaf-sized gradient (a cost quadratic in depth)."""
+    arch, over = GRAPH_ARCHS[family]
+    cfg = dataclasses.replace(t_get_smoke_config(arch), num_layers=2,
+                              dtype="float32", **over)
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, num_layers=2, source_len=8))
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu").requires_grad_(True)
+    rng = np.random.default_rng(4)
+    batch = _torch(_batch(cfg, 4, b=2, s=8))
+    if cfg.encoder is not None:
+        batch["frames"] = torch.from_numpy(rng.normal(
+            0, 1, (2, 8, cfg.encoder.d_model)).astype(np.float32))
+    users = _graph_leaf_users(model.train_loss(params, batch, remat=remat))
+    stacked = [(name, p) for name, p in params.named_parameters()
+               if name.split(".")[0] in ("layers", "enc_layers",
+                                         "dec_layers")]
+    read = [(name, p) for name, p in stacked if id(p) in users]
+    # every stacked leaf the loss reads (rwkv6's unused channel-mix copy
+    # under "tm" it never reads, as the reference's loss does not)
+    assert read and all(name.startswith("layers.tm.") and "cm" in name
+                        for name, p in stacked if id(p) not in users)
+    for name, p in read:
+        assert users[id(p)] == ["UnbindBackward0"], (name, users[id(p)])
 
 
 # ----------------------------------------------------- batch_iterator
@@ -457,6 +531,8 @@ def _wrapper_calls():
         "flash_attention_cuda": (lambda t: flash_attention_cuda(t, q, q),
                                  q, "needs CUDA"),
         "wkv6_cuda": (lambda t: wkv6_cuda(t, q, q, q, u), q, "CUDA device"),
+        "wkv6_backward_cuda": (lambda t: wkv6_backward_cuda(t, q, q, q, u, q),
+                               q, "CUDA device"),
         "exit_confidence_cuda": (lambda t: exit_confidence_cuda(t, w), x,
                                  "CUDA"),
         "exit_confidence_fused_cuda": (

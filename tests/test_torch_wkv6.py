@@ -4,9 +4,14 @@ The port's plain `wkv6_ref` and its `ops.wkv6` on CPU tensors (which runs
 the plain version) against the reference's `wkv6` with its jnp oracle and
 with its Pallas kernel in interpret mode, on the same numpy inputs:
 float32 at rtol = atol = 1e-5, the tolerance of the reference's own
-kernel sweep. The CUDA kernel itself is held against the plain version on
-the card by chip_smoke.py.
+kernel sweep. The plain backward, `wkv6_backward_ref`, against
+``jax.vjp`` of the reference's `wkv6_ref` and against torch autograd
+(float32 gradients at GRAD_RTOL of their largest magnitude, bf16 ones at
+one bfloat16 ulp), and `WKV6`'s wiring with its kernels swapped for the
+plain versions. The CUDA kernels themselves are held against the plain
+versions on the card by chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +21,7 @@ from repro.kernels.wkv6.ops import wkv6 as j_wkv6
 from repro.kernels.wkv6.ref import wkv6_ref as j_wkv6_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import wkv6_backward_ref, wkv6_ref
 
 TOL = 1e-5
 
@@ -205,3 +210,129 @@ def test_dtensor_head_shards_equal_the_whole_call(mesh_shape, placements):
 
     for y, s in run_ranks(rank, mesh_shape[0] * mesh_shape[1]).values():
         assert torch.equal(y, want[0]) and torch.equal(s, want[1])
+
+
+# ------------------------------------------------------------ the backward
+
+# (b, h, t, dk, dv, dtype of r/k/v): dk != dv, T off the CUDA backward's
+# checkpoint chunk (4 steps), bf16 r/k/v
+BACKWARD_CASES = [
+    (2, 3, 37, 8, 8, "float32"),
+    (1, 2, 33, 16, 8, "float32"),
+    (2, 2, 9, 8, 12, "float32"),
+    (1, 3, 1, 4, 4, "float32"),
+    (2, 2, 21, 16, 16, "bfloat16"),
+]
+# float32 gradients, sums over T and over the state taken in other orders
+# (relative to the gradient's largest magnitude)
+GRAD_RTOL = 1e-5
+# bf16 dr/dk/dv: both sides round float32 values that agree to GRAD_RTOL
+# to bfloat16, so they differ by at most one bfloat16 ulp (2^-7 of the
+# value)
+BF16_GRAD_RTOL = 2 ** -7
+
+
+def _backward_inputs(seed, b, h, t, dk, dv, dtype):
+    """r, k, v, w, u as `_inputs` (r/k/v rounded to ``dtype``), w drawn as
+    the model's `_decay` draws it (down to exp(-e^2)), and the cotangents
+    dy and a nonzero final-state ds."""
+    rng = np.random.default_rng(seed)
+    r, k, v, _, u = _inputs(seed, b, h, t, dk, dv)
+    w = np.exp(-np.exp(np.clip(rng.standard_normal((b, h, t, dk)) * 2.0,
+                               -10.0, 2.0))).astype(np.float32)
+    dy = rng.standard_normal((b, h, t, dv)).astype(np.float32)
+    ds = rng.standard_normal((b, h, dk, dv)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    r, k, v = (torch.from_numpy(a).to(tdt) for a in (r, k, v))
+    return (r, k, v, torch.from_numpy(w), torch.from_numpy(u),
+            torch.from_numpy(dy), torch.from_numpy(ds))
+
+
+def _assert_grads_close(got, want, names=("dr", "dk", "dv", "dw", "du")):
+    for name, g, w in zip(names, got, want):
+        g = g.float().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, name
+        low = name in ("dr", "dk", "dv") and got[0].dtype == torch.bfloat16
+        rel = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert rel <= (BF16_GRAD_RTOL if low else GRAD_RTOL), (name, rel)
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv,dtype", BACKWARD_CASES)
+def test_backward_ref_matches_reference_vjp(b, h, t, dk, dv, dtype):
+    """`wkv6_backward_ref` against ``jax.vjp`` of the reference's
+    `wkv6_ref` on the same inputs and cotangents (dy and a nonzero
+    final-state ds), all five gradients; dtypes as the CUDA kernel
+    returns them (dr/dk/dv in r's dtype, dw and du float32)."""
+    r, k, v, w, u, dy, ds = _backward_inputs(t * 7 + dk, b, h, t, dk, dv,
+                                             dtype)
+    got = wkv6_backward_ref(r, k, v, w, u, dy, ds)
+    assert [g.dtype for g in got] == [r.dtype] * 3 + [torch.float32] * 2
+    assert got[4].shape == (h, dk)
+    jx = [jnp.asarray(x.float().numpy()) for x in (r, k, v, w, u)]
+    _, vjp = jax.vjp(j_wkv6_ref, *jx)
+    want = vjp((jnp.asarray(dy.numpy()), jnp.asarray(ds.numpy())))
+    if dtype == "bfloat16":    # the reference's gradients, rounded as ours
+        want = [np.asarray(jnp.asarray(g).astype(jnp.bfloat16)
+                           .astype(jnp.float32)) if i < 3 else g
+                for i, g in enumerate(want)]
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv,dtype", BACKWARD_CASES)
+@pytest.mark.parametrize("with_state", [True, False])
+def test_backward_ref_matches_autograd(b, h, t, dk, dv, dtype, with_state):
+    """`wkv6_backward_ref` against torch autograd of `wkv6_ref`, with and
+    without a cotangent for the final state."""
+    r, k, v, w, u, dy, ds = _backward_inputs(t * 11 + dv, b, h, t, dk, dv,
+                                             dtype)
+    leaves = [x.clone().requires_grad_(True) for x in (r, k, v, w, u)]
+    y, s = wkv6_ref(*leaves)
+    loss = (y * dy).sum() + ((s * ds).sum() if with_state else 0.0)
+    # (at T = 1 without the state, y does not read w: its gradient is 0)
+    want = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    got = wkv6_backward_ref(r, k, v, w, u, dy, ds if with_state else None)
+    assert [g.dtype for g in want[:3]] == [g.dtype for g in got[:3]]
+    _assert_grads_close(got, [g.float().numpy() for g in want])
+
+
+def test_backward_ref_in_float64_is_a_float64_reading():
+    """Given float64 inputs the plain backward computes in float64 (the
+    reading the card's float32 backward is held against)."""
+    r, k, v, w, u, dy, ds = _backward_inputs(5, 1, 2, 40, 8, 8, "float32")
+    got = wkv6_backward_ref(*(x.double() for x in (r, k, v, w, u, dy, ds)))
+    assert all(g.dtype == torch.float64 for g in got)
+    _assert_grads_close(got, [g.numpy() for g in wkv6_backward_ref(
+        r, k, v, w, u, dy, ds)])
+
+
+@pytest.mark.parametrize("use_state", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_function_gives_autograds_gradients(monkeypatch, use_state,
+                                                 dtype):
+    """`WKV6`'s wiring, with its two kernels swapped for their plain
+    versions: the gradients and dtypes of autograd through `wkv6_ref`
+    (after `_kernel_inputs`' casts, which autograd carries back), and
+    ``None`` for the final state's cotangent when the state is unused."""
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.ops import WKV6, _kernel_inputs
+    seen = []
+
+    def backward(*args):
+        seen.append(args[-1])
+        return wkv6_backward_ref(*args)
+    monkeypatch.setattr(ops, "wkv6_cuda", wkv6_ref)
+    monkeypatch.setattr(ops, "wkv6_backward_cuda", backward)
+    r, k, v, w, u, dy, ds = _backward_inputs(9, 2, 3, 13, 8, 8, dtype)
+    u = u.to(r.dtype)                   # cast to float32 by _kernel_inputs
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (r, k, v, w, u)]
+        y, s = fn(*leaves)
+        loss = (y * dy).sum() + ((s * ds).sum() if use_state else 0.0)
+        return torch.autograd.grad(loss, leaves)
+    got = grads(lambda *x: WKV6.apply(*_kernel_inputs(*x)))
+    want = grads(wkv6_ref)
+    assert len(seen) == 1 and (seen[0] is None) == (not use_state)
+    assert [g.dtype for g in got] == [g.dtype for g in want]
+    _assert_grads_close(got, [g.float().numpy() for g in want])
