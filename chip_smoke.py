@@ -65,7 +65,15 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    float64 run of the plain backward may be at most
    WKV6_GRAD_WITNESS_FACTOR times the plain float32 backward's; its
    instantiations' residency, registers and spills are printed and it is
-   timed at the training shape beside the forward;
+   timed at the training shape beside the forward. Attention's gradient
+   (`FlashAttention`: the kernel's forward and `attention_backward`) is
+   held against autograd of the plain version (per sample where its own
+   memory needs it) at ElasticBERT's training shape and in bf16 at each
+   family's training shape (TRAIN_ATTENTION: qwen3, zamba2's shared
+   block, phi3.5-moe and qwen2-vl causal at 16 x 64, seamless's encoder
+   at 8 x 4096 and its cross-attention 32 x 4096), each timed (kernel,
+   plain, SDPA, bound; `attention_backward`; SDPA's forward + backward)
+   with `attention_backward`'s peak memory held within its slice budget;
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
    and fused exits, and SplitEE-S) and the sequential driver, then
@@ -125,7 +133,9 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    prints the device time inside the plain-PyTorch blocks (Mamba2 and
    its SSD, the MoE dispatch) beside the run's busy time;
 6. serves autoregressive decode (``workload="decode"``) with full-width
-   qwen3-1.7b, rwkv6-3b and zamba2-1.2b (bfloat16, weights and 64
+   qwen3-1.7b, rwkv6-3b and zamba2-1.2b, each in a subprocess of its own
+   and the three at once (their times taken under that overlap; their
+   launch counts join the kernels line) (bfloat16, weights and 64
    prompts of 64 tokens from ``--seed``, 32 new tokens each, alpha the
    median layer-L/2 confidence of a first edge step): bandit,
    forced-final and int8 + error feedback at B = 8, bandit at B = 1 on 4
@@ -192,9 +202,16 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    for LM_TRAIN_STEPS steps on one repeated batch of 16 x 64 tokens (the
    loss finite and falling; ms a step, tokens/s, peak memory, busy
    share; WKV6 launches exactly 2L forward + L backward a step, no exit
-   or attention launch), and card vs CPU training at its full width cut
-   to 2 layers in float32 (3 steps; the CPU half in a subprocess, awaited
-   at the end);
+   or attention launch); then qwen3-1.7b (28 layers), zamba2-1.2b (38),
+   phi3.5-moe (FAMILY_MOE_LAYERS of 32), qwen2-vl-2b (28, over seeded
+   embeds) and seamless-m4t-large-v2 (24 + 24 on 7 x 4096 seeded frames
+   and 32 target tokens) trained the same way at their published widths,
+   each run's attention launches exactly `train_attention_launches` a
+   step through the variant its bf16 shape picks and no exit or WKV6
+   launch; and card vs CPU training of each of these six archs cut to a
+   few layers (LM_AGREE_CUTS) in float32 (3 steps; both halves in one
+   subprocess, the card halves first, the CPU halves beside the phases
+   that follow and awaited at the end);
 8. trains full-width ElasticBERT-12 (the training configuration above)
    under model parallelism (`model_parallel_phase`): 3 steps unbound,
    at TP = 1 on a (1, 1) ("data", "model") mesh over an NCCL world of 1
@@ -203,15 +220,15 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    and off, each held to the unbound run (losses, step-0 gradients,
    parameters) with its attention launches and the kernel's q shape (the
    local head shard, forward and `FlashAttention`'s backward); times the
-   kernel and `attention_backward` at the TP = 2 shard; meanwhile runs
-   `repro_torch.launch.dryrun` for qwen3-1.7b x train_4k and
+   kernel and `attention_backward` at the TP = 2 shard; then prints the
+   runs of `repro_torch.launch.dryrun` for qwen3-1.7b x train_4k and
    mixtral-8x22b x decode_32k on the fake (16, 16) mesh (two
-   subprocesses on the host, started with the phase, with the CLI's
-   default depth fit) and prints their per-device numbers, each depth
-   fit's points and its extrapolation against the full-depth walk (held:
-   flops and every collective equal, bytes accessed within a relative
-   1e-5; both archs are uniform in depth), then runs one `--refit` over
-   their records and holds the refit the same way;
+   subprocesses on the host, started before the MoE phase, with the
+   CLI's default depth fit): their per-device numbers, each depth fit's
+   points and its extrapolation against the full-depth walk (held: flops
+   and every collective equal, bytes accessed within a relative 1e-5;
+   both archs are uniform in depth), and the one `--refit` over their
+   records that followed them, held the same way;
 9. drives the front doors (`front_doors_phase`): the 200-step weights
    trained in 7. saved with `checkpoint.save_pytree` under ``build/`` (bytes and
    seconds printed) and read back with `load_pytree` against the card
@@ -318,6 +335,19 @@ WKV6_GRAD_WITNESS_FACTOR = 2.0
 # (bf16: the two forwards round their outputs apart, and rowsum(dO∘O)
 # reads them)
 ATTN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# attention at each family's bf16 training shape (`family_train_phase`):
+# key: (b, hq, hkv, sq, skv, d, causal); the plain version's autograd runs
+# ATTN_GRAD_PLAIN_ROWS samples at a time where its (Sq, Skv) f32
+# temporaries need it (seamless's encoder: 1.07 GB a sample each)
+TRAIN_ATTENTION = {
+    "at_train_qwen3": (16, 16, 8, 64, 64, 128, True),
+    "at_train_zamba2": (16, 32, 32, 64, 64, 64, True),
+    "at_train_phi35": (16, 32, 8, 64, 64, 128, True),
+    "at_train_qwen2vl": (16, 12, 2, 64, 64, 128, True),
+    "at_train_seamless_encoder": (8, 16, 16, 4096, 4096, 64, False),
+    "at_train_seamless_cross": (8, 16, 16, 32, 4096, 64, False),
+}
+ATTN_GRAD_PLAIN_ROWS = {"at_train_seamless_encoder": 1}
 # training card vs CPU (2 layers of the full width, float32, 3 steps):
 # losses (rtol), step-0 gradients (max |err| over max |CPU| per leaf), and
 # the parameters after 3 steps where the step-0 |grad| exceeds GRAD_FLOOR
@@ -389,6 +419,17 @@ HYBRID_AGREE_LAYERS = 12
 # hold its shared attention block, which follows the 6th layer)
 DECODE_ARCHS = (("qwen3-1.7b", DECODE_AGREE_LAYERS),
                 (LM, DECODE_AGREE_LAYERS), (HYBRID, 6))
+# the three decode phases are host-bound (10-20 % device busy): each runs
+# in a subprocess of its own (`decode_child`, DECODE_THREADS intra-op
+# threads), all three at once, their times taken under that overlap
+DECODE_THREADS = 2
+DECODE_TIMEOUT_S = 600
+DECODE_CHILD = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.decode_child(*sys.argv[2:])
+'''
 # the MoE at its published widths and 16 of its 32 layers (the whole
 # model, 83.7 GB in bf16, does not fit one 80 GB card): serve() bucketed
 # and scan on MOE_SAMPLES samples, decode of MOE_PROMPTS prompts x
@@ -2137,6 +2178,23 @@ def layer_launches(cfg, start: int, stop: int) -> int:
         k = cfg.hybrid_attn_every
         return sum(1 for i in range(start, stop) if (i + 1) % k == 0)
     return stop - start
+
+
+def train_attention_launches(cfg, remat: bool) -> int:
+    """Attention launches of one `train_loss` step (`make_train_step`): one
+    a layer of a pass through the decoder stack (a hybrid's at its shared
+    block's occurrences, `layer_launches`) and, for an enc-dec model, the
+    encoder's layers and each decoder layer's self- and cross-attention.
+    ``remat`` recomputes each checkpointed decoder layer in the backward,
+    which launches its attention again; the encoder is not checkpointed;
+    `attention_backward` launches no kernel, and an ssm stack has no
+    attention. No exit kernel runs: `train_loss` reads plain logits."""
+    if cfg.family == "ssm":
+        return 0
+    passes = 2 if remat else 1
+    if cfg.encoder is not None:
+        return cfg.encoder.num_layers + passes * 2 * cfg.num_layers
+    return passes * layer_launches(cfg, 0, cfg.num_layers)
 
 
 def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
@@ -4227,6 +4285,71 @@ def decode_engine(torch, runs, rt, params, cost, cfg, samples, base, ref,
           f"p99 {lat['p99']:.1f}")
 
 
+def decode_child(arch: str, seed: str, agree_layers: str, out: str):
+    """One decode phase in a subprocess (`decode_phases`): `decode_phase`
+    of ``arch`` on the card, then its runs' launch counts written to
+    ``out`` (JSON) for the parent's kernels line."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(DECODE_THREADS)
+    runs = Runs()
+    decode_phase(torch, torch.device("cuda", 0), runs, arch, int(seed),
+                 agree_layers=int(agree_layers))
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps({"counts": runs.counts,
+                                     "variants": runs.variants,
+                                     "tiles": runs.tiles}))
+
+
+def decode_phases(torch, runs: Runs, seed: int):
+    """The decode phases of DECODE_ARCHS, each in a subprocess
+    (`decode_child`), all started at once and awaited: each one's output
+    is printed under its own heading with its wall, and its runs' launch
+    counts join ``runs``. Fails on any non-zero exit."""
+    import tempfile
+    out_dir = ROOT / "build" / "decode"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               OMP_NUM_THREADS=str(DECODE_THREADS))
+    procs = []
+    t0 = time.perf_counter()
+    for arch, agree_layers in DECODE_ARCHS:
+        log = tempfile.TemporaryFile("w+")
+        counts = out_dir / f"{arch}.json"
+        counts.unlink(missing_ok=True)
+        procs.append((arch, log, counts, subprocess.Popen(
+            [sys.executable, "-c", DECODE_CHILD, str(ROOT), arch,
+             str(seed), str(agree_layers), str(counts)], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT)))
+    walls = {}
+    while len(walls) < len(procs):
+        for arch, _, _, proc in procs:
+            if arch not in walls and (proc.poll() is not None or
+                                      time.perf_counter() - t0 >
+                                      DECODE_TIMEOUT_S):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                walls[arch] = time.perf_counter() - t0
+        time.sleep(0.2)
+    failed = [arch for arch, _, _, proc in procs if proc.returncode != 0]
+    for arch, log, counts, proc in procs:
+        log.seek(0)
+        print(f"== decode: {arch} (full width) on the card, in a subprocess "
+              f"beside the other decode phases (its times were taken under "
+              f"that overlap)")
+        print(log.read().rstrip())
+        print(f"  [decode {arch}: exit {proc.returncode}, ended "
+              f"{walls[arch]:.1f} s after the three started]")
+        if proc.returncode == 0:
+            got = json.loads(counts.read_text())
+            for key in ("counts", "variants", "tiles"):
+                getattr(runs, key).update(got[key])
+    if failed:
+        fail(f"decode phases failed: {failed}")
+
+
 def moe_phase(torch, dev, runs: Runs, seed: int):
     """phi3.5-moe at its published widths and MOE_LAYERS layers (bf16,
     weights from ``seed``, 42.1 GB): `serve()` bucketed and scan at B = 32
@@ -4733,43 +4856,51 @@ def attention_grad_checks(torch, dev):
     """Attention's gradient on the card: `FlashAttention` (the kernel's
     forward, `attention_backward`) against autograd through the plain
     version, dq, dk and dv at ATTN_GRAD_RTOL (max |err| over max |plain|,
-    per tensor); each forward one launch through its variant. Returns the
-    training shape's record (kernel forward, plain, SDPA, bound) with the
-    time of `attention_backward` per call."""
+    per tensor); each forward one launch through its variant. The plain
+    version's autograd runs over slices of ATTN_GRAD_PLAIN_ROWS samples
+    where its own (Sq, Skv) temporaries need it. Returns the training
+    shape's record (kernel forward, plain, SDPA, bound) with the time of
+    `attention_backward` per call, and {"at_train_<family>": record} of
+    each family's training shape (TRAIN_ATTENTION) with the times of
+    `attention_backward` and of SDPA's forward + backward (the library's
+    gradient), and the peak memory `attention_backward` adds beyond its
+    inputs, held within its slice budget."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.ops import (attention,
                                                          attention_backward)
     from repro_torch.kernels.flash_attention.ref import gqa_ref
 
     gen = torch.Generator(device=dev).manual_seed(21)
     cases = [
-        # name, variant, b, hq, hkv, s, d, causal, dtype
-        ("train_f32", "cuda_core", TRAIN_BATCH, 12, 12, 64, 64, False,
+        # name, variant, b, hq, hkv, sq, skv, d, causal, dtype
+        ("train_f32", "cuda_core", TRAIN_BATCH, 12, 12, 64, 64, 64, False,
          "float32"),
-        ("bf16", "tensor_core", 32, 12, 12, 64, 64, False, "bfloat16"),
-        ("gqa_causal_f32", "cuda_core", 2, 8, 2, 130, 64, True, "float32"),
-        ("gqa_causal_d128_bf16", "tensor_core", 2, 8, 2, 130, 128, True,
+        ("bf16", "tensor_core", 32, 12, 12, 64, 64, 64, False, "bfloat16"),
+        ("gqa_causal_f32", "cuda_core", 2, 8, 2, 130, 130, 64, True,
+         "float32"),
+        ("gqa_causal_d128_bf16", "tensor_core", 2, 8, 2, 130, 130, 128, True,
          "bfloat16"),
-    ]
+    ] + [(key, "tensor_core", *shape, "bfloat16")
+         for key, shape in TRAIN_ATTENTION.items()]
     saved = {}
-    for name, variant, b, hq, hkv, s, d, causal, dt in cases:
+    for name, variant, b, hq, hkv, sq, skv, d, causal, dt in cases:
         dtype = getattr(torch, dt)
-        mk = lambda h: torch.randn((b, h, s, d), generator=gen,  # noqa: E731
-                                   device=dev).to(dtype)
-        q, k, v = mk(hq), mk(hkv), mk(hkv)
-        dout = mk(hq)
+        mk = lambda h, s: torch.randn(  # noqa: E731
+            (b, h, s, d), generator=gen, device=dev).to(dtype)
+        q, k, v = mk(hq, sq), mk(hkv, skv), mk(hkv, skv)
+        dout = mk(hq, sq)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = via("flash_attention", variant,
                   lambda: attention(*leaves, causal=causal))
         if out.grad_fn is None:
             fail(f"attention[{name}]: no autograd graph through the kernel")
         got = torch.autograd.grad(out, leaves, dout)
-        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        want_out = gqa_ref(*plain, causal=causal)
-        want = torch.autograd.grad(want_out, plain, dout)
+        del leaves
+        want_out, want = plain_attention_grads(torch, q, k, v, dout, causal,
+                                               ATTN_GRAD_PLAIN_ROWS.get(name))
         torch.cuda.synchronize()
-        check_close(f"attention[{name}] forward", out.detach(),
-                    want_out.detach(), dt)
+        check_close(f"attention[{name}] forward", out.detach(), want_out, dt)
         errs = []
         for what, g, w in zip(("dq", "dk", "dv"), got, want):
             rel = ((g.float() - w.float()).abs().max()
@@ -4780,12 +4911,14 @@ def attention_grad_checks(torch, dev):
                      f"{rel:.3e} > {ATTN_GRAD_RTOL[dt]}")
             errs.append(rel)
         print(f"  attention gradient [{name}] ({variant}, ({b},{hq}/{hkv},"
-              f"{s},{d}) {dt}{', causal' if causal else ''}): dq/dk/dv max "
-              f"relative err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+              f"{sq}{'' if sq == skv else f'x{skv}'},{d}) {dt}"
+              f"{', causal' if causal else ''}): dq/dk/dv max relative err "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
               f"{ATTN_GRAD_RTOL[dt]})")
         saved[name] = (q, k, v, dout, out.detach(), max(errs))
+        del got, want, want_out, out
 
-    q, k, v, dout, out, err = saved["train_f32"]
+    q, k, v, dout, out, err = saved.pop("train_f32")
     b, h, s, d = q.shape
     rec = record(
         "flash_attention",
@@ -4800,7 +4933,107 @@ def attention_grad_checks(torch, dev):
         variant="cuda_core")
     rec["backward_ms"] = graph_ms(lambda: attention_backward(
         q, k, v, out, dout, causal=False, window=0, scale=d ** -0.5))
-    return rec
+
+    family = {}
+    for key, (b, hq, hkv, sq, skv, d, causal) in TRAIN_ATTENTION.items():
+        q, k, v, dout, out, err = saved.pop(key)
+        gqa = hq != hkv
+        few = {"calls": 2, "replays": 2} if sq * skv > 1 << 20 else {}
+        kind = "causal" if causal else "bidirectional" if sq == skv \
+            else "cross-attention"
+        # bytes: q and the output (Hq heads), k and v (Hkv heads);
+        # operations: the two products (their causal half)
+        r = record(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:80",
+            f"q ({b},{hq},{sq},{d}), k/v ({b},{hkv},{skv},{d}) bfloat16, "
+            f"{kind}{' GQA' if gqa else ''} (training)", err,
+            lambda: via("flash_attention", "tensor_core",
+                        lambda: attention(q, k, v, causal=causal)),
+            lambda: gqa_ref(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=gqa),
+            2 * (q.numel() + k.numel()) * q.element_size(),
+            (2.0 if causal else 4.0) * b * hq * sq * skv * d, "bfloat16",
+            variant="tensor_core", **few)
+        bwd = lambda: attention_backward(  # noqa: E731
+            q, k, v, out, dout, causal=causal, window=0, scale=d ** -0.5)
+        r["backward_ms"] = graph_ms(bwd, **few)
+        lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        r["library_grad_ms"] = graph_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*lib, is_causal=causal,
+                                           enable_gqa=gqa), lib, dout),
+            **few)
+        del lib
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads = bwd()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - before
+        slices = attn_ops.backward_slices(b, hkv, hq // hkv, sq, skv)
+        temps, rest = backward_peak_bound(q, k, slices)
+        r["backward_peak_bytes"] = extra
+        r["backward_slices"] = len(slices)
+        print(f"  attention_backward at {key}: {len(slices)} slice(s), peak "
+              f"{extra / 1e9:.3f} GB beyond its inputs; bound "
+              f"{(temps + rest) / 1e9:.3f} GB: the largest slice's P and dS "
+              f"{temps / 1e9:.3f} GB (budget "
+              f"{attn_ops.BACKWARD_TEMP_BYTES / 1e9:.3f}) + {rest / 1e9:.3f} "
+              f"GB of its float32 working tensors, the mask and the "
+              f"gradients; margin {(temps + rest - extra) / 1e9:.3f} GB")
+        if extra > temps + rest or temps > max(
+                attn_ops.BACKWARD_TEMP_BYTES,
+                attn_ops.BACKWARD_TEMPS * hq // hkv * sq * skv * 4):
+            fail(f"attention_backward at {key}: {extra} bytes beyond its "
+                 f"inputs > {temps + rest}, or a slice's P and dS {temps} "
+                 f"bytes over the budget")
+        del grads
+        family[key] = r
+    return rec, family
+
+
+def backward_peak_bound(q, k, slices) -> tuple[int, int]:
+    """The bytes `attention_backward` may hold beyond its inputs, as
+    (the largest slice's BACKWARD_TEMPS float32 (Sq, Skv) temporaries,
+    the rest): the rest is that slice's float32 working tensors (q, the
+    output, dO, dQ and its scaled product; K and V repeated to the query
+    heads, K's cast, dK and dV before their group sums and dK's scaled
+    product: eleven (Sq or Skv, d) tensors a query head), the (Sq, Skv)
+    mask and the two complements that `masked_fill_` takes, and the
+    whole call's gradients in the inputs' dtypes. A slicer that put
+    twice the heads in a slice would need twice the first term."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    heads = max((bs.stop - bs.start) * (gs.stop - gs.start) * rep
+                for bs, gs in slices)
+    temps = attn_ops.BACKWARD_TEMPS * heads * sq * skv * 4
+    work = 4 * heads * d * (5 * sq + 6 * skv)
+    grads = (q.numel() + 2 * k.numel()) * q.element_size()
+    return temps, work + 3 * sq * skv + grads
+
+
+def plain_attention_grads(torch, q, k, v, dout, causal, rows=None):
+    """(out, (dq, dk, dv)) by autograd of the plain version (`gqa_ref`),
+    over slices of ``rows`` samples (default all), whose (Sq, Skv)
+    temporaries then stay within what one slice needs."""
+    from repro_torch.kernels.flash_attention.ref import gqa_ref
+    b = q.shape[0]
+    rows = rows or b
+    out = torch.empty_like(q)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    for i in range(0, b, rows):
+        s = slice(i, i + rows)
+        leaves = [t[s].clone().requires_grad_(True) for t in (q, k, v)]
+        o = gqa_ref(*leaves, causal=causal)
+        for g, w in zip(grads, torch.autograd.grad(o, leaves, dout[s])):
+            g[s] = w
+        out[s] = o.detach()
+    return out, grads
 
 
 def train_config():
@@ -4852,7 +5085,7 @@ def training_run(torch, dev, runs: Runs, cfg, data):
         fail(f"{name}: non-finite loss in {log}")
     if not last["loss"] < first["loss"]:
         fail(f"{name}: loss did not fall ({first['loss']} -> {last['loss']})")
-    want = cfg.num_layers * TRAIN_STEPS
+    want = train_attention_launches(cfg, remat=False) * TRAIN_STEPS
     if counts["flash_attention"] != want or \
             variants["flash_attention/cuda_core"] != want:
         fail(f"{name}: attention launches {counts['flash_attention']} (by "
@@ -5258,16 +5491,16 @@ def training_profile(torch, dev, cfg, data, params):
     return busy, wall
 
 
-def train_phase(torch, dev, runs: Runs):
+def train_phase(torch, dev, runs: Runs, rec):
     """Full-width ElasticBERT-12 trained on the card, then the paper's
     pipeline on its weights and the served decisions on an early
-    checkpoint of the same recipe. Returns the attention record at the training
-    shape, with the run's launches and timings, and (params, model, cost
-    with the calibrated alpha) of the trained weights."""
+    checkpoint of the same recipe. Returns the attention record at the
+    training shape (``rec``, `attention_grad_checks`'), with the run's
+    launches and timings added, and (params, model, cost with the
+    calibrated alpha) of the trained weights."""
     from repro_torch.data import make_dataset
     from repro_torch.launch.train import train_classifier
 
-    rec = attention_grad_checks(torch, dev)
     cfg = train_config()
     data = make_dataset("sst2_like", TRAIN_SAMPLES, seed=0)
     params, model, stats = training_run(torch, dev, runs, cfg, data)
@@ -5322,39 +5555,71 @@ def decisions_wait(pending):
                         min_near=min_near)
 
 
-# ------------------------------------------------ rwkv6-3b training
+# ---------------------------------------------- training the LM families
 
-# full-width rwkv6-3b trained on the card (`lm_train_phase`): LM_TRAIN_STEPS
-# steps of `make_train_step` with remat (the reference's default) on one
-# repeated batch of LM_TRAIN_BATCH sequences x 64 tokens of the synthetic
-# stream (next-token loss, labels the tokens), lr 3e-4 from the first
-# step (no warmup), at LM_TRAIN_LAYERS of its 32 layers: the deepest that
-# fits the card's 80 GB. Its bf16 weights, their gradients, the clip's
-# copies and AdamW's f32 moments hold 14 bytes a parameter, and the
-# update's f32 temporaries come on top: tools/wkv6_training_costs.py's
-# depth probe finds 31 and 32 layers out of memory in the optimizer step
-# and 30 fitting on an otherwise empty card
+# full-width LMs trained on the card through `make_train_step` with remat
+# (the reference's default), bf16, LM_TRAIN_STEPS steps on one repeated
+# batch, AdamW at LM_TRAIN_LR from the first step (no warmup), each on an
+# otherwise empty card. rwkv6-3b (`lm_train_phase`): LM_TRAIN_BATCH
+# sequences x 64 tokens of the synthetic stream (next-token loss, labels
+# the tokens) at LM_TRAIN_LAYERS of its 32 layers, the deepest that fits
+# the card's 80 GB: its bf16 weights, their gradients, the clip's copies
+# and AdamW's f32 moments hold 14 bytes a parameter, and the update's f32
+# temporaries come on top; tools/wkv6_training_costs.py's depth probe
+# finds 31 and 32 layers out of memory in the optimizer step and 30
+# fitting
 LM_TRAIN_LAYERS = 30
 LM_TRAIN_BATCH = 16
 LM_TRAIN_STEPS = 5
 LM_TRAIN_LR = 3e-4
-# card vs CPU (`lm_train_agreement`): full width cut to 2 layers, float32,
-# LM_AGREE_STEPS steps of LM_AGREE_BATCH sequences; the CPU half in a
-# subprocess (LM_AGREE_THREADS threads) beside the phases that follow,
-# its readings under LM_AGREE_DIR, awaited at the end of the smoke (it
-# ends ~90 s after it starts: its steps take ~25 s each beside the
-# phases)
-LM_AGREE_LAYERS = 2
+# the other families (`family_train_phase`), as published: (arch, layers,
+# None for all of them, the TRAIN_ATTENTION entry its record joins). The
+# LMs train on LM_TRAIN_BATCH x 64 positions (qwen2-vl on seeded embeds,
+# labels seeded tokens), seamless on ENCDEC_TRAIN_BATCH x its 4096 frames
+# with ENCDEC_TRAIN_TOKENS target tokens: its encoder is not rematted (as
+# the reference's), and at the serving phase's 8 samples a step peaked at
+# 81.558 of the card's 85.017 GB on an otherwise empty card, too close
+# for the ~1.5 GB earlier phases hold. phi3.5-moe at FAMILY_MOE_LAYERS of
+# its 32 layers, the deepest whose step fits an otherwise empty card
+# (`tools/wkv6_training_costs.py --arch phi3.5-moe-42b-a6.6b`: 4 and 3
+# run out of memory in the optimizer step, asking 6.25 / 4.69 GiB)
+FAMILY_MOE_LAYERS = 2
+FAMILY_TRAIN = (("qwen3-1.7b", None, "at_train_qwen3"),
+                (HYBRID, None, "at_train_zamba2"),
+                (MOE, FAMILY_MOE_LAYERS, "at_train_phi35"),
+                (VLM, None, "at_train_qwen2vl"),
+                (ENCDEC, None, "at_train_seamless_encoder"))
+ENCDEC_TRAIN_BATCH = 7
+ENCDEC_TRAIN_TOKENS = 32
+# card vs CPU training (`TrainAgreement`): each arch's published widths
+# cut to (arch, layers, enc-dec source frames), float32, LM_AGREE_STEPS
+# steps (no remat) of LM_AGREE_BATCH sequences (64 positions; the enc-dec
+# model ENCDEC_TRAIN_TOKENS target tokens), from LM_AGREE_SEED; zamba2
+# at 6 layers holds a shared-block occurrence, phi3.5-moe at 1 is 1.56 G
+# parameters. Both halves run in one subprocess, started before the
+# training of the families so that its start-up overlaps it: the card
+# halves first (this process waits), then the CPU halves on
+# LM_AGREE_THREADS threads, one after another (the largest first) beside
+# the phases that follow, each held to its card half as it ends (on the
+# CPU: the card is the phases'); the card halves' readings
+# wait under LM_AGREE_DIR meanwhile.
+# Awaited at the end of the smoke. The CPU halves are AdamW-bound and
+# host-memory-bound: phi3.5's f32 weights, gradients, clip copies,
+# moments, the update's temporaries and the readings peak near 60 GB.
+LM_AGREE_CUTS = ((MOE, 1, None), ("qwen3-1.7b", 2, None), (VLM, 2, None),
+                 (ENCDEC, 2, 256), (LM, 2, None), (HYBRID, 6, None))
 LM_AGREE_STEPS = 3
 LM_AGREE_BATCH = 4
-LM_AGREE_THREADS = 2
-LM_AGREE_TIMEOUT_S = 900
-LM_AGREE_DIR = ROOT / "build" / "lm_train"
+LM_AGREE_SEED = 7
+LM_AGREE_THREADS = 3
+LM_AGREE_CARD_TIMEOUT_S = 300
+LM_AGREE_TIMEOUT_S = 1100
+LM_AGREE_DIR = ROOT / "build" / "train_agree"
 LM_AGREE_CHILD = r'''
 import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-chip_smoke.lm_agree_child(sys.argv[2])
+chip_smoke.train_agree_child()
 '''
 
 
@@ -5366,6 +5631,35 @@ def lm_train_batches(torch, batch: int, n: int, device):
     return [{"tokens": torch.as_tensor(t, device=device),
              "labels": torch.as_tensor(t, device=device).long()}
             for t in tokens.reshape(n, batch, -1)]
+
+
+def train_batches(torch, cfg, rows: int, n: int, device, *,
+                  tokens: int = ENCDEC_TRAIN_TOKENS):
+    """``n`` training batches of ``rows`` sequences for ``cfg``'s family,
+    equal on every device: token LMs `lm_train_batches`; the VLM seeded
+    embeds (rows, 64, d) with seeded labels; the enc-dec model seeded
+    frames (rows, source_len, d) and ``tokens`` seeded target tokens,
+    labels the tokens."""
+    import numpy as np
+    if cfg.family != "vlm" and cfg.encoder is None:
+        return lm_train_batches(torch, rows, n, device)
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(n):
+        seq = 64 if cfg.encoder is None else tokens
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (rows, seq)),
+                                 device=device)
+        if cfg.encoder is None:
+            x = {"embeds": rng.standard_normal((rows, seq, cfg.d_model),
+                                               dtype=np.float32)}
+        else:
+            e = cfg.encoder
+            x = {"frames": rng.standard_normal((rows, e.source_len,
+                                                e.d_model), dtype=np.float32),
+                 "tokens": labels}
+        out.append({"labels": labels, **{k: torch.as_tensor(v, device=device)
+                                         for k, v in x.items()}})
+    return out
 
 
 def lm_train_steps(torch, cfg, params, batches, *, remat: bool,
@@ -5410,23 +5704,20 @@ def lm_train_steps(torch, cfg, params, batches, *, remat: bool,
     return losses, walls, lambda b: step(params, state, b)
 
 
-def lm_train_phase(torch, dev, runs: Runs):
-    """Full-width rwkv6-3b (bf16, LM_TRAIN_LAYERS layers) trained on the
-    card: LM_TRAIN_STEPS steps on one repeated batch, the loss finite and
-    falling, ms a step, tokens/s, peak device memory, and the launches of
-    the run: WKV6 2L a step (forward and remat's recompute) and its
-    backward kernel L a step, no exit or attention launch; one more step
-    profiled for its busy share. Returns the training record."""
+def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
+                   before: int):
+    """LM_TRAIN_STEPS training steps of ``params`` (on the card) on one
+    repeated ``batch``, with remat, counted as run ``name``: the loss
+    finite and falling, the launches exactly ``want`` (per kernel; every
+    attention launch through the variant the picker names for the bf16
+    shape), ms a step after the first, positions/s, peak device memory
+    (and its share above ``before``, what earlier phases held), then one
+    more step profiled for its busy share and top kernels. Returns the
+    training record."""
     import math
-    from repro_torch.configs import get_config
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      variant_launch_counts)
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated(dev)   # what earlier phases hold
-    cfg = dataclasses.replace(get_config(LM), num_layers=LM_TRAIN_LAYERS)
-    params = init_full(torch, dev, cfg, seed=28)
-    batch = lm_train_batches(torch, LM_TRAIN_BATCH, 1, dev)[0]
-    name = MAIN_PATH["wkv6_backward"]
+    from repro_torch.kernels.flash_attention.kernel import attention_variant
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -5440,120 +5731,250 @@ def lm_train_phase(torch, dev, runs: Runs):
     runs.counts[name] = counts
     runs.variants[name] = {k: n for k, n in variants.items() if n}
     runs.tiles[name] = {}
-    tokens = batch["tokens"].numel()
+    positions = batch["labels"].numel()
     ms_step = sum(walls[1:]) / len(walls[1:]) * 1e3
-    print(f"  {name}: {LM_TRAIN_LAYERS} layers, {LM_TRAIN_STEPS} steps on one "
-          f"batch of {tuple(batch['tokens'].shape)} tokens, remat: losses "
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    print(f"  {name}: {cfg.num_layers} layers, {LM_TRAIN_STEPS} steps on one "
+          f"batch {shapes}, remat: losses "
           + ", ".join(f"{x:.6f}" for x in losses)
           + f"; step walls (s) " + ", ".join(f"{x:.3f}" for x in walls)
           + f"; {ms_step:.3f} ms a step after the first = "
-          f"{tokens / ms_step * 1e3:.1f} tokens/s; peak device memory "
-          f"{peak / 1e9:.3f} GB (max_memory_allocated) of "
+          f"{positions / ms_step * 1e3:.1f} target positions/s; peak device "
+          f"memory {peak / 1e9:.3f} GB (max_memory_allocated) of "
           f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.3f}, "
           f"of which {before / 1e9:.3f} GB earlier phases held before the "
           f"model was built: the training's own {(peak - before) / 1e9:.3f} "
-          f"GB; "
-          f"{wall:.3f} s wall; launches {counts}, by variant "
-          f"{runs.variants[name]}")
+          f"GB; {wall:.3f} s wall; launches {counts}, by variant "
+          f"{runs.variants[name]}", flush=True)
     if not all(math.isfinite(x) for x in losses):
         fail(f"{name}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
-    want = {k: 0 for k in counts}
-    want["wkv6"] = 2 * cfg.num_layers * LM_TRAIN_STEPS
-    want["wkv6_backward"] = cfg.num_layers * LM_TRAIN_STEPS
     if counts != want:
-        fail(f"{name}: launches {counts}, want {want} (WKV6 2L a step under "
-             f"remat, its backward L, no exit or attention kernel)")
+        fail(f"{name}: launches {counts}, want {want}")
+    if counts["flash_attention"]:
+        picked = attention_variant(torch.bfloat16, cfg.resolved_head_dim,
+                                   True)
+        if variants[f"flash_attention/{picked}"] != counts["flash_attention"]:
+            fail(f"{name}: attention launches not all through {picked}: "
+                 f"{runs.variants[name]}")
     busy, per_kernel = device_ms(lambda: again(batch), iters=1, warmup=0)
-    print_busy(f"train step ({LM} full width, {LM_TRAIN_LAYERS} layers, bf16,"
-               f" {tuple(batch['tokens'].shape)})", busy, ms_step, per_kernel)
-    del params, again
-    torch.cuda.empty_cache()
-    return {"layers": LM_TRAIN_LAYERS, "steps": LM_TRAIN_STEPS,
+    print_busy(f"train step ({name}, {shapes})", busy, ms_step, per_kernel)
+    return {"layers": cfg.num_layers, "steps": LM_TRAIN_STEPS,
             "losses": losses, "ms_per_step": ms_step,
-            "tokens_per_s": tokens / ms_step * 1e3, "peak_bytes": peak,
-            "own_peak_bytes": peak - before,
-            "busy_ms": busy, "launches": counts}
+            "positions_per_s": positions / ms_step * 1e3, "peak_bytes": peak,
+            "own_peak_bytes": peak - before, "busy_ms": busy,
+            "launches": counts}
 
 
-def lm_train_agreement(torch, dev):
-    """The card half of rwkv6-3b's training agreement: full width cut to
-    LM_AGREE_LAYERS layers in float32, initial parameters from a seed on
-    the card and saved for the CPU half (`lm_agree_child`, started here in
-    a subprocess), then LM_AGREE_STEPS steps (no remat) through the WKV6
-    kernels and their gradient. Returns what `lm_agree_wait` holds
-    against the CPU's steps."""
-    import atexit
-    import tempfile
+def train_want(cfg, steps: int):
+    """Kernel launches of ``steps`` training steps with remat: attention as
+    `train_attention_launches` says, and for an ssm stack WKV6 2L a step
+    (the forward and remat's recompute) and its backward L; no exit."""
+    from repro_torch.kernels import launch_counts
+    want = {k: 0 for k in launch_counts()}
+    want["flash_attention"] = train_attention_launches(cfg, True) * steps
+    if cfg.family == "ssm":
+        want["wkv6"] = 2 * cfg.num_layers * steps
+        want["wkv6_backward"] = cfg.num_layers * steps
+    return want
+
+
+def lm_train_phase(torch, dev, runs: Runs):
+    """Full-width rwkv6-3b (bf16, LM_TRAIN_LAYERS layers) trained on the
+    card (`train_card_run`): WKV6 2L a step (forward and remat's
+    recompute) and its backward kernel L a step, no exit or attention
+    launch. Returns the training record."""
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params
-    t0 = time.perf_counter()
-    cut = dataclasses.replace(get_config(LM), num_layers=LM_AGREE_LAYERS,
-                              dtype="float32")
-    LM_AGREE_DIR.mkdir(parents=True, exist_ok=True)
-    params = init_params(cut, seed=7, device=dev)
-    spec = {"weights": str(LM_AGREE_DIR / "weights.pt"),
-            "out": str(LM_AGREE_DIR / "cpu.pt")}
-    torch.save(_tree_to(params, "cpu"), spec["weights"])
-    (LM_AGREE_DIR / "spec.json").write_text(json.dumps(spec))
-    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    env = dict(os.environ, PYTHONPATH=str(SRC),
-               OMP_NUM_THREADS=str(LM_AGREE_THREADS))
-    proc = subprocess.Popen(
-        [sys.executable, "-c", LM_AGREE_CHILD, str(ROOT),
-         str(LM_AGREE_DIR / "spec.json")], cwd=ROOT, env=env, stdout=out,
-        stderr=err)
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    batches = lm_train_batches(torch, LM_AGREE_BATCH, LM_AGREE_STEPS, dev)
-    grad0 = {}
-    losses, _, _ = lm_train_steps(torch, cut, params, batches, remat=False,
-                                  grad0=grad0)
-    card = {"losses": losses,
-            "grad0": {n: None if g is None else g.cpu()
-                      for n, g in grad0.items()},
-            "final": {n: x.detach().cpu()
-                      for n, x in params.named_parameters()}}
-    del params, grad0
     torch.cuda.empty_cache()
-    print(f"  card vs CPU training, {LM} full width cut to {LM_AGREE_LAYERS} "
-          f"layers, float32, {LM_AGREE_STEPS} steps of {LM_AGREE_BATCH} x 64 "
-          f"tokens: the card's steps done ({time.perf_counter() - t0:.1f} s "
-          f"wall, the weights saved for the CPU); the CPU's in a subprocess "
-          f"({LM_AGREE_THREADS} threads) beside the phases that follow",
-          flush=True)
-    return {"proc": proc, "out": out, "err": err, "spec": spec,
-            "card": card, "t0": t0}
+    before = torch.cuda.memory_allocated(dev)   # what earlier phases hold
+    cfg = dataclasses.replace(get_config(LM), num_layers=LM_TRAIN_LAYERS)
+    params = init_full(torch, dev, cfg, seed=28)
+    batch = lm_train_batches(torch, LM_TRAIN_BATCH, 1, dev)[0]
+    rec = train_card_run(torch, dev, runs, MAIN_PATH["wkv6_backward"], cfg,
+                         params, batch, train_want(cfg, LM_TRAIN_STEPS),
+                         before)
+    del params
+    torch.cuda.empty_cache()
+    return rec
 
 
-def lm_agree_child(spec_path):
-    """`lm_train_agreement`'s CPU half: the saved weights, the same
-    batches and steps on the CPU (the plain versions), written for
-    `lm_agree_wait`."""
+def family_train_phase(torch, dev, runs: Runs):
+    """Each of FAMILY_TRAIN trained on the card at its published widths
+    (`train_card_run`): its attention launches exactly
+    `train_attention_launches` a step, through the variant its bf16 shape
+    picks, and no exit or WKV6 launch. Each model is freed before the
+    next. Returns {TRAIN_ATTENTION key: training record}."""
+    out = {}
+    for arch, layers, key in FAMILY_TRAIN:
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        cfg = model_config(arch, layers)
+        params = init_full(torch, dev, cfg, seed=29)
+        rows = ENCDEC_TRAIN_BATCH if cfg.encoder is not None \
+            else LM_TRAIN_BATCH
+        batch = train_batches(torch, cfg, rows, 1, dev)[0]
+        out[key] = train_card_run(
+            torch, dev, runs, f"train {arch}", cfg, params, batch,
+            train_want(cfg, LM_TRAIN_STEPS), before)
+        del params, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def agree_cut(arch: str, layers: int, frames: int | None):
+    """``arch``'s published widths in float32, cut to ``layers`` layers
+    (an enc-dec model: as many encoder layers, ``frames`` source frames)."""
+    cfg = dataclasses.replace(model_config(arch, layers), dtype="float32")
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, num_layers=layers, source_len=frames))
+    return cfg
+
+
+def agree_half(torch, dev, cut, device):
+    """One half of an arch's training agreement on ``device``: the cut's
+    parameters from LM_AGREE_SEED (drawn on the card, so both halves
+    start equal), LM_AGREE_STEPS steps without remat on the same batches,
+    the MoE routes of every step. Returns its readings: losses, step-0
+    gradients and parameters after the steps on the CPU, routes, and on
+    the CPU also the `lm_train_steps` masks and each step's wall s."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import ParamTree
+    params = build_model(cut).init(seed=LM_AGREE_SEED, device=dev)
+    if device == "cpu":
+        params = ParamTree(_tree_to(params, "cpu"))
+        torch.cuda.empty_cache()
+    batches = train_batches(torch, cut, LM_AGREE_BATCH, LM_AGREE_STEPS,
+                            device)
+    grad0, masks = {}, {} if device == "cpu" else None
+    with route_records(cut.family == "moe") as routes:
+        losses, walls, _ = lm_train_steps(torch, cut, params, batches,
+                                          remat=False, grad0=grad0,
+                                          masks=masks)
+    out = {"losses": losses, "routes": routes,
+           "grad0": {n: None if g is None else g.cpu()
+                     for n, g in grad0.items()},
+           "final": {n: x.detach().cpu() for n, x in
+                     params.named_parameters()}}
+    if masks is not None:
+        out.update(walls=walls, held=masks["held"], zero=masks["zero"])
+    return out
+
+
+def train_agree_child():
+    """`TrainAgreement`'s subprocess: once LM_AGREE_DIR/go exists, the
+    card half of every cut of LM_AGREE_CUTS (its readings kept, then
+    written under LM_AGREE_DIR once "CARD HALVES DONE" is printed), then
+    the CPU halves in order, each held to its card half by
+    `hold_train_agreement` as it ends."""
+    import torch
     t0 = time.perf_counter()
 
     def stage(what):
-        print(f"{what} at {time.perf_counter() - t0:.1f} s", flush=True)
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import ParamTree
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(LM_AGREE_THREADS)
-    spec = json.loads(Path(spec_path).read_text())
-    cut = dataclasses.replace(get_config(LM), num_layers=LM_AGREE_LAYERS,
-                              dtype="float32")
-    stage("imported")
-    params = ParamTree(torch.load(spec["weights"]))
-    stage("weights loaded")
-    batches = lm_train_batches(torch, LM_AGREE_BATCH, LM_AGREE_STEPS, "cpu")
-    grad0, masks = {}, {}
-    losses, walls, _ = lm_train_steps(torch, cut, params, batches,
-                                      remat=False, grad0=grad0, masks=masks)
-    stage("steps done")
-    torch.save({"losses": losses, "grad0": grad0, "walls": walls,
-                "held": masks["held"], "zero": masks["zero"], "final": {n: x.detach() for n, x in
-                                        params.named_parameters()}},
-               spec["out"])
-    stage("readings saved")
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)                      # the CUDA context
+    stage("started")
+    while not (LM_AGREE_DIR / "go").exists():
+        time.sleep(0.1)
+    card = {}
+    for arch, layers, frames in LM_AGREE_CUTS:
+        card[arch] = agree_half(torch, dev, agree_cut(arch, layers, frames),
+                                dev)
+        torch.cuda.empty_cache()
+        stage(f"card half of {arch} ({layers} layers)")
+    print("CARD HALVES DONE", flush=True)
+    for arch in card:
+        torch.save(card[arch], LM_AGREE_DIR / f"{arch}.pt")
+        card[arch] = None
+    stage("card readings saved")
+    for arch, layers, frames in LM_AGREE_CUTS:
+        cut = agree_cut(arch, layers, frames)
+        cpu = agree_half(torch, dev, cut, "cpu")
+        stage(f"CPU half of {arch}")
+        path = LM_AGREE_DIR / f"{arch}.pt"
+        hold_train_agreement(cut, torch.load(path, mmap=True), cpu)
+        del cpu
+        path.unlink()
+
+
+class TrainAgreement:
+    """Card vs CPU training of each of LM_AGREE_CUTS in a subprocess
+    (`train_agree_child`), started here; `card_halves` lets it run its
+    card halves and waits for them (the card otherwise idle), then its
+    CPU halves run beside the phases that follow; `wait` reads its
+    verdicts. Killed at exit if still running."""
+
+    def __init__(self):
+        import atexit
+        import shutil
+        import tempfile
+        shutil.rmtree(LM_AGREE_DIR, ignore_errors=True)
+        LM_AGREE_DIR.mkdir(parents=True)
+        self.out, self.err = tempfile.TemporaryFile("w+"), \
+            tempfile.TemporaryFile("w+")
+        env = dict(os.environ, PYTHONPATH=str(SRC),
+                   OMP_NUM_THREADS=str(LM_AGREE_THREADS))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", LM_AGREE_CHILD, str(ROOT)], cwd=ROOT,
+            env=env, stdout=self.out, stderr=self.err)
+        atexit.register(self.kill)
+
+    def card_halves(self):
+        """Lets the subprocess run its card halves and waits until they
+        are done (LM_AGREE_CARD_TIMEOUT_S)."""
+        t0 = time.perf_counter()
+        (LM_AGREE_DIR / "go").touch()
+        while "CARD HALVES DONE" not in self._read()[0]:
+            if self.proc.poll() is not None or time.perf_counter() - \
+                    t0 > LM_AGREE_CARD_TIMEOUT_S:
+                self.kill()
+                out, err = self._read()
+                fail(f"training agreement: the card halves did not end "
+                     f"(exit {self.proc.returncode})\n{out[-3000:]}\n"
+                     f"{err[-4000:]}")
+            time.sleep(0.2)
+        print(f"  training agreement (card vs CPU, float32, "
+              f"{LM_AGREE_STEPS} steps of {LM_AGREE_BATCH} sequences) of "
+              + ", ".join(f"{a} cut to {n} layers"
+                          + (f" and {f} frames" if f else "")
+                          for a, n, f in LM_AGREE_CUTS)
+              + f": the card halves done in a subprocess in "
+              f"{time.perf_counter() - t0:.1f} s; its CPU halves "
+              f"({LM_AGREE_THREADS} threads) run beside the phases that "
+              f"follow", flush=True)
+
+    def _read(self):
+        self.out.seek(0)
+        self.err.seek(0)
+        return self.out.read(), self.err.read()
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait(self):
+        """Waits for the subprocess (LM_AGREE_TIMEOUT_S from its start) and
+        prints its lines; fails on a non-zero exit."""
+        try:
+            self.proc.wait(timeout=max(1.0, self.t0 + LM_AGREE_TIMEOUT_S
+                                       - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.kill()
+        out, err = self._read()
+        print(out.rstrip())
+        if self.proc.returncode != 0:
+            fail(f"training agreement: exit {self.proc.returncode} "
+                 f"({time.perf_counter() - self.t0:.1f} s after its start)\n"
+                 f"{err[-4000:]}")
+        print(f"  the CPU halves ended {time.perf_counter() - self.t0:.1f} s "
+              f"after the subprocess started")
 
 
 def adamw_drift_bound(cfg, lr_scales) -> float:
@@ -5574,12 +5995,13 @@ def adamw_drift_bound(cfg, lr_scales) -> float:
     return total
 
 
-def lm_agree_wait(pending):
-    """The CPU half of rwkv6-3b's training agreement against the card's:
-    losses at TRAIN_LOSS_RTOL, step-0 gradients at TRAIN_GRAD_RTOL (max
-    |err| over max |CPU| per leaf; a leaf the loss never reads has none
-    on either side), and after the steps every parameter element, by
-    what its CPU gradients were at every step:
+def hold_train_agreement(cut, card, cpu):
+    """One cut's card half against its CPU half: losses at
+    TRAIN_LOSS_RTOL, step-0 gradients at TRAIN_GRAD_RTOL (max |err| over
+    max |CPU| per leaf; a leaf the loss never reads has none on either
+    side), an MoE's routes as `compare_routes` holds them, and after the
+    steps every parameter element, by what its CPU gradients were at
+    every step:
     - above GRAD_FLOOR and TRAIN_GRAD_RTOL of its leaf's largest: within
       TRAIN_PARAM_ATOL;
     - 0 (only the weight decay moves it, the same arithmetic on both
@@ -5591,40 +6013,25 @@ def lm_agree_wait(pending):
     only. Here a gradient within the precision the gradients are held to
     at a later step moves AdamW's moments as a step-0 sign flip does:
     after a step the card's and the CPU's gradients part by a small share
-    of their leaf's largest, and at the 65536-column head that share is
+    of their leaf's largest, and at a vocabulary-wide head that share is
     above GRAD_FLOOR.)"""
-    import torch
-    proc, card = pending["proc"], pending["card"]
-    try:
-        proc.wait(timeout=max(1.0, pending["t0"] + LM_AGREE_TIMEOUT_S
-                              - time.perf_counter()))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-    if proc.returncode != 0:
-        pending["out"].seek(0)
-        pending["err"].seek(0)
-        fail(f"{LM} training agreement, CPU half: exit {proc.returncode}\n"
-             f"{pending['out'].read()[-2000:]}\n"
-             f"{pending['err'].read()[-4000:]}")
-    pending["out"].seek(0)
-    print(f"  the CPU half awaited {time.perf_counter() - pending['t0']:.1f} "
-          f"s after the card half began; its stages from its start: "
-          + pending["out"].read().strip().replace("\n", "; "))
-    cpu = torch.load(pending["spec"]["out"], mmap=True)
+    name = f"{cut.arch_id} cut to {cut.num_layers} layers"
     for i, (a, c) in enumerate(zip(card["losses"], cpu["losses"])):
-        print(f"    step {i}: loss card {a:.7f}, CPU {c:.7f}")
+        print(f"    {name}, step {i}: loss card {a:.7f}, CPU {c:.7f}")
         if abs(a - c) > TRAIN_LOSS_RTOL * abs(c):
-            fail(f"{LM} training card vs CPU, step {i}: loss {a!r} vs {c!r} "
-                 f"(rtol {TRAIN_LOSS_RTOL})")
+            fail(f"{name} training card vs CPU, step {i}: loss {a!r} vs "
+                 f"{c!r} (rtol {TRAIN_LOSS_RTOL})")
+    if cut.family == "moe":
+        compare_routes(f"{name} training, {LM_AGREE_STEPS} steps",
+                       card["routes"], cpu["routes"])
     worst, unread = 0.0, []
-    for name, gc in cpu["grad0"].items():
-        ga = card["grad0"][name]
+    for leaf, gc in cpu["grad0"].items():
+        ga = card["grad0"][leaf]
         if ga is None or gc is None:
             if (ga is None) != (gc is None):
-                fail(f"{LM} training: step-0 gradient of {name} on one side "
-                     f"only")
-            unread.append(name)
+                fail(f"{name} training: step-0 gradient of {leaf} on one "
+                     f"side only")
+            unread.append(leaf)
             continue
         scale = gc.abs().max().item()
         if scale:
@@ -5632,12 +6039,13 @@ def lm_agree_wait(pending):
         else:               # a zero gradient on the CPU must be zero here
             rel = float("inf") if ga.abs().max().item() else 0.0
         if not rel <= TRAIN_GRAD_RTOL:
-            fail(f"{LM} training card vs CPU, step-0 gradient of {name}: max "
-                 f"relative err {rel:.3e} > {TRAIN_GRAD_RTOL}")
+            fail(f"{name} training card vs CPU, step-0 gradient of {leaf}: "
+                 f"max relative err {rel:.3e} > {TRAIN_GRAD_RTOL}")
         worst = max(worst, rel)
-    print(f"    step-0 gradients of {len(cpu['grad0']) - len(unread)} leaves: "
-          f"max relative err {worst:.3e} (tol {TRAIN_GRAD_RTOL}); no gradient "
-          f"on either side for the {len(unread)} leaves the loss never reads "
+    print(f"    {name}, step-0 gradients of "
+          f"{len(cpu['grad0']) - len(unread)} leaves: max relative err "
+          f"{worst:.3e} (tol {TRAIN_GRAD_RTOL}); no gradient on either side "
+          f"for the {len(unread)} leaves the loss never reads "
           f"({', '.join(unread)})")
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.schedules import cosine_schedule
@@ -5645,9 +6053,9 @@ def lm_agree_wait(pending):
         cosine_schedule(i, LM_AGREE_STEPS, 0) for i in range(LM_AGREE_STEPS)])
     groups = {"held": [0, 0.0], "zero": [0, 0.0], "rest": [0, 0.0]}
     zero_worst = total = 0
-    for name, c in cpu["final"].items():
-        diff = (card["final"][name] - c).abs()
-        held, zero = cpu["held"][name], cpu["zero"][name]
+    for leaf, c in cpu["final"].items():
+        diff = (card["final"][leaf] - c).abs()
+        held, zero = cpu["held"][leaf], cpu["zero"][leaf]
         total += diff.numel()
         for group, mask in (("held", held), ("zero", zero),
                             ("rest", ~(held | zero))):
@@ -5661,25 +6069,24 @@ def lm_agree_wait(pending):
     bounds = {"held": TRAIN_PARAM_ATOL, "rest": drift + TRAIN_PARAM_ATOL}
     for group, bound in bounds.items():
         if not groups[group][1] <= bound:
-            fail(f"{LM} training card vs CPU: after {LM_AGREE_STEPS} steps a "
-                 f"parameter of the '{group}' elements differs by "
+            fail(f"{name} training card vs CPU: after {LM_AGREE_STEPS} steps "
+                 f"a parameter of the '{group}' elements differs by "
                  f"{groups[group][1]:.3e} > {bound:.3e}")
     if not zero_worst <= LM_AGREE_STEPS:
-        fail(f"{LM} training card vs CPU: a parameter whose gradient was 0 "
+        fail(f"{name} training card vs CPU: a parameter whose gradient was 0 "
              f"at every step differs by {zero_worst:.3g} x 2^-23 of its value "
              f"(more than one rounding a step)")
-    print(f"  card vs CPU, {LM} full width cut to {LM_AGREE_LAYERS} layers, "
-          f"{LM_AGREE_STEPS} steps, parameters after the steps ({total} "
-          f"elements): the {groups['held'][0]} whose |grad| exceeded "
-          f"{GRAD_FLOOR} and {TRAIN_GRAD_RTOL} of its leaf's largest at every "
-          f"step max|err| {groups['held'][1]:.3e} (tol {TRAIN_PARAM_ATOL}); "
-          f"the {groups['zero'][0]} whose gradient was 0 at every step max|err| "
-          f"{groups['zero'][1]:.3e} = {zero_worst:.3g} x 2^-23 of its value "
-          f"(tol {LM_AGREE_STEPS}); the other {groups['rest'][0]} max|err| "
-          f"{groups['rest'][1]:.3e} (tol {drift + TRAIN_PARAM_ATOL:.3e}: "
-          f"AdamW's most in {LM_AGREE_STEPS} steps, {drift:.3e}, + "
-          f"{TRAIN_PARAM_ATOL}); the CPU's steps took " + ", ".join(
-              f"{w:.1f}" for w in cpu["walls"]) + " s")
+    print(f"  card vs CPU, {name}, {LM_AGREE_STEPS} steps, parameters after "
+          f"the steps ({total} elements): the {groups['held'][0]} whose "
+          f"|grad| exceeded {GRAD_FLOOR} and {TRAIN_GRAD_RTOL} of its leaf's "
+          f"largest at every step max|err| {groups['held'][1]:.3e} (tol "
+          f"{TRAIN_PARAM_ATOL}); the {groups['zero'][0]} whose gradient was 0 "
+          f"at every step max|err| {groups['zero'][1]:.3e} = "
+          f"{zero_worst:.3g} x 2^-23 of its value (tol {LM_AGREE_STEPS}); the "
+          f"other {groups['rest'][0]} max|err| {groups['rest'][1]:.3e} (tol "
+          f"{drift + TRAIN_PARAM_ATOL:.3e}: AdamW's most in {LM_AGREE_STEPS} "
+          f"steps, {drift:.3e}, + {TRAIN_PARAM_ATOL}); the CPU's steps took "
+          + ", ".join(f"{w:.1f}" for w in cpu["walls"]) + " s", flush=True)
 
 
 # ------------------------------------------------------ model parallelism
@@ -5934,68 +6341,87 @@ def hold_depth_fit(label: str, rec: dict) -> None:
         fail(f"{label}: the depth fit differs from the full-depth walk")
 
 
-@contextlib.contextmanager
-def mp_dry_runs():
+class DryRuns:
     """`python -m repro_torch.launch.dryrun` for MP_DRYRUN on the fake
-    (16, 16) mesh, each in a subprocess started on entry (they run on the
-    host's cores while the block uses the card) and awaited on a clean
-    exit: prints its per-device argument and temp GB, flops and
-    collective counts, and holds its depth fit (`hold_depth_fit`). Then
-    one ``--refit`` over their records, held the same way. Every
-    subprocess is killed on the way out."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    out_dir = ROOT / "chiprun_out" / "dryrun"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out_dir)], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
-        for arch, shape in MP_DRYRUN]          # the two at once
-    try:
-        yield
-        outs = [p.communicate(timeout=MP_DRYRUN_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    for (arch, shape), p, (stdout, stderr) in zip(MP_DRYRUN, procs, outs):
-        if p.returncode != 0 or "ran in" not in stdout:
-            fail(f"dry run {arch} x {shape}: exit {p.returncode}\n"
-                 f"{stdout[-2000:]}\n{stderr[-3000:]}")
-        rec = json.loads((out_dir / f"{arch}_{shape}_single_pod_16x16.json"
-                          ).read_text())
-        print(f"  dry run {arch} x {shape} on the fake (16, 16) mesh "
-              f"({rec['compile_s']} s its step, {time.perf_counter() - t0:.1f}"
-              f" s wall for both with start-up, beside the card runs): per "
-              f"device "
-              f"arguments {rec['memory']['argument_bytes'] / 1e9:.3f} GB, "
-              f"temp {rec['memory']['temp_bytes'] / 1e9:.3f} GB, flops "
-              f"{rec['flops']:.4e}, bytes accessed "
-              f"{rec['bytes_accessed']:.4e}, collectives " + ", ".join(
-                  f"{k} {v['count']} ({v['bytes']} B)"
-                  for k, v in rec["collectives"].items()
-                  if isinstance(v, dict) and v["count"]))
-        hold_depth_fit(f"depth fit {arch} x {shape}", rec)
-    t1 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--refit",
-         "--out", str(out_dir)], capture_output=True, text=True, env=env,
-        cwd=ROOT, timeout=MP_REFIT_TIMEOUT_S)
-    refit_s = time.perf_counter() - t1
-    for arch, shape in MP_DRYRUN:
-        line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith(f"[refit] {arch} x {shape}:")]
-        if proc.returncode != 0 or len(line) != 1:
-            fail(f"--refit {arch} x {shape}: exit {proc.returncode}\n"
-                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-        print(f"  {line[0]}")
-        hold_depth_fit(f"refit {arch} x {shape}", json.loads(
-            (out_dir / f"{arch}_{shape}_single_pod_16x16.json").read_text()))
-    print(f"  --refit over {out_dir.relative_to(ROOT)}: {refit_s:.1f} s "
-          f"wall, start-up included")
+    (16, 16) mesh, each in a subprocess, the two started here at once on
+    the host's cores beside the card phases that follow; `refit` awaits
+    them and starts one ``--refit`` over their records; `hold` awaits it,
+    prints each record's per-device argument and temp GB, flops and
+    collective counts, and holds its depth fit and its refit
+    (`hold_depth_fit`). Every subprocess is killed at exit."""
+
+    def __init__(self):
+        import atexit
+        self.env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.out_dir = ROOT / "chiprun_out" / "dryrun"
+        self.t0 = time.perf_counter()
+        self.procs = [self._start("--arch", arch, "--shape", shape)
+                      for arch, shape in MP_DRYRUN]
+        self.refit_proc = None
+        atexit.register(self.kill)
+
+    def _start(self, *args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(self.out_dir)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=self.env, cwd=ROOT)
+
+    def kill(self):
+        for p in self.procs + [self.refit_proc]:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def refit(self):
+        """Await the dry runs; if both ended well, keep their records as
+        they wrote them (the refit rewrites them) and start the refit."""
+        self.outs = [p.communicate(timeout=MP_DRYRUN_TIMEOUT_S)
+                     for p in self.procs]
+        if any(p.returncode for p in self.procs):
+            return
+        self.records = [json.loads(self._record(*c).read_text())
+                        for c in MP_DRYRUN]
+        self.refit_t0 = time.perf_counter()
+        self.refit_proc = self._start("--refit")
+
+    def _record(self, arch, shape):
+        return self.out_dir / f"{arch}_{shape}_single_pod_16x16.json"
+
+    def hold(self):
+        for (arch, shape), p, (stdout, stderr) in zip(MP_DRYRUN, self.procs,
+                                                      self.outs):
+            if p.returncode != 0 or "ran in" not in stdout:
+                fail(f"dry run {arch} x {shape}: exit {p.returncode}\n"
+                     f"{stdout[-2000:]}\n{stderr[-3000:]}")
+        stdout, stderr = self.refit_proc.communicate(
+            timeout=MP_REFIT_TIMEOUT_S)
+        print(f"  the dry runs and the refit ran beside the card phases since "
+              f"{time.perf_counter() - self.t0:.1f} s ago (the refit since "
+              f"{time.perf_counter() - self.refit_t0:.1f} s ago)")
+        for (arch, shape), rec in zip(MP_DRYRUN, self.records):
+            print(f"  dry run {arch} x {shape} on the fake (16, 16) mesh "
+                  f"({rec['compile_s']} s its step): per device arguments "
+                  f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB, temp "
+                  f"{rec['memory']['temp_bytes'] / 1e9:.3f} GB, flops "
+                  f"{rec['flops']:.4e}, bytes accessed "
+                  f"{rec['bytes_accessed']:.4e}, collectives " + ", ".join(
+                      f"{k} {v['count']} ({v['bytes']} B)"
+                      for k, v in rec["collectives"].items()
+                      if isinstance(v, dict) and v["count"]))
+            hold_depth_fit(f"depth fit {arch} x {shape}", rec)
+        code = self.refit_proc.returncode
+        for arch, shape in MP_DRYRUN:
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith(f"[refit] {arch} x {shape}:")]
+            if code != 0 or len(line) != 1:
+                fail(f"--refit {arch} x {shape}: exit {code}\n"
+                     f"{stdout[-2000:]}\n{stderr[-3000:]}")
+            print(f"  {line[0]}")
+            hold_depth_fit(f"refit {arch} x {shape}", json.loads(
+                self._record(arch, shape).read_text()))
 
 
-def model_parallel_phase(torch, dev, runs: Runs):
+def model_parallel_phase(torch, dev, runs: Runs, dry_runs: DryRuns):
     """Tensor-parallel training of full-width ElasticBERT-12 (f32, the
     training recipe's batch 64 x 64) on the card: MP_STEPS steps unbound,
     then on a (1, 1) ("data", "model") mesh over an NCCL world of 1 with
@@ -6003,11 +6429,12 @@ def model_parallel_phase(torch, dev, runs: Runs):
     round-off, with the unbound run's attention launches), then TP =
     MP_TP2 on a (1, 2) mesh of ranks sharing the card over the threaded
     process group (the attention kernel on each rank's 6-head shard,
-    forward and backward; equal to the unbound run). The dry runs of
-    MP_DRYRUN run beside them, on the host. Returns the attention record
-    at the TP = 2 shard shape."""
-    with mp_dry_runs():
-        return mp_card_runs(torch, dev, runs)
+    forward and backward; equal to the unbound run). Then holds
+    ``dry_runs`` (`DryRuns`, on the host since the MoE phase). Returns the
+    attention record at the TP = 2 shard shape."""
+    rec = mp_card_runs(torch, dev, runs)
+    dry_runs.hold()
+    return rec
 
 
 def mp_card_runs(torch, dev, runs: Runs):
@@ -6577,18 +7004,28 @@ def main(argv=None) -> int:
         rec_wkv6_bwd = wkv6_backward_checks(torch, dev)
         front_door_records(torch, dev, rec_attn, rec_exit, rec_fused,
                            rec_wkv6)
+        rec_train_attn, rec_family_attn = attention_grad_checks(torch, dev)
+        rec_attn.update(rec_family_attn)
 
     runs = Runs()
     # first, so that the CPU's readings of its decisions (a subprocess)
     # run beside the phases that follow
     with phase("train: elasticbert12 (full width) on the card"):
-        rec_attn["at_training"], trained, decisions = train_phase(torch, dev,
-                                                                  runs)
-    # before the serve phases: the step's ~80 GB need the card to itself
+        rec_attn["at_training"], trained, decisions = train_phase(
+            torch, dev, runs, rec_train_attn)
+    # before the serve phases: each step needs the card to itself
     with phase(f"train: {LM} (full width) on the card, through WKV6's "
                f"gradient"):
         rec_wkv6_bwd["lm_training"] = lm_train_phase(torch, dev, runs)
-        lm_agree = lm_train_agreement(torch, dev)
+    train_agree = TrainAgreement()
+    with phase("train: " + ", ".join(
+            f"{a}{f' ({n} layers)' if n else ''}" for a, n, _ in FAMILY_TRAIN)
+            + " (full width) on the card, through attention's gradient"):
+        for key, rec in family_train_phase(torch, dev, runs).items():
+            rec_attn[key]["training"] = rec
+    with phase("training agreement: the card halves (a subprocess, whose "
+               "CPU halves then run beside the phases that follow)"):
+        train_agree.card_halves()
 
     for arch, layers, alpha_layer, prefix, agree in (
             ("elasticbert12", None, 6, "", agreement_phase),
@@ -6630,18 +7067,22 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
 
-    for arch, agree_layers in DECODE_ARCHS:
-        with phase(f"decode: {arch} (full width) on the card"):
-            decode_phase(torch, dev, runs, arch, seed,
-                         agree_layers=agree_layers)
+    with phase("decode: " + ", ".join(a for a, _ in DECODE_ARCHS)
+               + " (full width) on the card, a subprocess each, all at once"):
+        decode_phases(torch, runs, seed)
 
     with phase(f"agreement: {LM} at all its layers against float64 (a "
                f"subprocess since its agreement phase)"):
         witness.wait()
+    # the dry runs (then their refit, from the end of the MoE phase), on
+    # the host beside the phases up to the model-parallel one, which holds
+    # them
+    dry_runs = DryRuns()
 
     with phase(f"{MOE}: full width, {MOE_LAYERS} of 32 layers, on the "
                f"card"):
         moe_phase(torch, dev, runs, seed)
+    dry_runs.refit()
 
     with phase(f"{VLM}: full width on the card, over seeded embeds"):
         vlm_phase(torch, dev, runs, seed)
@@ -6655,7 +7096,8 @@ def main(argv=None) -> int:
 
     with phase("model parallelism: elasticbert12 TP training on the card, "
                "the dry run"):
-        rec_attn["at_tp2_train"] = model_parallel_phase(torch, dev, runs)
+        rec_attn["at_tp2_train"] = model_parallel_phase(torch, dev, runs,
+                                                        dry_runs)
 
     with phase("front doors: the full-width checkpoint, the serve CLI "
                "(in process and its driver mode), the examples"):
@@ -6667,9 +7109,9 @@ def main(argv=None) -> int:
                "card's"):
         decisions_wait(decisions)
 
-    with phase(f"training agreement: {LM}, the CPU's steps (a subprocess "
-               f"since its training phase) against the card's"):
-        lm_agree_wait(lm_agree)
+    with phase("training agreement: the CPU halves (a subprocess since the "
+               "training phases) against the card halves"):
+        train_agree.wait()
 
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6, rec_combine,
@@ -6704,7 +7146,15 @@ def main(argv=None) -> int:
                   f"{at['ms']:.5f}, plain "
                   f"{at['plain_ms']:.5f}, library "
                   f"{'none' if lib is None else f'{lib:.5f}'}, bound "
-                  f"{at['bound_ms']:.6f} ({at['bound_by']})")
+                  f"{at['bound_ms']:.6f} ({at['bound_by']})"
+                  + (f"; attention_backward {at['backward_ms']:.5f}"
+                     if "backward_ms" in at else "")
+                  + (f", SDPA forward + backward {at['library_grad_ms']:.5f}"
+                     if "library_grad_ms" in at else "")
+                  + (f"; trained {at['training']['ms_per_step']:.3f} ms a "
+                     f"step, {at['training']['launches']['flash_attention']}"
+                     f" launches in {at['training']['steps']} steps"
+                     if "training" in at else ""))
     print(f"  whole smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,29 @@ from repro_torch.kernels.flash_attention.ref import attention_mask, gqa_ref
 from repro_torch.shards import is_dtensor
 
 
+# the float32 (Sq, Skv) temporaries `attention_backward` holds at once
+# (P and dS) over the query heads of one slice; a call whose whole
+# temporaries would exceed it runs over slices of (batch, KV group) that
+# keep within it
+BACKWARD_TEMP_BYTES = 2 << 30
+BACKWARD_TEMPS = 2
+
+
+def backward_slices(b: int, hkv: int, rep: int, sq: int, skv: int):
+    """The (batch, KV-group) slices `attention_backward` runs: a list of
+    (batch slice, group slice). One slice for the whole call when its
+    BACKWARD_TEMPS float32 (Sq, Skv) temporaries over every query head
+    fit BACKWARD_TEMP_BYTES; else, for each sample, runs of as many KV
+    groups as fit (at least one, every query head of it). A pure function
+    of the shapes."""
+    group = BACKWARD_TEMPS * rep * sq * skv * 4     # bytes of one KV group
+    groups = max(1, BACKWARD_TEMP_BYTES // group)
+    if groups >= b * hkv:
+        return [(slice(0, b), slice(0, hkv))]
+    return [(slice(i, i + 1), slice(g, min(hkv, g + groups)))
+            for i in range(b) for g in range(0, hkv, groups)]
+
+
 def attention_backward(q, k, v, out, dout, *, causal: bool, window: int,
                        scale: float):
     """(dq, dk, dv) of ``out = softmax(q kᵀ · scale + mask) v`` for GQA.
@@ -41,23 +64,45 @@ def attention_backward(q, k, v, out, dout, *, causal: bool, window: int,
     its KV group. A query row with no key to attend (the kernel's output
     is exactly 0 there) gets P = 0 and so no gradient. Works in float32;
     the gradients come back in the inputs' dtypes.
+
+    The call runs over the (batch, KV-group) slices of `backward_slices`,
+    so its float32 (Sq, Skv) temporaries stay within BACKWARD_TEMP_BYTES:
+    a slice holds every query head of its groups, so no sum crosses a
+    slice and each slice's arithmetic is the whole call's.
     """
+    b, hq, sq, _ = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    mask = attention_mask(sq, skv, causal, window, q.device)
+    slices = backward_slices(b, hkv, rep, sq, skv)
+    if len(slices) == 1:
+        return _backward_slice(q, k, v, out, dout, mask, scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for bs, gs in slices:
+        hs = slice(gs.start * rep, gs.stop * rep)
+        dq[bs, hs], dk[bs, gs], dv[bs, gs] = _backward_slice(
+            q[bs, hs], k[bs, gs], v[bs, gs], out[bs, hs], dout[bs, hs],
+            mask, scale)
+    return dq, dk, dv
+
+
+def _backward_slice(q, k, v, out, dout, mask, scale: float):
+    """`attention_backward` of one slice: its float32 (Sq, Skv)
+    temporaries are P and dS, each made in place."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = hq // hkv
     qf, of, gf = q.float(), out.float(), dout.float()
     kf = k.float().repeat_interleave(rep, dim=1)           # (B, Hq, Skv, d)
     vf = v.float().repeat_interleave(rep, dim=1)
-    mask = attention_mask(sq, skv, causal, window, q.device)
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    logits = logits.masked_fill(~mask, -1e30)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = p.masked_fill(~mask, 0.0)
+    p = torch.matmul(qf, kf.transpose(-1, -2)).mul_(scale)  # the logits
+    p.masked_fill_(~mask, -1e30)
+    p.sub_(p.amax(-1, keepdim=True)).exp_().masked_fill_(~mask, 0.0)
     denom = p.sum(-1, keepdim=True)
-    p = p / torch.where(denom > 0, denom, torch.ones_like(denom))
-    dp = torch.matmul(gf, vf.transpose(-1, -2))            # (B, Hq, Sq, Skv)
+    p.div_(torch.where(denom > 0, denom, torch.ones_like(denom)))
+    ds = torch.matmul(gf, vf.transpose(-1, -2))        # dP (B, Hq, Sq, Skv)
     delta = torch.sum(gf * of, dim=-1, keepdim=True)        # rowsum(dO∘O)
-    ds = p * (dp - delta)
+    ds.sub_(delta).mul_(p)                             # dS = P∘(dP − δ)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale    # (B, Hq, Skv, d)
     dv = torch.matmul(p.transpose(-1, -2), gf)

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Two costs of training rwkv6-3b on one CUDA GPU, each measured in turns.
+"""Two costs of training an LM (rwkv6-3b by default) on one CUDA GPU.
 
     python3 tools/wkv6_training_costs.py [--layers 16] [--steps 3]
-        [--depths 32,30,29,28]
+        [--depths 32,30,29,28] [--arch rwkv6-3b]
 
 (``--layers 0`` skips the second, ``--depths ""`` the first.)
 
-1. The deepest full-width rwkv6-3b (bf16, remat, 16 x 64 tokens) whose
-   training step fits the card: for each of ``--depths``, a process of
-   its own (the card otherwise empty) builds the model and takes two
-   steps (`make_train_step`, AdamW), and prints its peak device memory
-   or the out-of-memory error that stopped it.
+1. The deepest full-width ``--arch`` (default rwkv6-3b; any token LM:
+   bf16, remat, 16 x 64 tokens) whose training step fits the card: for
+   each of ``--depths``, a process of its own (the card otherwise empty)
+   builds the model and takes two steps (`make_train_step`, AdamW), and
+   prints its peak device memory or the out-of-memory error that stopped
+   it.
 2. A full-width rwkv6-3b training step (bf16, remat, 16 x 64 tokens,
    ``--layers`` of its 32) with `train_loss` reading each stacked (L, ...)
    parameter through one unbind (as it does) and through L ``v[i]``
@@ -51,8 +52,8 @@ def _select_views(layers):
             for k, v in layers.items()}
 
 
-def depth_peak(torch, dev, layers: int):
-    """Two training steps of full-width rwkv6-3b at ``layers`` layers on
+def depth_peak(torch, dev, arch: str, layers: int):
+    """Two training steps of full-width ``arch`` at ``layers`` layers on
     an otherwise empty card: prints the peak device memory, or the
     out-of-memory error."""
     from repro_torch.configs import get_config
@@ -61,7 +62,7 @@ def depth_peak(torch, dev, layers: int):
     from repro_torch.models.api import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import AdamWConfig
-    cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     params = transformer.init_params(cfg, seed=28, device=dev)
     params.requires_grad_(True)
     batch = _batch(torch, dev)
@@ -73,10 +74,10 @@ def depth_peak(torch, dev, layers: int):
             step(params, state, batch)
         torch.cuda.synchronize()
     except torch.OutOfMemoryError as e:
-        print(f"rwkv6-3b {layers} layers: out of memory: "
+        print(f"{arch} {layers} layers: out of memory: "
               f"{str(e).splitlines()[0]}", flush=True)
         return
-    print(f"rwkv6-3b {layers} layers: two steps fit, peak "
+    print(f"{arch} {layers} layers: two steps fit, peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB "
           f"(max_memory_allocated) of "
           f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.3f}",
@@ -145,6 +146,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--depths", default="32,30,29,28",
                     help="depths to fit, each in a process of its own")
+    ap.add_argument("--arch", default="rwkv6-3b",
+                    help="the token LM whose depths --depths fits")
     ap.add_argument("--depth", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -154,7 +157,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if args.depth:
-        depth_peak(torch, dev, args.depth)
+        depth_peak(torch, dev, args.arch, args.depth)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -163,8 +166,8 @@ def main() -> int:
     from repro_torch.kernels import build_all
     build_all()
     for layers in filter(None, args.depths.split(",")):
-        subprocess.run([sys.executable, __file__, "--depth", layers],
-                       check=True)
+        subprocess.run([sys.executable, __file__, "--arch", args.arch,
+                        "--depth", layers], check=True)
     if args.layers:
         step_times(torch, dev, args.layers, args.steps)
     return 0
