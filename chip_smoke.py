@@ -66,14 +66,20 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    WKV6_GRAD_WITNESS_FACTOR times the plain float32 backward's; its
    instantiations' residency, registers and spills are printed and it is
    timed at the training shape beside the forward. Attention's gradient
-   (`FlashAttention`: the kernel's forward and `attention_backward`) is
+   (`FlashAttention`: the kernel's forward, which saves each row's
+   log-sum-exp, and the backward kernel `flash_attention_backward`) is
    held against autograd of the plain version (per sample where its own
    memory needs it) at ElasticBERT's training shape and in bf16 at each
    family's training shape (TRAIN_ATTENTION: qwen3, zamba2's shared
    block, phi3.5-moe and qwen2-vl causal at 16 x 64, seamless's encoder
-   at 8 x 4096 and its cross-attention 32 x 4096), each timed (kernel,
-   plain, SDPA, bound; `attention_backward`; SDPA's forward + backward)
-   with `attention_backward`'s peak memory held within its slice budget;
+   at 8 x 4096 and its cross-attention 32 x 4096), and at a sliding
+   window, rows without keys (Sq > Skv, causal), d = 32 f32 and bf16
+   rows off 16 bytes (`cuda_core`); the saved log-sum-exp against
+   `attention_lse_ref`, two backward launches bitwise equal; each
+   training shape timed (the forward: kernel, plain, SDPA, bound; the
+   backward kernel: kernel, plain `attention_backward`, SDPA's forward +
+   backward, bound) with the backward's peak memory beyond its inputs
+   held within dq + dk + dv + delta + 1 MiB (`backward_peak_bound`);
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
    and fused exits, and SplitEE-S) and the sequential driver, then
@@ -177,17 +183,18 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    float32;
 7. trains full-width ElasticBERT-12 (12 layers, d 768, the synthetic
    vocabulary of 512, 2 classes, float32) on the card: attention's
-   gradient (the kernel's forward and `attention_backward`) against
+   gradient (the kernel's forward and the backward kernel) against
    autograd of the plain version at the training shape (64, 12, 64, 64)
    f32, at (32, 12, 64, 64) bf16 and causal GQA; `train_classifier` with
    `launch/train.py:main`'s recipe (sst2_like, 8192 samples, batch 64,
    200 steps, lr 3e-4), printing each logged loss, ms a step, tokens/s
    and peak memory, and holding the loss falling and 12 x 200 attention
-   launches through `cuda_core`; training card vs CPU (2 layers of the
-   full width, the same initial parameters and 3 batches: losses,
-   step-0 gradients, parameters); then on the trained weights the
-   paper's pipeline: `exit_accuracy` (the last exit must beat the
-   majority rate; card conf within FULL_FORWARD_ATOL of the CPU's),
+   and 12 x 200 backward-kernel launches through `cuda_core`; training
+   card vs CPU (2 layers of the full width, the same initial parameters
+   and 3 batches: losses, step-0 gradients, parameters); then on the
+   trained weights the paper's pipeline: `exit_accuracy` (the last exit
+   must beat the majority rate; card conf within FULL_FORWARD_ATOL of
+   the CPU's),
    `calibrate_alpha` (card == CPU), `serve()` card f32 vs CPU f32 (the
    same served confidences up to the first differing decision, which may
    only be an exit flipped at alpha) and card bf16 vs card f32 (decisions
@@ -204,7 +211,7 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    share; WKV6 launches exactly 2L forward + L backward a step, no exit
    or attention launch); then qwen3-1.7b (28 layers), zamba2-1.2b (38),
    phi3.5-moe (FAMILY_MOE_LAYERS of 32), qwen2-vl-2b (28, over seeded
-   embeds) and seamless-m4t-large-v2 (24 + 24 on 7 x 4096 seeded frames
+   embeds) and seamless-m4t-large-v2 (24 + 24 on 8 x 4096 seeded frames
    and 32 target tokens) trained the same way at their published widths,
    each run's attention launches exactly `train_attention_launches` a
    step through the variant its bf16 shape picks and no exit or WKV6
@@ -220,7 +227,8 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    and off, each held to the unbound run (losses, step-0 gradients,
    parameters) with its attention launches and the kernel's q shape (the
    local head shard, forward and `FlashAttention`'s backward); times the
-   kernel and `attention_backward` at the TP = 2 shard; then prints the
+   kernel and the backward kernel (beside the plain
+   `attention_backward`) at the TP = 2 shard; then prints the
    runs of `repro_torch.launch.dryrun` for qwen3-1.7b x train_4k and
    mixtral-8x22b x decode_32k on the fake (16, 16) mesh (two
    subprocesses on the host, started before the MoE phase, with the
@@ -330,10 +338,11 @@ WKV6_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -7}
 # ratio swings by 2x with the inputs; both are printed)
 WKV6_GRAD_WITNESS_FACTOR = 2.0
 
-# attention's gradient, kernel forward + attention_backward against
+# attention's gradient, the forward and the backward kernel against
 # autograd of the plain version: max |err| over max |plain| per tensor
 # (bf16: the two forwards round their outputs apart, and rowsum(dO∘O)
-# reads them)
+# reads them; the backward kernel rounds P and dS to bf16 as operands of
+# its tensor-core products)
 ATTN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # attention at each family's bf16 training shape (`family_train_phase`):
 # key: (b, hq, hkv, sq, skv, d, causal); the plain version's autograd runs
@@ -348,6 +357,13 @@ TRAIN_ATTENTION = {
     "at_train_seamless_cross": (8, 16, 16, 32, 4096, 64, False),
 }
 ATTN_GRAD_PLAIN_ROWS = {"at_train_seamless_encoder": 1}
+# the training shape whose backward record heads the backward kernel's
+# JSON entry (the one MAIN_PATH's run launches most, 24 a step)
+MAIN_TRAIN_ATTENTION = "at_train_seamless_encoder"
+# the forward's row log-sum-exp against `attention_lse_ref` (rtol = atol):
+# float32 sums of the same products in other orders, a few units of 1e-6
+# on values of a few units
+ATTN_LSE_TOL = 1e-4
 # training card vs CPU (2 layers of the full width, float32, 3 steps):
 # losses (rtol), step-0 gradients (max |err| over max |CPU| per leaf), and
 # the parameters after 3 steps where the step-0 |grad| exceeds GRAD_FLOOR
@@ -380,11 +396,13 @@ MAIN_PATH = {"flash_attention": "batched B=32",
              "exit_confidence_fused": "batched B=32 fused_exit",
              "wkv6": f"{LM} batched B=32",
              "exit_confidence_combine": "model mesh TP=2 sync",
-             "wkv6_backward": f"train {LM} full width"}
+             "wkv6_backward": f"train {LM} full width",
+             "flash_attention_backward": "train seamless-m4t-large-v2"}
 # the __global__ functions of the port's CUDA sources, in profiler names
 PORT_KERNEL = re.compile(r"(exit_confidence\w*|exit_norm_rows_kernel|"
                          r"wkv6_kernel|wkv6_backward_kernel|wkv6_du_kernel|"
-                         r"flash_attention\w*)")
+                         r"flash_attention\w*|attention_delta_kernel|"
+                         r"attention_dkdv\w*|attention_dq\w*)")
 # the kernel of every layer, by model family (a hybrid's: of its shared
 # attention block, which runs after every k-th layer only)
 LAYER_KERNEL = {"dense": "flash_attention", "ssm": "wkv6",
@@ -800,7 +818,8 @@ def dispatch_checks(torch, dev):
     from repro_torch.kernels.exit_confidence.ops import (
         exit_combine, exit_confidence, exit_confidence_fused)
     from repro_torch.kernels.exit_confidence.ref import exit_partials_ref
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import (
+        attention, flash_attention_backward)
     from repro_torch.kernels.wkv6.ops import wkv6
 
     gen = torch.Generator().manual_seed(3)
@@ -816,6 +835,13 @@ def dispatch_checks(torch, dev):
         leaves = [x.to(d).clone().requires_grad_(True)
                   for x in (q, q, q, decay, q[0, :, 0])]
         return torch.autograd.grad(wkv6(*leaves)[0].sum(), leaves)[0]
+
+    def attention_grad(d):
+        """dq of sum(out): on the card through `FlashAttention` (the
+        forward and the backward kernel), on the CPU autograd of the
+        plain version."""
+        leaves = [x.to(d).clone().requires_grad_(True) for x in (q, q, q)]
+        return torch.autograd.grad(attention(*leaves).sum(), leaves)[0]
     calls = {
         "flash_attention": lambda d: attention(q.to(d), q.to(d), q.to(d)),
         "exit_confidence": lambda d: exit_confidence(h.to(d), w.to(d)),
@@ -829,9 +855,11 @@ def dispatch_checks(torch, dev):
                 exit_partials_ref(h, w[:, :2], col0=0),
                 exit_partials_ref(h, w[:, 2:], col0=2)))),
         "wkv6_backward": wkv6_grad,
+        "flash_attention_backward": attention_grad,
     }
-    # a gradient through WKV6 launches the forward kernel too
-    also = {"wkv6_backward": "wkv6"}
+    # a gradient through WKV6 or attention launches the forward kernel too
+    also = {"wkv6_backward": "wkv6",
+            "flash_attention_backward": "flash_attention"}
     if sorted(calls) != sorted(launch_counts()):
         fail(f"kernels {sorted(launch_counts())}, checks {sorted(calls)}")
     for name, call in calls.items():
@@ -850,8 +878,13 @@ def dispatch_checks(torch, dev):
             fail(f"{name}: a CUDA input gave a {gpu_out[0].device} output")
         check_close(f"{name}[dispatch]", gpu_out[0].cpu(), cpu_out[0],
                     "float32")
+    meta = q.to("meta")
     for name, call in (("attention", calls["flash_attention"]),
-                       ("wkv6", calls["wkv6"])):
+                       ("wkv6", calls["wkv6"]),
+                       ("flash_attention_backward", lambda d: (
+                           flash_attention_backward(
+                               meta, meta, meta, meta, meta[..., 0], meta,
+                               causal=True, window=0, scale=0.25)))):
         try:
             call("meta")
         except ValueError:
@@ -859,8 +892,8 @@ def dispatch_checks(torch, dev):
         else:
             fail(f"{name} on a meta tensor did not raise")
     print(f"  {sorted(calls)}: CPU tensor -> plain version, no count; CUDA "
-          f"tensor -> kernel, one count each (a WKV6 gradient: the forward "
-          f"and the backward kernel); other devices raise")
+          f"tensor -> kernel, one count each (a WKV6 or attention gradient: "
+          f"the forward and the backward kernel); other devices raise")
 
 
 def attention_checks(torch, dev):
@@ -2187,14 +2220,22 @@ def train_attention_launches(cfg, remat: bool) -> int:
     encoder's layers and each decoder layer's self- and cross-attention.
     ``remat`` recomputes each checkpointed decoder layer in the backward,
     which launches its attention again; the encoder is not checkpointed;
-    `attention_backward` launches no kernel, and an ssm stack has no
-    attention. No exit kernel runs: `train_loss` reads plain logits."""
+    an ssm stack has no attention. No exit kernel runs: `train_loss` reads
+    plain logits."""
     if cfg.family == "ssm":
         return 0
     passes = 2 if remat else 1
     if cfg.encoder is not None:
         return cfg.encoder.num_layers + passes * 2 * cfg.num_layers
     return passes * layer_launches(cfg, 0, cfg.num_layers)
+
+
+def train_backward_launches(cfg) -> int:
+    """Launches of attention's backward kernel in one `train_loss` step:
+    one for each attention call under a gradient, with or without remat
+    (remat's first pass runs without a graph, its recompute is the call
+    the backward differentiates)."""
+    return train_attention_launches(cfg, remat=False)
 
 
 def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
@@ -4854,71 +4895,220 @@ def encdec_agreement(torch, dev, params, cfg, frames, prefix):
 
 def attention_grad_checks(torch, dev):
     """Attention's gradient on the card: `FlashAttention` (the kernel's
-    forward, `attention_backward`) against autograd through the plain
-    version, dq, dk and dv at ATTN_GRAD_RTOL (max |err| over max |plain|,
-    per tensor); each forward one launch through its variant. The plain
-    version's autograd runs over slices of ATTN_GRAD_PLAIN_ROWS samples
-    where its own (Sq, Skv) temporaries need it. Returns the training
-    shape's record (kernel forward, plain, SDPA, bound) with the time of
-    `attention_backward` per call, and {"at_train_<family>": record} of
-    each family's training shape (TRAIN_ATTENTION) with the times of
-    `attention_backward` and of SDPA's forward + backward (the library's
-    gradient), and the peak memory `attention_backward` adds beyond its
-    inputs, held within its slice budget."""
+    forward, which saves each row's log-sum-exp, and the backward kernel)
+    against autograd through the plain version, dq, dk and dv at
+    ATTN_GRAD_RTOL (max |err| over max |plain|, per tensor); each forward
+    one launch through its variant, each backward one launch of the
+    backward kernel through `attention_backward_variant`'s. Cases: the
+    training shapes, causal GQA at d 64 and 128, a sliding window, rows
+    without keys (Sq > Skv, causal), d = 32 f32 and bf16 rows off 16 bytes
+    (`cuda_core`). The plain version's autograd runs over slices of
+    ATTN_GRAD_PLAIN_ROWS samples where its own (Sq, Skv) temporaries need
+    it. The forward's lse is held against `attention_lse_ref`
+    (ATTN_LSE_TOL), two backward launches must be bitwise equal, and the
+    backward's peak memory beyond its inputs must stay within
+    `backward_peak_bound`.
+
+    Returns the forward's record at ElasticBERT's training shape (kernel,
+    plain, SDPA, bound, the backward kernel's ms), {"at_train_<family>":
+    record} of the forward at each family's training shape
+    (TRAIN_ATTENTION) with the backward kernel's and SDPA's forward +
+    backward ms, and the backward kernel's record at seamless's encoder
+    (kernel, plain `attention_backward`, SDPA's forward + backward,
+    bound) with an ``at_train_<family>`` entry for every other training
+    shape."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.flash_attention.ops import (attention,
-                                                         attention_backward)
-    from repro_torch.kernels.flash_attention.ref import gqa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        attention_backward_variant, flash_attention_backward_cuda,
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import (attention_backward,
+                                                         attention_lse_ref,
+                                                         attention_mask,
+                                                         gqa_ref)
+    from repro_torch.kernels._build import rows_aligned
 
     gen = torch.Generator(device=dev).manual_seed(21)
+    tc, cc = "tensor_core", "cuda_core"
     cases = [
-        # name, variant, b, hq, hkv, sq, skv, d, causal, dtype
-        ("train_f32", "cuda_core", TRAIN_BATCH, 12, 12, 64, 64, 64, False,
-         "float32"),
-        ("bf16", "tensor_core", 32, 12, 12, 64, 64, 64, False, "bfloat16"),
-        ("gqa_causal_f32", "cuda_core", 2, 8, 2, 130, 130, 64, True,
-         "float32"),
-        ("gqa_causal_d128_bf16", "tensor_core", 2, 8, 2, 130, 130, 128, True,
-         "bfloat16"),
-    ] + [(key, "tensor_core", *shape, "bfloat16")
+        # name, variant, b, hq, hkv, sq, skv, d, causal, window, dtype,
+        # rows one element off 16 bytes
+        ("train_f32", cc, TRAIN_BATCH, 12, 12, 64, 64, 64, False, 0,
+         "float32", False),
+        ("bf16", tc, 32, 12, 12, 64, 64, 64, False, 0, "bfloat16", False),
+        ("gqa_causal_f32", cc, 2, 8, 2, 130, 130, 64, True, 0, "float32",
+         False),
+        ("gqa_causal_d128_bf16", tc, 2, 8, 2, 130, 130, 128, True, 0,
+         "bfloat16", False),
+        ("window_bf16", tc, 2, 8, 4, 300, 300, 64, True, 48, "bfloat16",
+         False),
+        ("window_d128_f32", cc, 1, 4, 2, 200, 200, 128, True, 70, "float32",
+         False),
+        ("no_key_rows_bf16", tc, 2, 8, 2, 150, 40, 128, True, 0, "bfloat16",
+         False),
+        ("no_key_rows_f32", cc, 2, 4, 4, 100, 33, 64, True, 0, "float32",
+         False),
+        ("d32_f32", cc, 4, 4, 4, 64, 64, 32, False, 0, "float32", False),
+        ("suffix_d32_f32", cc, 2, 4, 2, 20, 90, 32, True, 0, "float32",
+         False),
+        ("unaligned_bf16", cc, 2, 6, 3, 70, 70, 64, True, 0, "bfloat16",
+         True),
+    ] + [(key, tc, *shape, 0, "bfloat16", False)
          for key, shape in TRAIN_ATTENTION.items()]
     saved = {}
-    for name, variant, b, hq, hkv, sq, skv, d, causal, dt in cases:
+    for name, variant, b, hq, hkv, sq, skv, d, causal, window, dt, off \
+            in cases:
         dtype = getattr(torch, dt)
-        mk = lambda h, s: torch.randn(  # noqa: E731
-            (b, h, s, d), generator=gen, device=dev).to(dtype)
+
+        def mk(h, s):
+            x = torch.randn((b, h, s, d), generator=gen, device=dev
+                            ).to(dtype)
+            if off:
+                buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+                x = buf[1:].view(x.shape).copy_(x)
+            return x
         q, k, v = mk(hq, sq), mk(hkv, skv), mk(hkv, skv)
         dout = mk(hq, sq)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kw = dict(causal=causal, window=window)
+        # a clone is aligned: the unaligned case keeps its rows
+        leaves = [(t.detach() if off else t.clone()).requires_grad_(True)
+                  for t in (q, k, v)]
         out = via("flash_attention", variant,
-                  lambda: attention(*leaves, causal=causal))
+                  lambda: attention(*leaves, **kw))
         if out.grad_fn is None:
             fail(f"attention[{name}]: no autograd graph through the kernel")
-        got = torch.autograd.grad(out, leaves, dout)
+        got = via("flash_attention_backward", variant,
+                  lambda: torch.autograd.grad(out, leaves, dout))
         del leaves
-        want_out, want = plain_attention_grads(torch, q, k, v, dout, causal,
-                                               ATTN_GRAD_PLAIN_ROWS.get(name))
+        want_out, want = plain_attention_grads(
+            torch, q, k, v, dout, causal, window,
+            ATTN_GRAD_PLAIN_ROWS.get(name))
         torch.cuda.synchronize()
         check_close(f"attention[{name}] forward", out.detach(), want_out, dt)
         errs = []
         for what, g, w in zip(("dq", "dk", "dv"), got, want):
             rel = ((g.float() - w.float()).abs().max()
                    / w.float().abs().max()).item()
-            if not (rel <= ATTN_GRAD_RTOL[dt] and torch.isfinite(g).all()):
-                fail(f"attention[{name}] {what}: kernel + attention_backward "
-                     f"vs autograd of the plain version, max relative err "
-                     f"{rel:.3e} > {ATTN_GRAD_RTOL[dt]}")
+            if not (rel <= ATTN_GRAD_RTOL[dt] and torch.isfinite(g).all()
+                    and g.dtype == w.dtype and g.shape == w.shape):
+                fail(f"attention[{name}] {what}: the backward kernel vs "
+                     f"autograd of the plain version, max relative err "
+                     f"{rel:.3e} > {ATTN_GRAD_RTOL[dt]} ({g.dtype} "
+                     f"{tuple(g.shape)}, want {w.dtype} {tuple(w.shape)})")
             errs.append(rel)
+        if sq > skv and causal and bool(got[0][:, :, :sq - skv].any()):
+            fail(f"attention[{name}]: a row without keys got a gradient")
+        lse_err = ""
+        if b * hq * sq * skv <= 1 << 26:   # the plain lse's f32 logits
+            _, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            want_lse = attention_lse_ref(q, k, **kw)
+            inf = torch.isinf(want_lse)
+            if not (torch.equal(inf, torch.isinf(lse))
+                    and (lse[inf] > 0).all() and torch.allclose(
+                        lse[~inf], want_lse[~inf], rtol=ATTN_LSE_TOL,
+                        atol=ATTN_LSE_TOL)):
+                fail(f"attention[{name}]: the forward's lse vs "
+                     f"attention_lse_ref: max |err| "
+                     f"{(lse[~inf] - want_lse[~inf]).abs().max():.3e}, "
+                     f"+inf rows {int(torch.isinf(lse).sum())} vs "
+                     f"{int(inf.sum())}")
+            lse_err = (f"; lse max |err| "
+                       f"{(lse[~inf] - want_lse[~inf]).abs().max():.3e} (tol "
+                       f"{ATTN_LSE_TOL}), {int(inf.sum())} rows +inf")
         print(f"  attention gradient [{name}] ({variant}, ({b},{hq}/{hkv},"
               f"{sq}{'' if sq == skv else f'x{skv}'},{d}) {dt}"
-              f"{', causal' if causal else ''}): dq/dk/dv max relative err "
-              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
-              f"{ATTN_GRAD_RTOL[dt]})")
-        saved[name] = (q, k, v, dout, out.detach(), max(errs))
-        del got, want, want_out, out
+              f"{', causal' if causal else ''}"
+              f"{f', window {window}' if window else ''}"
+              f"{', rows off 16 B' if off else ''}): dq/dk/dv max relative "
+              f"err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+              f"{ATTN_GRAD_RTOL[dt]}){lse_err}")
+        saved[name] = (q, k, v, dout, out.detach(), max(errs), got)
+        del want, want_out, out
 
-    q, k, v, dout, out, err = saved.pop("train_f32")
+    # bitwise repeats, on the lse and output the forward saves
+    for name in ("bf16", "gqa_causal_f32", "window_bf16", "no_key_rows_bf16",
+                 "unaligned_bf16", "at_train_seamless_cross"):
+        q, k, v, dout, out, _, got = saved[name]
+        shape = next(c for c in cases if c[0] == name)
+        kw = dict(causal=shape[8], window=shape[9])
+        _, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        runs = [flash_attention_backward_cuda(
+            q, k, v, out, lse, dout, scale=q.shape[-1] ** -0.5, **kw)
+            for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"flash_attention_backward[{name}]: two launches differ")
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], got)):
+            fail(f"flash_attention_backward[{name}]: a launch differs from "
+                 f"the one autograd made")
+    print("  flash_attention_backward: two launches bitwise equal (and "
+          "equal to autograd's) at bf16, gqa_causal_f32, window_bf16, "
+          "no_key_rows_bf16, unaligned_bf16, at_train_seamless_cross")
+
+    def backward_record(key, q, k, v, dout, out, causal, err, few):
+        """The backward kernel at one shape: kernel, plain
+        `attention_backward` (with the saved lse), SDPA's forward +
+        backward, the bound; the peak memory beyond its inputs held
+        within `backward_peak_bound`."""
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        gqa = hq != hkv
+        dt = str(q.dtype).split(".")[1]
+        kw = dict(causal=causal, window=0, scale=d ** -0.5)
+        _, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                      return_lse=True)
+        variant = attention_backward_variant(
+            q.dtype, d, rows_aligned(q, k, v, out, dout))
+        lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        es = q.element_size()
+        # bytes: q, o, dO and dq (Hq heads), k, v, dk and dv (Hkv heads),
+        # lse and delta; operations: the five products over the visible
+        # (query, key) pairs
+        pairs = int(attention_mask(sq, skv, causal, 0, "cpu").sum())
+        kind = "causal" if causal else "bidirectional" if sq == skv \
+            else "cross-attention"
+        r = record(
+            "flash_attention_backward",
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_backward.cu",
+            "src/repro/kernels/flash_attention/kernel.py:80",
+            f"q ({b},{hq},{sq},{d}), k/v ({b},{hkv},{skv},{d}) {dt}, "
+            f"{kind}{' GQA' if gqa else ''} (training)", err,
+            lambda: via("flash_attention_backward", variant,
+                        lambda: flash_attention_backward_cuda(
+                            q, k, v, out, lse, dout, **kw)),
+            lambda: attention_backward(q, k, v, out, dout, lse=lse, **kw),
+            lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+                *lib, is_causal=causal, enable_gqa=gqa), lib, dout),
+            4 * (q.numel() + k.numel()) * es + 2 * b * hq * sq * 4,
+            10.0 * b * hq * pairs * d, dt, variant, **few)
+        r["gradient_of"] = "flash_attention_pallas (the reference " \
+            "differentiates its plain attention with XLA; no backward kernel)"
+        del lib
+        # the bytes the call asks of the allocator (its requested bytes:
+        # a block the allocator grants whole, cached segment and all, is
+        # not the kernel's)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        key_now = "requested_bytes.all.current"
+        before = torch.cuda.memory_stats(dev)[key_now]
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads = flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        extra = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"] \
+            - before
+        bound = backward_peak_bound(q, k)
+        r["peak_bytes"] = extra
+        print(f"  flash_attention_backward at {key} ({variant}): peak "
+              f"{extra / 1e6:.3f} MB requested beyond its inputs; bound "
+              f"{bound / 1e6:.3f} MB (dq, dk, dv, delta and 1 MiB)")
+        if extra > bound:
+            fail(f"flash_attention_backward at {key}: {extra} bytes beyond "
+                 f"its inputs > {bound}")
+        del grads
+        return r
+
+    q, k, v, dout, out, err, _ = saved.pop("train_f32")
     b, h, s, d = q.shape
     rec = record(
         "flash_attention",
@@ -4931,12 +5121,12 @@ def attention_grad_checks(torch, dev):
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d, "float32",
         variant="cuda_core")
-    rec["backward_ms"] = graph_ms(lambda: attention_backward(
-        q, k, v, out, dout, causal=False, window=0, scale=d ** -0.5))
+    bwd = {"at_train_elasticbert": join_forward(backward_record(
+        "at_train_elasticbert", q, k, v, dout, out, False, err, {}), rec)}
 
     family = {}
     for key, (b, hq, hkv, sq, skv, d, causal) in TRAIN_ATTENTION.items():
-        q, k, v, dout, out, err = saved.pop(key)
+        q, k, v, dout, out, err, _ = saved.pop(key)
         gqa = hq != hkv
         few = {"calls": 2, "replays": 2} if sq * skv > 1 << 20 else {}
         kind = "causal" if causal else "bidirectional" if sq == skv \
@@ -4957,82 +5147,65 @@ def attention_grad_checks(torch, dev):
             2 * (q.numel() + k.numel()) * q.element_size(),
             (2.0 if causal else 4.0) * b * hq * sq * skv * d, "bfloat16",
             variant="tensor_core", **few)
-        bwd = lambda: attention_backward(  # noqa: E731
-            q, k, v, out, dout, causal=causal, window=0, scale=d ** -0.5)
-        r["backward_ms"] = graph_ms(bwd, **few)
-        lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        r["library_grad_ms"] = graph_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*lib, is_causal=causal,
-                                           enable_gqa=gqa), lib, dout),
-            **few)
-        del lib
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        grads = bwd()
-        torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated(dev) - before
-        slices = attn_ops.backward_slices(b, hkv, hq // hkv, sq, skv)
-        temps, rest = backward_peak_bound(q, k, slices)
-        r["backward_peak_bytes"] = extra
-        r["backward_slices"] = len(slices)
-        print(f"  attention_backward at {key}: {len(slices)} slice(s), peak "
-              f"{extra / 1e9:.3f} GB beyond its inputs; bound "
-              f"{(temps + rest) / 1e9:.3f} GB: the largest slice's P and dS "
-              f"{temps / 1e9:.3f} GB (budget "
-              f"{attn_ops.BACKWARD_TEMP_BYTES / 1e9:.3f}) + {rest / 1e9:.3f} "
-              f"GB of its float32 working tensors, the mask and the "
-              f"gradients; margin {(temps + rest - extra) / 1e9:.3f} GB")
-        if extra > temps + rest or temps > max(
-                attn_ops.BACKWARD_TEMP_BYTES,
-                attn_ops.BACKWARD_TEMPS * hq // hkv * sq * skv * 4):
-            fail(f"attention_backward at {key}: {extra} bytes beyond its "
-                 f"inputs > {temps + rest}, or a slice's P and dS {temps} "
-                 f"bytes over the budget")
-        del grads
+        rb = join_forward(
+            backward_record(key, q, k, v, dout, out, causal, err, few), r)
+        print(f"  flash_attention_backward at {key}: kernel {rb['ms']:.5f} "
+              f"ms, plain attention_backward {rb['plain_ms']:.5f}, bound "
+              f"{rb['bound_ms']:.6f} ({rb['bound_by']}); SDPA forward + "
+              f"backward {rb['library_ms']:.5f} (the backward alone "
+              f"{rb['library_backward_ms']:.5f}); the forward kernel "
+              f"{r['ms']:.5f}")
         family[key] = r
-    return rec, family
+        bwd[key] = rb
+    rec_bwd = bwd.pop(MAIN_TRAIN_ATTENTION)
+    rec_bwd.update(bwd)
+    return rec, family, rec_bwd
 
 
-def backward_peak_bound(q, k, slices) -> tuple[int, int]:
-    """The bytes `attention_backward` may hold beyond its inputs, as
-    (the largest slice's BACKWARD_TEMPS float32 (Sq, Skv) temporaries,
-    the rest): the rest is that slice's float32 working tensors (q, the
-    output, dO, dQ and its scaled product; K and V repeated to the query
-    heads, K's cast, dK and dV before their group sums and dK's scaled
-    product: eleven (Sq or Skv, d) tensors a query head), the (Sq, Skv)
-    mask and the two complements that `masked_fill_` takes, and the
-    whole call's gradients in the inputs' dtypes. A slicer that put
-    twice the heads in a slice would need twice the first term."""
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    heads = max((bs.stop - bs.start) * (gs.stop - gs.start) * rep
-                for bs, gs in slices)
-    temps = attn_ops.BACKWARD_TEMPS * heads * sq * skv * 4
-    work = 4 * heads * d * (5 * sq + 6 * skv)
+def join_forward(rb, r):
+    """The backward kernel's record ``rb`` and the forward's ``r`` at one
+    shape, each given the other's times: the forward kernel's and SDPA's
+    forward ms beside the backward, and SDPA's backward alone (its
+    forward + backward less its forward); the backward kernel's ms and
+    SDPA's forward + backward beside the forward. Returns ``rb``."""
+    rb["forward_ms"] = r["ms"]
+    rb["library_forward_ms"] = r["library_ms"]
+    rb["library_backward_ms"] = rb["library_ms"] - r["library_ms"]
+    r["backward_ms"] = rb["ms"]
+    r["library_grad_ms"] = rb["library_ms"]
+    return rb
+
+
+def backward_peak_bound(q, k) -> int:
+    """The bytes the backward kernel may hold beyond its inputs: dq, dk
+    and dv in the inputs' dtype, the float32 (B, Hq, Sq) rowsum(dO∘O) and
+    1 MiB of slack. Nothing of size (Sq, Skv)."""
+    b, hq, sq, _ = q.shape
     grads = (q.numel() + 2 * k.numel()) * q.element_size()
-    return temps, work + 3 * sq * skv + grads
+    return grads + b * hq * sq * 4 + (1 << 20)
 
 
-def plain_attention_grads(torch, q, k, v, dout, causal, rows=None):
+def plain_attention_grads(torch, q, k, v, dout, causal, window=0, rows=None):
     """(out, (dq, dk, dv)) by autograd of the plain version (`gqa_ref`),
     over slices of ``rows`` samples (default all), whose (Sq, Skv)
-    temporaries then stay within what one slice needs."""
+    temporaries then stay within what one slice needs. Causal rows with
+    no key to attend (the first Sq - Skv when Sq > Skv) get the kernel's
+    output 0 and no gradient; the plain version runs on the rest."""
     from repro_torch.kernels.flash_attention.ref import gqa_ref
-    b = q.shape[0]
+    b, sq = q.shape[0], q.shape[2]
+    nk = max(0, sq - k.shape[2]) if causal else 0
     rows = rows or b
-    out = torch.empty_like(q)
-    grads = [torch.empty_like(t) for t in (q, k, v)]
+    out = torch.zeros_like(q)
+    grads = [torch.zeros_like(t) for t in (q, k, v)]
     for i in range(0, b, rows):
         s = slice(i, i + rows)
-        leaves = [t[s].clone().requires_grad_(True) for t in (q, k, v)]
-        o = gqa_ref(*leaves, causal=causal)
-        for g, w in zip(grads, torch.autograd.grad(o, leaves, dout[s])):
+        leaves = [t[s].clone().requires_grad_(True)
+                  for t in (q[:, :, nk:], k, v)]
+        o = gqa_ref(*leaves, causal=causal, window=window)
+        for g, w in zip((grads[0][:, :, nk:], *grads[1:]),
+                        torch.autograd.grad(o, leaves, dout[s, :, nk:])):
             g[s] = w
-        out[s] = o.detach()
+        out[s, :, nk:] = o.detach()
     return out, grads
 
 
@@ -5086,16 +5259,27 @@ def training_run(torch, dev, runs: Runs, cfg, data):
     if not last["loss"] < first["loss"]:
         fail(f"{name}: loss did not fall ({first['loss']} -> {last['loss']})")
     want = train_attention_launches(cfg, remat=False) * TRAIN_STEPS
-    if counts["flash_attention"] != want or \
-            variants["flash_attention/cuda_core"] != want:
-        fail(f"{name}: attention launches {counts['flash_attention']} (by "
-             f"variant {variants}), want {want} through cuda_core")
-    if any(n for k, n in counts.items() if k != "flash_attention"):
-        fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
+    hold_attention_launches(name, counts, variants, want, want, "cuda_core")
     return params, model, {"launches": counts["flash_attention"],
                            "ms_per_step": ms_step,
                            "tokens_per_s": tokens / ms_step * 1e3,
                            "peak_bytes": peak, "wall_s": wall}
+
+
+def hold_attention_launches(name, counts, variants, forward: int,
+                            backward: int, variant: str):
+    """A training run's launches: exactly ``forward`` attention and
+    ``backward`` backward-kernel launches, every one through ``variant``,
+    and no other kernel (the loss reads no exit kernel)."""
+    for kernel, n in (("flash_attention", forward),
+                      ("flash_attention_backward", backward)):
+        if counts[kernel] != n or variants[f"{kernel}/{variant}"] != n:
+            fail(f"{name}: {kernel} launches {counts[kernel]} (by variant "
+                 f"{ {k: c for k, c in variants.items() if c} }), want {n} "
+                 f"through {variant}")
+    if any(n for k, n in counts.items()
+           if k not in ("flash_attention", "flash_attention_backward")):
+        fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
 
 
 def train_agreement(torch, dev, cfg, data):
@@ -5537,7 +5721,7 @@ def train_phase(torch, dev, runs: Runs, rec):
     print(f"  flash_attention at {rec['shape']} (cuda_core): device ms per "
           f"call (CUDA graph): kernel {rec['ms']:.5f}, plain "
           f"{rec['plain_ms']:.5f}, SDPA {rec['library_ms']:.5f}, bound "
-          f"{rec['bound_ms']:.6f} ({rec['bound_by']}); attention_backward "
+          f"{rec['bound_ms']:.6f} ({rec['bound_by']}); the backward kernel "
           f"{rec['backward_ms']:.5f}; {rec['launches']} launches in the "
           f"training run")
     checks = [(trained, 0), (early_card, MIN_NEAR_ALPHA)]
@@ -5577,19 +5761,21 @@ LM_TRAIN_LR = 3e-4
 # LMs train on LM_TRAIN_BATCH x 64 positions (qwen2-vl on seeded embeds,
 # labels seeded tokens), seamless on ENCDEC_TRAIN_BATCH x its 4096 frames
 # with ENCDEC_TRAIN_TOKENS target tokens: its encoder is not rematted (as
-# the reference's), and at the serving phase's 8 samples a step peaked at
-# 81.558 of the card's 85.017 GB on an otherwise empty card, too close
-# for the ~1.5 GB earlier phases hold. phi3.5-moe at FAMILY_MOE_LAYERS of
-# its 32 layers, the deepest whose step fits an otherwise empty card
-# (`tools/wkv6_training_costs.py --arch phi3.5-moe-42b-a6.6b`: 4 and 3
-# run out of memory in the optimizer step, asking 6.25 / 4.69 GiB)
+# the reference's); at the serving phase's 8 samples a step peaks at
+# 82.557 of the card's 85.017 GB with the ~1.5 GB earlier phases hold
+# (attention's backward kernel holds no (Sq, Skv) temporaries; through the
+# plain products 8 samples peaked at 81.558 on an empty card).
+# phi3.5-moe at FAMILY_MOE_LAYERS of its 32 layers, the deepest whose step
+# fits an otherwise empty card (`tools/wkv6_training_costs.py --arch
+# phi3.5-moe-42b-a6.6b`: 4 and 3 run out of memory in the optimizer step,
+# asking 6.25 / 4.69 GiB)
 FAMILY_MOE_LAYERS = 2
 FAMILY_TRAIN = (("qwen3-1.7b", None, "at_train_qwen3"),
                 (HYBRID, None, "at_train_zamba2"),
                 (MOE, FAMILY_MOE_LAYERS, "at_train_phi35"),
                 (VLM, None, "at_train_qwen2vl"),
                 (ENCDEC, None, "at_train_seamless_encoder"))
-ENCDEC_TRAIN_BATCH = 7
+ENCDEC_TRAIN_BATCH = 8
 ENCDEC_TRAIN_TOKENS = 32
 # card vs CPU training (`TrainAgreement`): each arch's published widths
 # cut to (arch, layers, enc-dec source frames), float32, LM_AGREE_STEPS
@@ -5709,11 +5895,11 @@ def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
     """LM_TRAIN_STEPS training steps of ``params`` (on the card) on one
     repeated ``batch``, with remat, counted as run ``name``: the loss
     finite and falling, the launches exactly ``want`` (per kernel; every
-    attention launch through the variant the picker names for the bf16
-    shape), ms a step after the first, positions/s, peak device memory
-    (and its share above ``before``, what earlier phases held), then one
-    more step profiled for its busy share and top kernels. Returns the
-    training record."""
+    attention launch, forward and backward, through the variant the
+    picker names for the bf16 shape), ms a step after the first,
+    positions/s, peak device memory (and its share above ``before``, what
+    earlier phases held), then one more step profiled for its busy share
+    and top kernels. Returns the training record."""
     import math
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      variant_launch_counts)
@@ -5752,11 +5938,11 @@ def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
         fail(f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
     if counts != want:
         fail(f"{name}: launches {counts}, want {want}")
-    if counts["flash_attention"]:
-        picked = attention_variant(torch.bfloat16, cfg.resolved_head_dim,
-                                   True)
-        if variants[f"flash_attention/{picked}"] != counts["flash_attention"]:
-            fail(f"{name}: attention launches not all through {picked}: "
+    picked = attention_variant(torch.bfloat16, cfg.resolved_head_dim,
+                               True) if counts["flash_attention"] else None
+    for kernel in ("flash_attention", "flash_attention_backward"):
+        if counts[kernel] and variants[f"{kernel}/{picked}"] != counts[kernel]:
+            fail(f"{name}: {kernel} launches not all through {picked}: "
                  f"{runs.variants[name]}")
     busy, per_kernel = device_ms(lambda: again(batch), iters=1, warmup=0)
     print_busy(f"train step ({name}, {shapes})", busy, ms_step, per_kernel)
@@ -5769,11 +5955,13 @@ def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
 
 def train_want(cfg, steps: int):
     """Kernel launches of ``steps`` training steps with remat: attention as
-    `train_attention_launches` says, and for an ssm stack WKV6 2L a step
+    `train_attention_launches` says and its backward kernel as
+    `train_backward_launches` says, and for an ssm stack WKV6 2L a step
     (the forward and remat's recompute) and its backward L; no exit."""
     from repro_torch.kernels import launch_counts
     want = {k: 0 for k in launch_counts()}
     want["flash_attention"] = train_attention_launches(cfg, True) * steps
+    want["flash_attention_backward"] = train_backward_launches(cfg) * steps
     if cfg.family == "ssm":
         want["wkv6"] = 2 * cfg.num_layers * steps
         want["wkv6_backward"] = cfg.num_layers * steps
@@ -6248,13 +6436,8 @@ def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
     runs.counts[name] = counts
     runs.variants[name] = {k: n for k, n in variants.items() if n}
     runs.tiles[name] = {}
-    if counts["flash_attention"] != want_launches or \
-            variants["flash_attention/cuda_core"] != want_launches:
-        fail(f"{name}: attention launches {counts['flash_attention']} (by "
-             f"variant {runs.variants[name]}), want {want_launches} through "
-             f"cuda_core")
-    if any(n for k, n in counts.items() if k != "flash_attention"):
-        fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
+    hold_attention_launches(name, counts, variants, want_launches,
+                            want_launches, "cuda_core")
     if set(shapes["flash_attention"]) != {want_shape}:
         fail(f"{name}: attention kernel q shapes "
              f"{sorted(set(shapes['flash_attention']))}, want the local head "
@@ -6431,24 +6614,27 @@ def model_parallel_phase(torch, dev, runs: Runs, dry_runs: DryRuns):
     process group (the attention kernel on each rank's 6-head shard,
     forward and backward; equal to the unbound run). Then holds
     ``dry_runs`` (`DryRuns`, on the host since the MoE phase). Returns the
-    attention record at the TP = 2 shard shape."""
-    rec = mp_card_runs(torch, dev, runs)
+    attention records, forward and backward kernel, at the TP = 2 shard
+    shape."""
+    recs = mp_card_runs(torch, dev, runs)
     dry_runs.hold()
-    return rec
+    return recs
 
 
 def mp_card_runs(torch, dev, runs: Runs):
-    """`model_parallel_phase`'s runs on the card; the record of the
-    kernel's forward at the TP = 2 shard, with `attention_backward`'s
-    time there."""
+    """`model_parallel_phase`'s runs on the card; the records of the
+    kernel's forward and of the backward kernel at the TP = 2 shard (the
+    backward beside the plain `attention_backward`)."""
     import itertools
     import logging
     import torch.distributed as dist
     import torch.nn.functional as F
     from repro_torch.data import batch_iterator, make_dataset
-    from repro_torch.kernels.flash_attention.ops import (attention,
-                                                         attention_backward)
-    from repro_torch.kernels.flash_attention.ref import gqa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import (attention_backward,
+                                                         gqa_ref)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.distributed import _free_port
@@ -6507,18 +6693,45 @@ def mp_card_runs(torch, dev, runs: Runs):
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * q.numel() * q.element_size(), 4.0 * q.numel() * seq, "float32",
         variant="cuda_core")
-    out = attention(q, k, v, causal=False)
-    rec["backward_ms"] = graph_ms(lambda: attention_backward(
-        q, k, v, out, dout, causal=False, window=0, scale=hd ** -0.5))
-    rec["launches"] = runs.counts[f"mp TP={MP_TP2} seq_parallel=True "
-                                  f"(threaded ranks)"]["flash_attention"]
+    out, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    kw = dict(causal=False, window=0, scale=hd ** -0.5)
+    grads = flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+    plain = attention_backward(q, k, v, out, dout, lse=lse, **kw)
+    lib = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    b, h, s, d = shard
+    # bytes: q, o, dO, dq, k, v, dk, dv and lse, delta; operations: the
+    # five products
+    bwd = record(
+        "flash_attention_backward",
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention_backward.cu",
+        "src/repro/kernels/flash_attention/kernel.py:80",
+        f"q/k/v {shard} float32, bidirectional (a TP = {MP_TP2} rank's "
+        f"head shard of the training step)",
+        max((g - p).abs().max().item() for g, p in zip(grads, plain)),
+        lambda: via("flash_attention_backward", "cuda_core",
+                    lambda: flash_attention_backward_cuda(
+                        q, k, v, out, lse, dout, **kw)),
+        lambda: attention_backward(q, k, v, out, dout, lse=lse, **kw),
+        lambda: torch.autograd.grad(F.scaled_dot_product_attention(*lib),
+                                    lib, dout),
+        8 * q.numel() * q.element_size() + 2 * b * h * s * 4,
+        10.0 * b * h * s * s * d, "float32", variant="cuda_core")
+    del lib
+    run = f"mp TP={MP_TP2} seq_parallel=True (threaded ranks)"
+    join_forward(bwd, rec)
+    rec["launches"] = runs.counts[run]["flash_attention"]
+    bwd["launches"] = runs.counts[run]["flash_attention_backward"]
     print(f"  flash_attention at {rec['shape']} (cuda_core): device ms per "
           f"call (CUDA graph): kernel {rec['ms']:.5f}, plain "
           f"{rec['plain_ms']:.5f}, SDPA {rec['library_ms']:.5f}, bound "
-          f"{rec['bound_ms']:.6f} ({rec['bound_by']}); attention_backward "
-          f"{rec['backward_ms']:.5f}; {rec['launches']} launches in the "
-          f"TP = {MP_TP2} seq_parallel=True run")
-    return rec
+          f"{rec['bound_ms']:.6f} ({rec['bound_by']}); the backward kernel "
+          f"{bwd['ms']:.5f}, plain attention_backward {bwd['plain_ms']:.5f}, "
+          f"SDPA forward + backward {bwd['library_ms']:.5f}, bound "
+          f"{bwd['bound_ms']:.6f} ({bwd['bound_by']}), max |err| "
+          f"{bwd['max_abs_err']:.3e}; {rec['launches']} / {bwd['launches']} "
+          f"launches in the TP = {MP_TP2} seq_parallel=True run")
+    return rec, bwd
 
 
 # ------------------------------------------------------------ front doors
@@ -6760,12 +6973,20 @@ def fd_cli_runs(torch, runs: Runs):
                        "--steps", "100", "--dump-config", str(second)])
     out3, c3 = fd_cli(torch, runs, "CLI classify --fused-exit scan",
                       FD_CLASSIFY + ["--fused-exit", "--edge-mode", "scan"])
+    # the testbed trains 6 layers (the CLI's default) for --steps steps:
+    # one backward-kernel launch a layer a step, all through cuda_core (f32)
+    testbed = 6 * 100
     for name, counts, fused in (("--dump-config", c1, False),
                                 ("--config", c2, False),
                                 ("--fused-exit scan", c3, True)):
         if not (counts["flash_attention"] and counts["exit_confidence"]) or \
-                bool(counts["exit_confidence_fused"]) != fused:
-            fail(f"CLI classify {name}: launches {counts}")
+                bool(counts["exit_confidence_fused"]) != fused or \
+                counts["flash_attention_backward"] != testbed or \
+                runs.variants[f"CLI classify {name}"].get(
+                    "flash_attention_backward/cuda_core") != testbed:
+            fail(f"CLI classify {name}: launches {counts} (by variant "
+                 f"{runs.variants[f'CLI classify {name}']}), the testbed's "
+                 f"training {testbed} backward-kernel launches")
     s1, s2, s3 = (fd_summary(n, o) for n, o in (("--dump-config", out1),
                                                 ("--config", out2),
                                                 ("--fused-exit", out3)))
@@ -6983,8 +7204,10 @@ def main(argv=None) -> int:
         for fn, n in sorted(hmma.items()):
             print(f"  {n:5d} HMMA/HGMMA  {fn}")
         # exit: mma.sync (M <= 32) and wgmma (M > 32), each with w in
-        # 16-byte and in 4-byte pieces; attention: d 64, 128
-        if len(tc_fns) != 6 or min(tc_fns.values()) == 0:
+        # 16-byte and in 4-byte pieces; attention: d 64, 128, each with
+        # and without the saved lse; its backward's dK/dV and dQ passes:
+        # d 64, 128
+        if len(tc_fns) != 12 or min(tc_fns.values()) == 0:
             fail(f"tensor-core kernels without HMMA/HGMMA in their SASS: "
                  f"{tc_fns}")
         # the WKV6 recurrence stays on the CUDA cores (exact rank-1 steps)
@@ -7004,7 +7227,8 @@ def main(argv=None) -> int:
         rec_wkv6_bwd = wkv6_backward_checks(torch, dev)
         front_door_records(torch, dev, rec_attn, rec_exit, rec_fused,
                            rec_wkv6)
-        rec_train_attn, rec_family_attn = attention_grad_checks(torch, dev)
+        rec_train_attn, rec_family_attn, rec_attn_bwd = \
+            attention_grad_checks(torch, dev)
         rec_attn.update(rec_family_attn)
 
     runs = Runs()
@@ -7013,6 +7237,8 @@ def main(argv=None) -> int:
     with phase("train: elasticbert12 (full width) on the card"):
         rec_attn["at_training"], trained, decisions = train_phase(
             torch, dev, runs, rec_train_attn)
+        rec_attn_bwd["at_train_elasticbert"]["launches"] = \
+            rec_attn["at_training"]["launches"]
     # before the serve phases: each step needs the card to itself
     with phase(f"train: {LM} (full width) on the card, through WKV6's "
                f"gradient"):
@@ -7023,6 +7249,8 @@ def main(argv=None) -> int:
             + " (full width) on the card, through attention's gradient"):
         for key, rec in family_train_phase(torch, dev, runs).items():
             rec_attn[key]["training"] = rec
+            (rec_attn_bwd if key == MAIN_TRAIN_ATTENTION
+             else rec_attn_bwd[key])["training"] = rec
     with phase("training agreement: the card halves (a subprocess, whose "
                "CPU halves then run beside the phases that follow)"):
         train_agree.card_halves()
@@ -7096,8 +7324,8 @@ def main(argv=None) -> int:
 
     with phase("model parallelism: elasticbert12 TP training on the card, "
                "the dry run"):
-        rec_attn["at_tp2_train"] = model_parallel_phase(torch, dev, runs,
-                                                        dry_runs)
+        rec_attn["at_tp2_train"], rec_attn_bwd["at_tp2_train"] = \
+            model_parallel_phase(torch, dev, runs, dry_runs)
 
     with phase("front doors: the full-width checkpoint, the serve CLI "
                "(in process and its driver mode), the examples"):
@@ -7115,7 +7343,7 @@ def main(argv=None) -> int:
 
     kernels = []
     for rec in (rec_attn, rec_exit, rec_fused, rec_wkv6, rec_combine,
-                rec_wkv6_bwd):
+                rec_wkv6_bwd, rec_attn_bwd):
         path = MAIN_PATH[rec["name"]]
         rec["main_path"] = path
         rec["launches"] = runs.counts[path][rec["name"]]
@@ -7147,12 +7375,12 @@ def main(argv=None) -> int:
                   f"{at['plain_ms']:.5f}, library "
                   f"{'none' if lib is None else f'{lib:.5f}'}, bound "
                   f"{at['bound_ms']:.6f} ({at['bound_by']})"
-                  + (f"; attention_backward {at['backward_ms']:.5f}"
+                  + (f"; the backward kernel {at['backward_ms']:.5f}"
                      if "backward_ms" in at else "")
                   + (f", SDPA forward + backward {at['library_grad_ms']:.5f}"
                      if "library_grad_ms" in at else "")
                   + (f"; trained {at['training']['ms_per_step']:.3f} ms a "
-                     f"step, {at['training']['launches']['flash_attention']}"
+                     f"step, {at['training']['launches'][rec['name']]}"
                      f" launches in {at['training']['steps']} steps"
                      if "training" in at else ""))
     print(f"  whole smoke: {time.perf_counter() - t_start:.1f} s wall")

@@ -15,6 +15,14 @@
 //     valid column becomes -1e30, as in the TPU kernel;
 //   * a fully masked row gives exactly 0: its probabilities are zero and
 //     the denominator is clamped at 1e-30.
+//   Given a non-null ``lse`` (in the tensor_core variant an instantiation
+//   of its own, so the serving kernel carries no code for it), each
+//   variant also writes the row's
+//   log-sum-exp of the scaled logits, float32 (B, Hq, Sq), once a row after
+//   its key loop: m + log(l), or +inf for a row with no key to attend, so
+//   that the backward (flash_attention_backward.cu) recomputes every
+//   probability as exp(s - lse) and a row without keys gets none. Serving
+//   passes null and writes nothing.
 //   GQA is handled here by index (kv head = q head / group) instead of
 //   the repeat the TPU wrapper materializes. The output is written through
 //   its strides (the wrapper lays it out (B, S, H, d)).
@@ -56,11 +64,18 @@ constexpr int kBlockK = 32;          // keys per shared-memory tile
 constexpr int kColsPerThread = 16;   // head_dim <= 16 * TPR
 constexpr float kNegInf = -1e30f;
 
+// a row's log-sum-exp from its running max and sum; +inf when no key was
+// visible (l == 0), so that exp(s - lse) is 0 for every key of the row
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;          // (B, Hq, Sq) float32, or null: not written
   // element strides of the (batch, head, seq) dims; head_dim is contiguous
   int64_t q_sb, q_sh, q_ss;
   int64_t k_sb, k_sh, k_ss;
@@ -183,6 +198,8 @@ flash_attention_kernel(const Params p) {
       const int col = c * TPR + t;
       if (col < p.d) op[col] = from_f32<T>(acc[c] * inv);
     }
+    if (p.lse != nullptr && t == 0)
+      p.lse[static_cast<int64_t>(bh) * p.sq + q_row] = row_lse(m, l);
   }
 }
 
@@ -220,7 +237,7 @@ constexpr size_t tc_smem_bytes() {    // Q, then K and V twice each
   return static_cast<size_t>(kTcRows + 4 * kTcKeys) * D * 2;
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc_kernel(const Params p) {
   using bf16 = __nv_bfloat16;
@@ -393,21 +410,31 @@ flash_attention_tc_kernel(const Params p) {
     for (int nt = 0; nt < D / 8; ++nt)
       *reinterpret_cast<uint32_t*>(op + nt * 8) =
           pack_bf16(o[nt][2 * hf] * inv, o[nt][2 * hf + 1] * inv);
+    if constexpr (kLse) {
+      if (lane % 4 == 0) p.lse[static_cast<int64_t>(bh) * p.sq + row] = row_lse(m[hf], l[hf]);
+    }
   }
 }
 
-template <int D>
-int launch_tc(const Params& p, int batch, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_tc_lse(const Params& p, int batch, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_tc_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(batch * p.hq, (p.sq + kTcRows - 1) / kTcRows);
-  flash_attention_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(p);
+  flash_attention_tc_kernel<D, kLse><<<grid, kTcThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the serving instantiation (no lse) carries no code for it
+template <int D>
+int launch_tc(const Params& p, int batch, cudaStream_t stream) {
+  return p.lse != nullptr ? launch_tc_lse<D, true>(p, batch, stream)
+                          : launch_tc_lse<D, false>(p, batch, stream);
 }
 
 bool aligned16(const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; }
@@ -416,10 +443,11 @@ bool aligned16(const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
 // dtype: 0 = float32, 1 = bfloat16. variant: 0 = cuda_core, 1 =
 // tensor_core (bf16, d 64 or 128, 16-byte aligned rows: the wrapper
-// checks the strides). Returns cudaGetLastError() after the launch
+// checks the strides). lse: float32 (B, Hq, Sq) contiguous, or null.
+// Returns cudaGetLastError() after the launch
 // (nonzero when the launch was refused or the arguments are bad).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -429,7 +457,7 @@ extern "C" int flash_attention_launch(
   if (d < 1 || d > 128 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
       batch < 1 || (dtype != 0 && dtype != 1) || (variant != 0 && variant != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o,
+  Params p{q, k, v, o, lse,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss,
            hq, hkv, sq, skv, d, causal, window, scale};

@@ -1,9 +1,12 @@
-"""ctypes binding of the CUDA block-attention kernel (csrc/flash_attention.cu).
+"""ctypes binding of the CUDA block-attention kernel (csrc/flash_attention.cu)
+and of its backward (csrc/flash_attention_backward.cu).
 
 Each call runs one of two variants, chosen by `attention_variant` from the
 dtype, the head dim and the 16-byte alignment of the rows alone. The
-library is built on first call (`kernels._build`); nothing is built or
-loaded at import time.
+backward (`flash_attention_backward_cuda`, a kernel of its own) has the
+same two variants, chosen by `attention_backward_variant`. The libraries
+are built on first call (`kernels._build`); nothing is built or loaded at
+import time.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from repro_torch.kernels._build import (check, count_launch, load,
                                         rows_aligned)
 
 NAME = "flash_attention"
+BACKWARD = "flash_attention_backward"
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
+BACKWARD_SOURCE = Path(__file__).parent / "csrc" / "flash_attention_backward.cu"
 MAX_HEAD_DIM = 128
 VARIANTS = ("tensor_core", "cuda_core")
 TENSOR_CORE_HEAD_DIMS = (64, 128)
@@ -25,6 +30,7 @@ _VARIANT_CODES = {"cuda_core": 0, "tensor_core": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 register_kernel(NAME, VARIANTS)
+register_kernel(BACKWARD, VARIANTS)
 
 
 def attention_variant(dtype: torch.dtype, d: int, aligned: bool) -> str:
@@ -36,29 +42,40 @@ def attention_variant(dtype: torch.dtype, d: int, aligned: bool) -> str:
     return "cuda_core"
 
 
+def attention_backward_variant(dtype: torch.dtype, d: int,
+                               aligned: bool) -> str:
+    """The backward's variant, by the forward's rule: tensor_core for bf16
+    at head dim 64 or 128 with every row of q, k, v, the output, dO and
+    the three gradients 16-byte aligned, else cuda_core. A pure function:
+    it never depends on a build or a launch."""
+    return attention_variant(dtype, d, aligned)
+
+
 def _launcher():
     fn = load(SOURCE).flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 12
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         scale: float | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) CUDA tensors of one dtype
-    (float32 or bfloat16), head_dim contiguous, any other strides.
-    Returns (B, Hq, Sq, d) whose memory is laid out (B, Sq, Hq, d), so the
-    caller's merge of heads back into the model width is a view.
+def _backward_launcher():
+    fn = load(BACKWARD_SOURCE).flash_attention_backward_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
 
-    The forward alone: under grad it raises (`_build.refuse_grad`); a
-    gradient goes through `ops.FlashAttention`, which calls this with
-    grad mode off and saves what `ops.attention_backward` reads."""
-    refuse_grad(NAME, q, k, v)
+
+def _check_qkv(name, q, k, v):
+    """The device, dtype, shape and layout checks of q, k, v that the
+    forward and the backward share. Returns (b, hq, hkv, sq, skv, d)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
@@ -77,19 +94,93 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} is not supported")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("head_dim must be the contiguous axis of q, k, v")
+    return b, hq, hkv, sq, skv, d
+
+
+def _bhs_strides(*tensors):
+    """The (batch, head, seq) element strides of each tensor, in order."""
+    return [st for t in tensors for st in t.stride()[:3]]
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         scale: float | None = None,
+                         return_lse: bool = False):
+    """q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) CUDA tensors of one dtype
+    (float32 or bfloat16), head_dim contiguous, any other strides.
+    Returns (B, Hq, Sq, d) whose memory is laid out (B, Sq, Hq, d), so the
+    caller's merge of heads back into the model width is a view; with
+    ``return_lse`` also each row's log-sum-exp of the scaled logits,
+    float32 (B, Hq, Sq) (+inf for a row with no key to attend), which the
+    backward reads.
+
+    The forward alone: under grad it raises (`_build.refuse_grad`); a
+    gradient goes through `ops.FlashAttention`, which calls this with
+    grad mode off and saves what `flash_attention_backward_cuda` reads."""
+    refuse_grad(NAME, q, k, v)
+    b, hq, hkv, sq, skv, d = _check_qkv("flash_attention_cuda", q, k, v)
     if scale is None:
         scale = d ** -0.5
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     variant = attention_variant(q.dtype, d, rows_aligned(q, k, v, out))
-    strides = []
-    for t in (q, k, v, out):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
     status = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        *_bhs_strides(q, k, v, out),
         b, hq, hkv, sq, skv, d, int(bool(causal)), int(window), float(scale),
         _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
         torch.cuda.current_stream(q.device).cuda_stream)
     check(status, f"{NAME}/{variant}")
     count_launch(NAME, variant)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_cuda(q, k, v, out, lse, dout, *, causal: bool,
+                                  window: int, scale: float):
+    """(dq, dk, dv) of ``out = softmax(q kᵀ · scale + mask) v`` for GQA, in
+    one launch of the backward kernel (three passes on the current
+    stream: rowsum(dO∘O), dK and dV, dQ) through the variant
+    `attention_backward_variant` picks.
+
+    q, out, dout: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d): CUDA tensors of
+    one dtype (float32 or bfloat16), head_dim contiguous, any other
+    strides; lse: the forward's float32 (B, Hq, Sq) row log-sum-exp
+    (`flash_attention_cuda(..., return_lse=True)`), contiguous. The
+    gradients come back in the inputs' dtype and in the layouts of q, k
+    and v (`torch.empty_like`); deterministic: two calls are bitwise
+    equal. Raises when a gradient of this call is wanted
+    (`_build.refuse_grad`): the kernel has no backward of its own."""
+    refuse_grad(BACKWARD, q, k, v, out, lse, dout)
+    b, hq, hkv, sq, skv, d = _check_qkv("flash_attention_backward_cuda",
+                                        q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape \
+                or t.stride(3) != 1:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}: need q's {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}, head_dim "
+                             f"contiguous")
+    if lse.device != q.device or lse.dtype != torch.float32 \
+            or lse.shape != (b, hq, sq) or not lse.is_contiguous():
+        raise ValueError(f"lse {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}: need contiguous float32 "
+                         f"{(b, hq, sq)} on {q.device}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    variant = attention_backward_variant(
+        q.dtype, d, rows_aligned(q, k, v, out, dout, dq, dk, dv))
+    strides = _bhs_strides(q, k, v, out, dout, dq, dk, dv)
+    stride_arr = (ctypes.c_int64 * len(strides))(*strides)  # alive for the call
+    status = _backward_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        ctypes.addressof(stride_arr),
+        b, hq, hkv, sq, skv, d, int(bool(causal)), int(window), float(scale),
+        _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(status, f"{BACKWARD}/{variant}")
+    count_launch(BACKWARD, variant)
+    return dq, dk, dv

@@ -7,11 +7,13 @@ which resolves GQA by index; any other device raises. There is no
 fallback from one to the other.
 
 On the card a gradient goes through `FlashAttention`: its forward is the
-kernel, its backward `attention_backward`. The reference has no backward
-kernel either (XLA differentiates its plain attention outside any Pallas
-kernel), so the backward's products are ``torch.matmul``; it is written
-out here rather than taken from autograd of the plain version, which
-stays off the card's path.
+kernel, which also saves each row's log-sum-exp, and its backward the
+hand-written backward kernel (`flash_attention_backward`: dQ, dK and dV
+recomputed tile by tile from that log-sum-exp, with no (Sq, Skv) tensor
+in device memory). The reference has no backward kernel (XLA
+differentiates its plain attention outside any Pallas kernel); its plain
+counterpart here is `ref.attention_backward`, the CPU path of
+`flash_attention_backward` and the kernel's oracle on the card.
 
 Model parallelism: ``DTensor`` q/k/v whose placements keep every head
 whole on each rank (``Shard`` on the batch or head axis, or
@@ -25,108 +27,48 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import grad_wanted
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_mask, gqa_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_cuda, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (attention_backward,
+                                                     gqa_ref)
 from repro_torch.shards import is_dtensor
 
 
-# the float32 (Sq, Skv) temporaries `attention_backward` holds at once
-# (P and dS) over the query heads of one slice; a call whose whole
-# temporaries would exceed it runs over slices of (batch, KV group) that
-# keep within it
-BACKWARD_TEMP_BYTES = 2 << 30
-BACKWARD_TEMPS = 2
-
-
-def backward_slices(b: int, hkv: int, rep: int, sq: int, skv: int):
-    """The (batch, KV-group) slices `attention_backward` runs: a list of
-    (batch slice, group slice). One slice for the whole call when its
-    BACKWARD_TEMPS float32 (Sq, Skv) temporaries over every query head
-    fit BACKWARD_TEMP_BYTES; else, for each sample, runs of as many KV
-    groups as fit (at least one, every query head of it). A pure function
-    of the shapes."""
-    group = BACKWARD_TEMPS * rep * sq * skv * 4     # bytes of one KV group
-    groups = max(1, BACKWARD_TEMP_BYTES // group)
-    if groups >= b * hkv:
-        return [(slice(0, b), slice(0, hkv))]
-    return [(slice(i, i + 1), slice(g, min(hkv, g + groups)))
-            for i in range(b) for g in range(0, hkv, groups)]
-
-
-def attention_backward(q, k, v, out, dout, *, causal: bool, window: int,
-                       scale: float):
-    """(dq, dk, dv) of ``out = softmax(q kᵀ · scale + mask) v`` for GQA.
-
-    q, out, dout: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d), Hq % Hkv == 0.
-    Recomputes the float32 logits and softmax from q and k, then
-    dP = dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = dS·K·scale,
-    dK = dSᵀ·Q·scale, dV = Pᵀ·dO, each query head's dK and dV summed into
-    its KV group. A query row with no key to attend (the kernel's output
-    is exactly 0 there) gets P = 0 and so no gradient. Works in float32;
-    the gradients come back in the inputs' dtypes.
-
-    The call runs over the (batch, KV-group) slices of `backward_slices`,
-    so its float32 (Sq, Skv) temporaries stay within BACKWARD_TEMP_BYTES:
-    a slice holds every query head of its groups, so no sum crosses a
-    slice and each slice's arithmetic is the whole call's.
-    """
-    b, hq, sq, _ = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    mask = attention_mask(sq, skv, causal, window, q.device)
-    slices = backward_slices(b, hkv, rep, sq, skv)
-    if len(slices) == 1:
-        return _backward_slice(q, k, v, out, dout, mask, scale)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    for bs, gs in slices:
-        hs = slice(gs.start * rep, gs.stop * rep)
-        dq[bs, hs], dk[bs, gs], dv[bs, gs] = _backward_slice(
-            q[bs, hs], k[bs, gs], v[bs, gs], out[bs, hs], dout[bs, hs],
-            mask, scale)
-    return dq, dk, dv
-
-
-def _backward_slice(q, k, v, out, dout, mask, scale: float):
-    """`attention_backward` of one slice: its float32 (Sq, Skv)
-    temporaries are P and dS, each made in place."""
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    qf, of, gf = q.float(), out.float(), dout.float()
-    kf = k.float().repeat_interleave(rep, dim=1)           # (B, Hq, Skv, d)
-    vf = v.float().repeat_interleave(rep, dim=1)
-    p = torch.matmul(qf, kf.transpose(-1, -2)).mul_(scale)  # the logits
-    p.masked_fill_(~mask, -1e30)
-    p.sub_(p.amax(-1, keepdim=True)).exp_().masked_fill_(~mask, 0.0)
-    denom = p.sum(-1, keepdim=True)
-    p.div_(torch.where(denom > 0, denom, torch.ones_like(denom)))
-    ds = torch.matmul(gf, vf.transpose(-1, -2))        # dP (B, Hq, Sq, Skv)
-    delta = torch.sum(gf * of, dim=-1, keepdim=True)        # rowsum(dO∘O)
-    ds.sub_(delta).mul_(p)                             # dS = P∘(dP − δ)
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale    # (B, Hq, Skv, d)
-    dv = torch.matmul(p.transpose(-1, -2), gf)
-    dk = dk.reshape(b, hkv, rep, skv, d).sum(2)
-    dv = dv.reshape(b, hkv, rep, skv, d).sum(2)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool,
+                             window: int, scale: float):
+    """(dq, dk, dv) of block attention from the forward's output and row
+    log-sum-exp ``lse`` (float32 (B, Hq, Sq)). A CPU tensor runs the
+    plain version (`ref.attention_backward` with ``lse``), a CUDA tensor
+    the backward kernel (`kernel.flash_attention_backward_cuda`); any
+    other device raises."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if q.device.type == "cpu":
+        return attention_backward(q, k, v, out, dout, lse=lse, **kw)
+    if q.device.type == "cuda":
+        return flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+    raise ValueError(f"flash_attention_backward: no kernel for device "
+                     f"{q.device}")
 
 
 class FlashAttention(torch.autograd.Function):
-    """The CUDA kernel's forward with `attention_backward` as its
-    backward."""
+    """The CUDA kernel's forward, saving each row's log-sum-exp, with the
+    backward kernel (`flash_attention_backward`) as its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = attention_backward(
-            q, k, v, out, dout, causal=ctx.causal, window=ctx.window,
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:        # the kernel reads rows of head_dim
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
             scale=q.shape[-1] ** -0.5)
         return dq, dk, dv, None, None
 

@@ -103,7 +103,8 @@ def test_launch_counts_cover_every_kernel():
     assert launch_counts() == {"flash_attention": 0, "exit_confidence": 0,
                                "exit_confidence_fused": 0,
                                "exit_confidence_combine": 0, "wkv6": 0,
-                               "wkv6_backward": 0}
+                               "wkv6_backward": 0,
+                               "flash_attention_backward": 0}
     assert all(Path(s).exists() for s in SOURCES)
 
 

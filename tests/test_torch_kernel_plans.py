@@ -11,7 +11,8 @@ from repro_torch.kernels._build import rows_aligned
 from repro_torch.kernels.exit_confidence import kernel as exit_kernel
 from repro_torch.kernels.exit_confidence.kernel import (exit_variant, plan,
                                                         tile_shape)
-from repro_torch.kernels.flash_attention.kernel import attention_variant
+from repro_torch.kernels.flash_attention.kernel import (
+    attention_backward_variant, attention_variant)
 from repro_torch.kernels.wkv6.kernel import (wkv6_backward_variant,
                                              wkv6_variant)
 
@@ -231,6 +232,23 @@ def test_plan_at_v_256206_covers_every_column_once(m):
 ])
 def test_attention_variant(dtype, d, aligned, want):
     assert attention_variant(dtype, d, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (BF16, 64, True, "tensor_core"),     # seamless's encoder, zamba2
+    (BF16, 128, True, "tensor_core"),    # qwen3, phi3.5-moe, qwen2-vl
+    (BF16, 64, False, "cuda_core"),      # a row of q/k/v/o/dO/dq/dk/dv off
+    (BF16, 128, False, "cuda_core"),
+    (BF16, 32, True, "cuda_core"),
+    (BF16, 96, True, "cuda_core"),
+    (F32, 64, True, "cuda_core"),        # ElasticBERT-12's f32 training
+    (F32, 32, True, "cuda_core"),        # the CLI testbed
+    (F32, 128, False, "cuda_core"),
+])
+def test_attention_backward_variant(dtype, d, aligned, want):
+    """The backward kernel's variant: the forward's rule, over the
+    alignment of every row it reads and writes."""
+    assert attention_backward_variant(dtype, d, aligned) == want
 
 
 def test_row_alignment_reads_pointer_and_strides():

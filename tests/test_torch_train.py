@@ -43,9 +43,11 @@ from repro_torch.data import batch_iterator
 from repro_torch.kernels._build import grad_wanted
 from repro_torch.kernels.exit_confidence.kernel import (
     exit_confidence_cuda, exit_confidence_fused_cuda)
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ops import (FlashAttention,
-                                                     attention_backward)
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_cuda, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ops import FlashAttention
+from repro_torch.kernels.flash_attention.ref import (attention_backward,
+                                                     attention_lse_ref)
 from repro_torch.kernels.flash_attention.ref import gqa_ref
 from repro_torch.kernels.wkv6.kernel import wkv6_backward_cuda, wkv6_cuda
 from repro_torch.launch import serve as tserve
@@ -496,16 +498,19 @@ def test_attention_backward_gives_no_gradient_to_rows_without_keys():
 
 
 def test_flash_attention_function_backward_is_attention_backward():
+    """`FlashAttention.backward` reads the saved row log-sum-exp: on CPU
+    tensors it is the plain `attention_backward` given that lse."""
     rng = np.random.default_rng(2)
     q, k, v, dout = (torch.from_numpy(rng.standard_normal((1, 4, 8, 16))
                                       .astype(np.float32)) for _ in range(4))
     k, v = k[:, :2], v[:, :2]
     out = gqa_ref(q, k, v, causal=True)
-    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out), causal=True,
-                                window=0)
+    lse = attention_lse_ref(q, k, causal=True)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out, lse),
+                                causal=True, window=0)
     got = FlashAttention.backward(ctx, dout)
     want = attention_backward(q, k, v, out, dout, causal=True, window=0,
-                              scale=16 ** -0.5)
+                              scale=16 ** -0.5, lse=lse)
     assert got[3:] == (None, None)
     for g, w in zip(got[:3], want):
         assert torch.equal(g, w)
@@ -530,6 +535,10 @@ def _wrapper_calls():
     return {
         "flash_attention_cuda": (lambda t: flash_attention_cuda(t, q, q),
                                  q, "needs CUDA"),
+        "flash_attention_backward_cuda": (
+            lambda t: flash_attention_backward_cuda(
+                t, q, q, q, q[..., 0], q, causal=True, window=0, scale=0.25),
+            q, "needs CUDA"),
         "wkv6_cuda": (lambda t: wkv6_cuda(t, q, q, q, u), q, "CUDA device"),
         "wkv6_backward_cuda": (lambda t: wkv6_backward_cuda(t, q, q, q, u, q),
                                q, "CUDA device"),

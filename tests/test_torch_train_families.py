@@ -39,7 +39,7 @@ from repro.optim import adamw_init as j_adamw_init
 from repro.optim.adamw import AdamWConfig as JAdamWConfig
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_smoke_config as t_get_smoke_config
-from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.launch import train as ttrain
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw_init
@@ -206,25 +206,25 @@ def test_sliced_attention_backward(monkeypatch, b, hq, hkv, sq, skv, d,
     dout = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
     kw = dict(causal=causal, window=window)
     tq, tk, tv, tdout = map(torch.from_numpy, (q, k, v, dout))
-    out = attn_ops.gqa_ref(tq, tk, tv, **kw)
+    out = attn_ref.gqa_ref(tq, tk, tv, **kw)
     args = (tq, tk, tv, out, tdout)
-    whole = attn_ops.attention_backward(*args, scale=d ** -0.5, **kw)
+    whole = attn_ref.attention_backward(*args, scale=d ** -0.5, **kw)
     rep = hq // hkv
-    budget = groups * attn_ops.BACKWARD_TEMPS * rep * sq * skv * 4
-    monkeypatch.setattr(attn_ops, "BACKWARD_TEMP_BYTES", budget)
-    slices = attn_ops.backward_slices(b, hkv, rep, sq, skv)
+    budget = groups * attn_ref.BACKWARD_TEMPS * rep * sq * skv * 4
+    monkeypatch.setattr(attn_ref, "BACKWARD_TEMP_BYTES", budget)
+    slices = attn_ref.backward_slices(b, hkv, rep, sq, skv)
     assert len(slices) > 1
     calls = []
-    orig = attn_ops._backward_slice
+    orig = attn_ref._backward_slice
 
     def counted(q, *a):
         calls.append(q.shape)
         return orig(q, *a)
-    monkeypatch.setattr(attn_ops, "_backward_slice", counted)
-    sliced = attn_ops.attention_backward(*args, scale=d ** -0.5, **kw)
+    monkeypatch.setattr(attn_ref, "_backward_slice", counted)
+    sliced = attn_ref.attention_backward(*args, scale=d ** -0.5, **kw)
     assert len(calls) == len(slices)
     for shape in calls:   # each slice's P and dS within the budget
-        assert attn_ops.BACKWARD_TEMPS * shape[0] * shape[1] * sq * skv * 4 \
+        assert attn_ref.BACKWARD_TEMPS * shape[0] * shape[1] * sq * skv * 4 \
             <= budget
     _, vjp = jax.vjp(lambda *x: j_gqa_ref(*x, **kw), *map(jnp.asarray,
                                                           (q, k, v)))
@@ -241,13 +241,13 @@ def test_sliced_attention_backward(monkeypatch, b, hq, hkv, sq, skv, d,
     (3, 5, 3, 700, 900), (1, 2, 6, 20000, 20000)])
 def test_backward_slices_tile_the_grid_within_the_budget(b, hkv, rep, sq,
                                                          skv):
-    slices = attn_ops.backward_slices(b, hkv, rep, sq, skv)
+    slices = attn_ref.backward_slices(b, hkv, rep, sq, skv)
     seen = np.zeros((b, hkv), np.int64)
     for bs, gs in slices:
         seen[bs, gs] += 1
         groups = (bs.stop - bs.start) * (gs.stop - gs.start)
-        temps = attn_ops.BACKWARD_TEMPS * groups * rep * sq * skv * 4
-        assert temps <= attn_ops.BACKWARD_TEMP_BYTES or groups == 1
+        temps = attn_ref.BACKWARD_TEMPS * groups * rep * sq * skv * 4
+        assert temps <= attn_ref.BACKWARD_TEMP_BYTES or groups == 1
     assert (seen == 1).all()
     if b == 8 and sq == 4096:      # seamless's encoder: one sample a slice
         assert slices == [(slice(i, i + 1), slice(0, 16)) for i in range(8)]
