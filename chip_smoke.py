@@ -74,12 +74,15 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    block, phi3.5-moe and qwen2-vl causal at 16 x 64, seamless's encoder
    at 8 x 4096 and its cross-attention 32 x 4096), and at a sliding
    window, rows without keys (Sq > Skv, causal), d = 32 f32 and bf16
-   rows off 16 bytes (`cuda_core`); the saved log-sum-exp against
-   `attention_lse_ref`, two backward launches bitwise equal; each
+   rows off 16 bytes (`cuda_core`), each backward through the tile
+   `attention_backward_tile` picks (mma_sync and wgmma both); the saved
+   log-sum-exp against `attention_lse_ref`, two backward launches bitwise
+   equal (seamless's encoder and cross-attention among them); each
    training shape timed (the forward: kernel, plain, SDPA, bound; the
    backward kernel: kernel, plain `attention_backward`, SDPA's forward +
    backward, bound) with the backward's peak memory beyond its inputs
-   held within dq + dk + dv + delta + 1 MiB (`backward_peak_bound`);
+   held within dq + dk + dv + delta + the dQ key splits' partials + 1 MiB
+   (`backward_peak_bound`);
 5. serves a 512-sample stream with full-width ElasticBERT-12 (bfloat16,
    random weights from a seed) through the batched driver (B=32, plain
    and fused exits, and SplitEE-S) and the sequential driver, then
@@ -261,7 +264,8 @@ toolkit. It imports only the port (``src/repro_torch``) and:
    their launch counts;
 10. prints one JSON line of per-kernel numbers (``launches`` from the run
    named in MAIN_PATH, ``launches_by_path``, ``launches_by_variant`` and,
-   for the exit kernels, ``launches_by_tile`` from every run; attention's
+   for the exit kernels and attention's backward, ``launches_by_tile``
+   from every run; attention's
    ``at_training`` entry the training shape, ``at_tp2_train`` the TP = 2
    shard), then the
    final line ``{"ok": true, "device": {...}}``.
@@ -2236,6 +2240,36 @@ def train_backward_launches(cfg) -> int:
     (remat's first pass runs without a graph, its recompute is the call
     the backward differentiates)."""
     return train_attention_launches(cfg, remat=False)
+
+
+def train_backward_tiles(cfg, positions: int) -> dict:
+    """Backward-kernel launches of one bf16 `train_loss` step by tile of
+    its tensor_core variant ({tile: n}, as `attention_backward_tile`
+    picks it for each call's shape): each decoder layer's self-attention
+    over ``positions`` keys (a hybrid's at its shared block's uses, as
+    `layer_launches` counts them) and, for an enc-dec model, each
+    encoder layer over its source frames and each decoder layer's
+    cross-attention of ``positions`` queries over them. An ssm stack has
+    none."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        attention_backward_tile
+    out = {}
+
+    def add(sq, skv, n):
+        tile = attention_backward_tile(torch.bfloat16,
+                                       cfg.resolved_head_dim, True, sq, skv)
+        out[tile] = out.get(tile, 0) + n
+    if cfg.family == "ssm":
+        return out
+    if cfg.encoder is not None:
+        src = cfg.encoder.source_len
+        add(src, src, cfg.encoder.num_layers)
+        add(positions, src, cfg.num_layers)
+        add(positions, positions, cfg.num_layers)
+    else:
+        add(positions, positions, layer_launches(cfg, 0, cfg.num_layers))
+    return out
 
 
 def expected_launches(arms, exited, batch_size: int, cfg, fused: bool, *,
@@ -4899,8 +4933,10 @@ def attention_grad_checks(torch, dev):
     against autograd through the plain version, dq, dk and dv at
     ATTN_GRAD_RTOL (max |err| over max |plain|, per tensor); each forward
     one launch through its variant, each backward one launch of the
-    backward kernel through `attention_backward_variant`'s. Cases: the
-    training shapes, causal GQA at d 64 and 128, a sliding window, rows
+    backward kernel through `attention_backward_variant`'s variant and
+    `attention_backward_tile`'s tile (both tiles at least once). Cases: the
+    training shapes, causal GQA at d 64 and 128, a sliding window (d 64,
+    and 128 in bf16 and f32), rows
     without keys (Sq > Skv, causal), d = 32 f32 and bf16 rows off 16 bytes
     (`cuda_core`). The plain version's autograd runs over slices of
     ATTN_GRAD_PLAIN_ROWS samples where its own (Sq, Skv) temporaries need
@@ -4919,8 +4955,8 @@ def attention_grad_checks(torch, dev):
     shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (
-        attention_backward_variant, flash_attention_backward_cuda,
-        flash_attention_cuda)
+        attention_backward_tile, attention_backward_variant,
+        flash_attention_backward_cuda, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import (attention_backward,
                                                          attention_lse_ref,
@@ -4944,6 +4980,8 @@ def attention_grad_checks(torch, dev):
          False),
         ("window_d128_f32", cc, 1, 4, 2, 200, 200, 128, True, 70, "float32",
          False),
+        ("window_d128_bf16", tc, 2, 4, 2, 300, 300, 128, True, 48,
+         "bfloat16", False),
         ("no_key_rows_bf16", tc, 2, 8, 2, 150, 40, 128, True, 0, "bfloat16",
          False),
         ("no_key_rows_f32", cc, 2, 4, 4, 100, 33, 64, True, 0, "float32",
@@ -4956,9 +4994,12 @@ def attention_grad_checks(torch, dev):
     ] + [(key, tc, *shape, 0, "bfloat16", False)
          for key, shape in TRAIN_ATTENTION.items()]
     saved = {}
+    tiles_seen = set()
     for name, variant, b, hq, hkv, sq, skv, d, causal, window, dt, off \
             in cases:
         dtype = getattr(torch, dt)
+        tile = attention_backward_tile(dtype, d, not off, sq, skv)
+        tiles_seen.add(tile)
 
         def mk(h, s):
             x = torch.randn((b, h, s, d), generator=gen, device=dev
@@ -4978,7 +5019,7 @@ def attention_grad_checks(torch, dev):
         if out.grad_fn is None:
             fail(f"attention[{name}]: no autograd graph through the kernel")
         got = via("flash_attention_backward", variant,
-                  lambda: torch.autograd.grad(out, leaves, dout))
+                  lambda: torch.autograd.grad(out, leaves, dout), tile)
         del leaves
         want_out, want = plain_attention_grads(
             torch, q, k, v, dout, causal, window,
@@ -5015,7 +5056,8 @@ def attention_grad_checks(torch, dev):
             lse_err = (f"; lse max |err| "
                        f"{(lse[~inf] - want_lse[~inf]).abs().max():.3e} (tol "
                        f"{ATTN_LSE_TOL}), {int(inf.sum())} rows +inf")
-        print(f"  attention gradient [{name}] ({variant}, ({b},{hq}/{hkv},"
+        print(f"  attention gradient [{name}] ({variant}"
+              f"{f' {tile}' if tile else ''}, ({b},{hq}/{hkv},"
               f"{sq}{'' if sq == skv else f'x{skv}'},{d}) {dt}"
               f"{', causal' if causal else ''}"
               f"{f', window {window}' if window else ''}"
@@ -5024,10 +5066,14 @@ def attention_grad_checks(torch, dev):
               f"{ATTN_GRAD_RTOL[dt]}){lse_err}")
         saved[name] = (q, k, v, dout, out.detach(), max(errs), got)
         del want, want_out, out
+    if not {"mma_sync", "wgmma"} <= tiles_seen:
+        fail(f"attention gradient: the cases picked the backward tiles "
+             f"{tiles_seen}, want both mma_sync and wgmma")
 
     # bitwise repeats, on the lse and output the forward saves
     for name in ("bf16", "gqa_causal_f32", "window_bf16", "no_key_rows_bf16",
-                 "unaligned_bf16", "at_train_seamless_cross"):
+                 "unaligned_bf16", "at_train_seamless_encoder",
+                 "at_train_seamless_cross"):
         q, k, v, dout, out, _, got = saved[name]
         shape = next(c for c in cases if c[0] == name)
         kw = dict(causal=shape[8], window=shape[9])
@@ -5043,7 +5089,8 @@ def attention_grad_checks(torch, dev):
                  f"the one autograd made")
     print("  flash_attention_backward: two launches bitwise equal (and "
           "equal to autograd's) at bf16, gqa_causal_f32, window_bf16, "
-          "no_key_rows_bf16, unaligned_bf16, at_train_seamless_cross")
+          "no_key_rows_bf16, unaligned_bf16, at_train_seamless_encoder, "
+          "at_train_seamless_cross")
 
     def backward_record(key, q, k, v, dout, out, causal, err, few):
         """The backward kernel at one shape: kernel, plain
@@ -5057,8 +5104,9 @@ def attention_grad_checks(torch, dev):
         kw = dict(causal=causal, window=0, scale=d ** -0.5)
         _, lse = flash_attention_cuda(q, k, v, causal=causal,
                                       return_lse=True)
-        variant = attention_backward_variant(
-            q.dtype, d, rows_aligned(q, k, v, out, dout))
+        aligned = rows_aligned(q, k, v, out, dout)
+        variant = attention_backward_variant(q.dtype, d, aligned)
+        tile = attention_backward_tile(q.dtype, d, aligned, sq, skv)
         lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         es = q.element_size()
         # bytes: q, o, dO and dq (Hq heads), k, v, dk and dv (Hkv heads),
@@ -5076,12 +5124,13 @@ def attention_grad_checks(torch, dev):
             f"{kind}{' GQA' if gqa else ''} (training)", err,
             lambda: via("flash_attention_backward", variant,
                         lambda: flash_attention_backward_cuda(
-                            q, k, v, out, lse, dout, **kw)),
+                            q, k, v, out, lse, dout, **kw), tile),
             lambda: attention_backward(q, k, v, out, dout, lse=lse, **kw),
             lambda: torch.autograd.grad(F.scaled_dot_product_attention(
                 *lib, is_causal=causal, enable_gqa=gqa), lib, dout),
             4 * (q.numel() + k.numel()) * es + 2 * b * hq * sq * 4,
             10.0 * b * hq * pairs * d, dt, variant, **few)
+        r["tile"] = tile
         r["gradient_of"] = "flash_attention_pallas (the reference " \
             "differentiates its plain attention with XLA; no backward kernel)"
         del lib
@@ -5097,11 +5146,13 @@ def attention_grad_checks(torch, dev):
         torch.cuda.synchronize()
         extra = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"] \
             - before
-        bound = backward_peak_bound(q, k)
+        bound = backward_peak_bound(q, k, tile)
         r["peak_bytes"] = extra
-        print(f"  flash_attention_backward at {key} ({variant}): peak "
+        print(f"  flash_attention_backward at {key} ({variant}"
+              f"{f' {tile}' if tile else ''}): peak "
               f"{extra / 1e6:.3f} MB requested beyond its inputs; bound "
-              f"{bound / 1e6:.3f} MB (dq, dk, dv, delta and 1 MiB)")
+              f"{bound / 1e6:.3f} MB (dq, dk, dv, delta, the dQ key splits' "
+              f"partials and 1 MiB)")
         if extra > bound:
             fail(f"flash_attention_backward at {key}: {extra} bytes beyond "
                  f"its inputs > {bound}")
@@ -5176,13 +5227,20 @@ def join_forward(rb, r):
     return rb
 
 
-def backward_peak_bound(q, k) -> int:
+def backward_peak_bound(q, k, tile=None) -> int:
     """The bytes the backward kernel may hold beyond its inputs: dq, dk
-    and dv in the inputs' dtype, the float32 (B, Hq, Sq) rowsum(dO∘O) and
-    1 MiB of slack. Nothing of size (Sq, Skv)."""
-    b, hq, sq, _ = q.shape
+    and dv in the inputs' dtype, the float32 (B, Hq, Sq) rowsum(dO∘O),
+    the float32 dQ partials of ``tile``'s key splits where it has more
+    than one (`backward_workspace_bytes`, 0 elsewhere) and 1 MiB of
+    slack. Nothing of size (Sq, Skv)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        backward_workspace_bytes
+    b, hq, sq, d = q.shape
     grads = (q.numel() + 2 * k.numel()) * q.element_size()
-    return grads + b * hq * sq * 4 + (1 << 20)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return grads + b * hq * sq * 4 + backward_workspace_bytes(
+        b, hq, sq, d, tile, k.shape[2], sms) + (1 << 20)
 
 
 def plain_attention_grads(torch, q, k, v, dout, causal, window=0, rows=None):
@@ -5224,6 +5282,7 @@ def training_run(torch, dev, runs: Runs, cfg, data):
     its own run. Returns the trained params, the model and the log."""
     import math
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     tile_launch_counts,
                                      variant_launch_counts)
     from repro_torch.launch.train import train_classifier
 
@@ -5237,10 +5296,11 @@ def training_run(torch, dev, runs: Runs, cfg, data):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, variants = launch_counts(), variant_launch_counts()
+    tiles = tile_launch_counts()
     name = f"train elasticbert12 {TRAIN_STEPS} steps"
     runs.counts[name] = counts
     runs.variants[name] = {k: n for k, n in variants.items() if n}
-    runs.tiles[name] = {}
+    runs.tiles[name] = {k: n for k, n in tiles.items() if n}
     for row in log:
         print(f"    step {row['step']:4d} loss {row['loss']:.6f} "
               f"t {row['time']:.3f}s")
@@ -5259,24 +5319,31 @@ def training_run(torch, dev, runs: Runs, cfg, data):
     if not last["loss"] < first["loss"]:
         fail(f"{name}: loss did not fall ({first['loss']} -> {last['loss']})")
     want = train_attention_launches(cfg, remat=False) * TRAIN_STEPS
-    hold_attention_launches(name, counts, variants, want, want, "cuda_core")
+    hold_attention_launches(name, counts, variants, tiles, want, want,
+                            "cuda_core")
     return params, model, {"launches": counts["flash_attention"],
                            "ms_per_step": ms_step,
                            "tokens_per_s": tokens / ms_step * 1e3,
                            "peak_bytes": peak, "wall_s": wall}
 
 
-def hold_attention_launches(name, counts, variants, forward: int,
+def hold_attention_launches(name, counts, variants, tiles, forward: int,
                             backward: int, variant: str):
     """A training run's launches: exactly ``forward`` attention and
-    ``backward`` backward-kernel launches, every one through ``variant``,
-    and no other kernel (the loss reads no exit kernel)."""
+    ``backward`` backward-kernel launches, every one through ``variant``
+    (``cuda_core``, so no backward launch counted under a tile of
+    tensor_core), and no other kernel (the loss reads no exit kernel)."""
     for kernel, n in (("flash_attention", forward),
                       ("flash_attention_backward", backward)):
         if counts[kernel] != n or variants[f"{kernel}/{variant}"] != n:
             fail(f"{name}: {kernel} launches {counts[kernel]} (by variant "
                  f"{ {k: c for k, c in variants.items() if c} }), want {n} "
                  f"through {variant}")
+    moved = {k: c for k, c in tiles.items()
+             if c and k.startswith("flash_attention_backward/")}
+    if variant == "cuda_core" and moved:
+        fail(f"{name}: backward launches counted under tiles {moved}, want "
+             f"none ({variant})")
     if any(n for k, n in counts.items()
            if k not in ("flash_attention", "flash_attention_backward")):
         fail(f"{name}: launched {counts} (the loss reads no exit kernel)")
@@ -5896,12 +5963,14 @@ def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
     repeated ``batch``, with remat, counted as run ``name``: the loss
     finite and falling, the launches exactly ``want`` (per kernel; every
     attention launch, forward and backward, through the variant the
-    picker names for the bf16 shape), ms a step after the first,
+    picker names for the bf16 shape; the backward's by tile as
+    `train_backward_tiles` says), ms a step after the first,
     positions/s, peak device memory (and its share above ``before``, what
     earlier phases held), then one more step profiled for its busy share
     and top kernels. Returns the training record."""
     import math
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     tile_launch_counts,
                                      variant_launch_counts)
     from repro_torch.kernels.flash_attention.kernel import attention_variant
     torch.cuda.synchronize()
@@ -5916,7 +5985,7 @@ def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
     peak = torch.cuda.max_memory_allocated(dev)
     runs.counts[name] = counts
     runs.variants[name] = {k: n for k, n in variants.items() if n}
-    runs.tiles[name] = {}
+    runs.tiles[name] = {k: n for k, n in tile_launch_counts().items() if n}
     positions = batch["labels"].numel()
     ms_step = sum(walls[1:]) / len(walls[1:]) * 1e3
     shapes = {k: tuple(v.shape) for k, v in batch.items()}
@@ -5931,13 +6000,19 @@ def train_card_run(torch, dev, runs: Runs, name, cfg, params, batch, want,
           f"of which {before / 1e9:.3f} GB earlier phases held before the "
           f"model was built: the training's own {(peak - before) / 1e9:.3f} "
           f"GB; {wall:.3f} s wall; launches {counts}, by variant "
-          f"{runs.variants[name]}", flush=True)
+          f"{runs.variants[name]}, by tile {runs.tiles[name]}", flush=True)
     if not all(math.isfinite(x) for x in losses):
         fail(f"{name}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
     if counts != want:
         fail(f"{name}: launches {counts}, want {want}")
+    want_tiles = {f"flash_attention_backward/tensor_core/{t}":
+                  n * LM_TRAIN_STEPS for t, n in train_backward_tiles(
+                      cfg, batch["labels"].shape[1]).items()}
+    if runs.tiles[name] != want_tiles:
+        fail(f"{name}: backward launches by tile {runs.tiles[name]}, want "
+             f"{want_tiles} (train_backward_tiles)")
     picked = attention_variant(torch.bfloat16, cfg.resolved_head_dim,
                                True) if counts["flash_attention"] else None
     for kernel in ("flash_attention", "flash_attention_backward"):
@@ -6422,6 +6497,7 @@ def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
     (the local head shard), and no other kernel. Returns fn's result and
     its wall seconds."""
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     tile_launch_counts,
                                      variant_launch_counts)
     shapes = {}
     MP_STEP_MS.clear()
@@ -6433,10 +6509,11 @@ def mp_counted(torch, runs: Runs, name, fn, want_launches, want_shape):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, variants = launch_counts(), variant_launch_counts()
+    tiles = tile_launch_counts()
     runs.counts[name] = counts
     runs.variants[name] = {k: n for k, n in variants.items() if n}
-    runs.tiles[name] = {}
-    hold_attention_launches(name, counts, variants, want_launches,
+    runs.tiles[name] = {k: n for k, n in tiles.items() if n}
+    hold_attention_launches(name, counts, variants, tiles, want_launches,
                             want_launches, "cuda_core")
     if set(shapes["flash_attention"]) != {want_shape}:
         fail(f"{name}: attention kernel q shapes "
@@ -7206,8 +7283,9 @@ def main(argv=None) -> int:
         # exit: mma.sync (M <= 32) and wgmma (M > 32), each with w in
         # 16-byte and in 4-byte pieces; attention: d 64, 128, each with
         # and without the saved lse; its backward's dK/dV and dQ passes:
-        # d 64, 128
-        if len(tc_fns) != 12 or min(tc_fns.values()) == 0:
+        # mma.sync at d 64, 128; wgmma dK/dV at d 64 (64- and 32-row query
+        # tiles) and 128, dQ at d 64 and 128
+        if len(tc_fns) != 17 or min(tc_fns.values()) == 0:
             fail(f"tensor-core kernels without HMMA/HGMMA in their SASS: "
                  f"{tc_fns}")
         # the WKV6 recurrence stays on the CUDA cores (exact rank-1 steps)
@@ -7353,7 +7431,8 @@ def main(argv=None) -> int:
             p: {k.split("/")[1]: n for k, n in c.items()
                 if k.split("/")[0] == rec["name"]}
             for p, c in runs.variants.items()}
-        if rec["name"].startswith("exit_confidence"):
+        if rec["name"].startswith("exit_confidence") \
+                or rec["name"] == "flash_attention_backward":
             rec["launches_by_tile"] = {
                 p: {k.split("/")[2]: n for k, n in c.items()
                     if k.split("/")[0] == rec["name"]}

@@ -4,9 +4,12 @@ and of its backward (csrc/flash_attention_backward.cu).
 Each call runs one of two variants, chosen by `attention_variant` from the
 dtype, the head dim and the 16-byte alignment of the rows alone. The
 backward (`flash_attention_backward_cuda`, a kernel of its own) has the
-same two variants, chosen by `attention_backward_variant`. The libraries
-are built on first call (`kernels._build`); nothing is built or loaded at
-import time.
+same two variants, chosen by `attention_backward_variant`, and its
+tensor_core variant two tiles (mma.sync or wgmma), chosen by
+`attention_backward_tile` from the shapes; the wgmma tile splits its dQ
+pass over keys (`dq_key_splits`) where the grid underfills the card. The
+libraries are built on first call (`kernels._build`); nothing is built or
+loaded at import time.
 """
 from __future__ import annotations
 
@@ -28,9 +31,26 @@ VARIANTS = ("tensor_core", "cuda_core")
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 _VARIANT_CODES = {"cuda_core": 0, "tensor_core": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's tensor_core tiles: mma.sync m16n8k16 on 4 warps, or wgmma
+# on two warpgroups; the wgmma dQ pass has blocks of WG_ROWS query rows
+# (kWgRows) walking KV tiles of WG_KV keys (kWgKv)
+BACKWARD_TILES = ("mma_sync", "wgmma")
+_TILE_CODES = {"mma_sync": 0, "wgmma": 1}
+WG_ROWS = 128
+WG_KV = 64
+# the wgmma tile from this many keys on, at either head dim: in the A/B of
+# the two tiles in turns on the H100 (tools/attention_ab.py --tiles;
+# PERF.md §6) wgmma leads at every shape from 256 keys on (by
+# 18-63 %); below, it leads by 4-24 % at most shapes but trails by 11 %
+# at 128 causal keys at head dim 64, and the families' 32- and 64-token
+# training shapes stay on mma_sync
+WGMMA_MIN_KEYS = 256
+# the dQ pass's key splits aim at this many blocks an SM
+DQ_SPLIT_BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 register_kernel(NAME, VARIANTS)
-register_kernel(BACKWARD, VARIANTS)
+register_kernel(BACKWARD, VARIANTS, tiles={"tensor_core": BACKWARD_TILES})
 
 
 def attention_variant(dtype: torch.dtype, d: int, aligned: bool) -> str:
@@ -51,6 +71,63 @@ def attention_backward_variant(dtype: torch.dtype, d: int,
     return attention_variant(dtype, d, aligned)
 
 
+def attention_backward_tile(dtype: torch.dtype, d: int, aligned: bool,
+                            sq: int, skv: int) -> str | None:
+    """The tensor_core variant's tile for q rows ``sq`` over ``skv`` keys:
+    wgmma from WGMMA_MIN_KEYS keys on, else mma_sync; None for the
+    cuda_core variant. A pure function of the shapes: it never depends on
+    a build or a launch."""
+    if attention_backward_variant(dtype, d, aligned) != "tensor_core":
+        return None
+    return "wgmma" if skv >= WGMMA_MIN_KEYS else "mma_sync"
+
+
+def dq_key_splits(bh: int, sq: int, skv: int, sms: int = H100_SMS) -> int:
+    """The wgmma tile's splits of its dQ pass over the KV tiles: 1 where
+    its ``bh`` × ⌈sq / WG_ROWS⌉ blocks (bh = batch × query heads) already
+    fill ``sms`` SMs, else enough for DQ_SPLIT_BLOCKS_PER_SM blocks an SM,
+    at most one a KV tile."""
+    blocks = bh * -(-sq // WG_ROWS)
+    if blocks >= sms:
+        return 1
+    return max(1, min(-(-skv // WG_KV),
+                      -(-DQ_SPLIT_BLOCKS_PER_SM * sms // blocks)))
+
+
+def dq_block_tiles(sq: int, skv: int, r0: int, causal: bool,
+                   window: int) -> tuple:
+    """The KV tiles [t_lo, t_hi) that the wgmma dQ block of rows r0 ..
+    r0 + WG_ROWS walks: those holding a key some row may see (the
+    kernel's key_range, rounded out to WG_KV keys)."""
+    off = skv - sq
+    lo, hi = 0, skv
+    if causal:
+        hi = min(hi, min(r0 + WG_ROWS, sq) + off)
+    if window:
+        lo = max(lo, r0 + off - window + 1)
+    t_lo = lo // WG_KV
+    return t_lo, (-(-hi // WG_KV) if hi > lo else t_lo)
+
+
+def dq_split_tiles(t_lo: int, t_hi: int, splits: int, split: int) -> tuple:
+    """The KV tiles [first, last) of split ``split`` of ``splits``:
+    contiguous ranges of ⌈(t_hi − t_lo) / splits⌉ tiles in split order
+    (the kernel's split_tiles)."""
+    per = -(-(t_hi - t_lo) // splits)
+    first = min(t_hi, t_lo + split * per)
+    return first, min(t_hi, first + per)
+
+
+def backward_workspace_bytes(b: int, hq: int, sq: int, d: int, tile,
+                             skv: int, sms: int = H100_SMS) -> int:
+    """The float32 dQ partials the backward allocates: (S, B, Hq, Sq, d)
+    at the wgmma tile's S = `dq_key_splits` > 1, else 0."""
+    if tile != "wgmma":
+        return 0
+    splits = dq_key_splits(b * hq, sq, skv, sms)
+    return 0 if splits == 1 else splits * b * hq * sq * d * 4
+
+
 def _launcher():
     fn = load(SOURCE).flash_attention_launch
     if fn.argtypes is None:
@@ -65,8 +142,8 @@ def _backward_launcher():
     fn = load(BACKWARD_SOURCE).flash_attention_backward_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -138,11 +215,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_backward_cuda(q, k, v, out, lse, dout, *, causal: bool,
-                                  window: int, scale: float):
+                                  window: int, scale: float,
+                                  tile: str | None = None):
     """(dq, dk, dv) of ``out = softmax(q kᵀ · scale + mask) v`` for GQA, in
-    one launch of the backward kernel (three passes on the current
-    stream: rowsum(dO∘O), dK and dV, dQ) through the variant
-    `attention_backward_variant` picks.
+    one launch of the backward kernel (passes on the current stream:
+    rowsum(dO∘O), dK and dV, dQ, and the sum of the dQ key splits where
+    the wgmma tile has several) through the variant
+    `attention_backward_variant` picks and, for tensor_core, the tile
+    `attention_backward_tile` picks (``tile`` names one of that variant's
+    tiles instead, for timing them against each other).
 
     q, out, dout: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d): CUDA tensors of
     one dtype (float32 or bfloat16), head_dim contiguous, any other
@@ -169,8 +250,22 @@ def flash_attention_backward_cuda(q, k, v, out, lse, dout, *, causal: bool,
                          f"{(b, hq, sq)} on {q.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    variant = attention_backward_variant(
-        q.dtype, d, rows_aligned(q, k, v, out, dout, dq, dk, dv))
+    aligned = rows_aligned(q, k, v, out, dout, dq, dk, dv)
+    variant = attention_backward_variant(q.dtype, d, aligned)
+    picked = attention_backward_tile(q.dtype, d, aligned, sq, skv)
+    if tile is None:
+        tile = picked
+    elif variant != "tensor_core" or tile not in BACKWARD_TILES:
+        raise ValueError(f"tile {tile!r} is not a tile of the {variant} "
+                         f"variant (tensor_core: {BACKWARD_TILES})")
+    splits = 1
+    work = None
+    if tile == "wgmma":
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = dq_key_splits(b * hq, sq, skv, sms)
+        if splits > 1:
+            work = torch.empty((splits, b, hq, sq, d), dtype=torch.float32,
+                               device=q.device)
     strides = _bhs_strides(q, k, v, out, dout, dq, dk, dv)
     stride_arr = (ctypes.c_int64 * len(strides))(*strides)  # alive for the call
     status = _backward_launcher()(
@@ -180,7 +275,9 @@ def flash_attention_backward_cuda(q, k, v, out, lse, dout, *, causal: bool,
         ctypes.addressof(stride_arr),
         b, hq, hkv, sq, skv, d, int(bool(causal)), int(window), float(scale),
         _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
+        _TILE_CODES.get(tile, 0), splits,
+        None if work is None else work.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    check(status, f"{BACKWARD}/{variant}")
-    count_launch(BACKWARD, variant)
+    check(status, f"{BACKWARD}/{variant}{f'/{tile}' if tile else ''}")
+    count_launch(BACKWARD, variant, tile)
     return dq, dk, dv

@@ -14,7 +14,9 @@ Here the pieces around it that the CPU reaches:
   `FlashAttention` wired end to end with the kernels swapped for their
   plain versions (a dO of stride 0 included);
 * `chip_smoke.train_backward_launches` against the backward passes one
-  CPU `make_train_step` step takes through block attention.
+  CPU `make_train_step` step takes through block attention, and
+  `chip_smoke.train_backward_tiles` (those launches by the tile
+  `attention_backward_tile` picks) at the families' training shapes.
 
 Tolerances: LSE_RTOL and BWD_RTOL, float32 sums of the same products in
 other orders.
@@ -245,3 +247,25 @@ def test_train_backward_launches_count_one_step(arch, layers, remat):
     with attention_backward_calls() as seen:
         step(params, adamw_init(params), batch)
     assert len(seen) == smoke.train_backward_launches(cfg) > 0
+
+
+@pytest.mark.parametrize("arch,positions,want", [
+    # the encoder over its 4096 frames and the cross-attention of the 32
+    # target tokens over them on wgmma; the decoder's 32 x 32 on mma_sync
+    ("seamless-m4t-large-v2", 32, {"wgmma": 48, "mma_sync": 24}),
+    ("qwen3-1.7b", 64, {"mma_sync": 28}),
+    ("zamba2-1.2b", 64, {"mma_sync": 6}),       # the shared block's uses
+    ("qwen2-vl-2b", 64, {"mma_sync": 28}),
+    ("rwkv6-3b", 64, {}),                       # no attention
+])
+def test_train_backward_tiles_at_the_training_shapes(arch, positions, want):
+    """`chip_smoke.train_backward_tiles`, the backward launches of one
+    bf16 training step by tile that the training runs on the card are
+    held to: every launch `train_backward_launches` counts, each under
+    the tile `attention_backward_tile` picks for its shape."""
+    from repro_torch.configs import get_config
+    smoke = _chip_smoke()
+    cfg = get_config(arch)
+    got = smoke.train_backward_tiles(cfg, positions)
+    assert got == want
+    assert sum(got.values()) == smoke.train_backward_launches(cfg)

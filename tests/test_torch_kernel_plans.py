@@ -11,8 +11,10 @@ from repro_torch.kernels._build import rows_aligned
 from repro_torch.kernels.exit_confidence import kernel as exit_kernel
 from repro_torch.kernels.exit_confidence.kernel import (exit_variant, plan,
                                                         tile_shape)
+from repro_torch.kernels.flash_attention import kernel as attn_kernel
 from repro_torch.kernels.flash_attention.kernel import (
-    attention_backward_variant, attention_variant)
+    attention_backward_tile, attention_backward_variant, attention_variant,
+    backward_workspace_bytes, dq_block_tiles, dq_key_splits, dq_split_tiles)
 from repro_torch.kernels.wkv6.kernel import (wkv6_backward_variant,
                                              wkv6_variant)
 
@@ -85,15 +87,18 @@ def test_tensor_core_tile_counted_per_launch(rows, tile):
     """The tile a tensor_core launch is counted under is the one its row
     count takes (the mma.sync tile up to 32 rows a group, wgmma above;
     M = 32 x 17 = 544 is the rwkv6 scan edge of a 17-row tail), and every
-    tile of both exit kernels has its counter."""
+    tile of both exit kernels and of attention's backward has its
+    counter."""
     from repro_torch.kernels import tile_launch_counts
     assert exit_kernel.tc_tile(rows) == tile
     assert tile_shape("tensor_core", rows)[0] == (
         exit_kernel.TC_SMALL_ROWS if tile == "mma_sync" else exit_kernel.TC_ROWS)
     assert sorted(tile_launch_counts()) == sorted(
-        f"{k}/tensor_core/{t}" for k in ("exit_confidence",
-                                         "exit_confidence_fused")
-        for t in exit_kernel.TC_TILES)
+        [f"{k}/tensor_core/{t}" for k in ("exit_confidence",
+                                          "exit_confidence_fused")
+         for t in exit_kernel.TC_TILES]
+        + [f"flash_attention_backward/tensor_core/{t}"
+           for t in attn_kernel.BACKWARD_TILES])
 
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -249,6 +254,144 @@ def test_attention_backward_variant(dtype, d, aligned, want):
     """The backward kernel's variant: the forward's rule, over the
     alignment of every row it reads and writes."""
     assert attention_backward_variant(dtype, d, aligned) == want
+
+
+# the backward's training shapes (PERF.md §6): (b, hq, hkv, sq, skv, d)
+SEAMLESS_ENCODER = (8, 16, 16, 4096, 4096, 64)
+SEAMLESS_CROSS = (8, 16, 16, 32, 4096, 64)
+SEAMLESS_DECODER = (8, 16, 16, 32, 32, 64)
+BACKWARD_SHAPES = {
+    "seamless_encoder": SEAMLESS_ENCODER,
+    "seamless_cross": SEAMLESS_CROSS,
+    "seamless_decoder": SEAMLESS_DECODER,
+    "qwen3": (16, 16, 8, 64, 64, 128),
+    "phi35": (16, 32, 8, 64, 64, 128),
+    "qwen2vl": (16, 12, 2, 64, 64, 128),
+    "zamba2": (16, 32, 32, 64, 64, 64),
+    "elasticbert_f32": (64, 12, 12, 64, 64, 64),
+    "elasticbert_tp2_f32": (64, 6, 6, 64, 64, 64),
+    # chip_smoke.py's bf16 window cases, either side of WGMMA_MIN_KEYS
+    "window_d64": (2, 8, 4, 300, 300, 64),
+    "window_d128": (2, 4, 2, 300, 300, 128),
+    "gqa_causal_d128": (2, 8, 2, 130, 130, 128),
+}
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,want", [
+    ("seamless_encoder", BF16, True, "wgmma"),
+    ("seamless_cross", BF16, True, "wgmma"),
+    ("seamless_decoder", BF16, True, "mma_sync"),
+    ("qwen3", BF16, True, "mma_sync"),
+    ("phi35", BF16, True, "mma_sync"),
+    ("qwen2vl", BF16, True, "mma_sync"),
+    ("zamba2", BF16, True, "mma_sync"),
+    ("window_d64", BF16, True, "wgmma"),
+    ("window_d128", BF16, True, "wgmma"),
+    ("gqa_causal_d128", BF16, True, "mma_sync"),
+    ("elasticbert_f32", F32, True, None),
+    ("elasticbert_tp2_f32", F32, True, None),
+    ("seamless_encoder", F32, True, None),       # f32: cuda_core, no tile
+    ("seamless_encoder", BF16, False, None),     # rows off 16 bytes
+    ("qwen3", BF16, False, None),
+])
+def test_attention_backward_tile(shape, dtype, aligned, want):
+    """The tensor_core variant's tile from the shapes alone: wgmma from
+    WGMMA_MIN_KEYS keys on (seamless's 4096, the 300-key windows at
+    either head dim), mma_sync at the 32-, 64- and 130-token shapes; no
+    tile where the variant is cuda_core."""
+    b, hq, hkv, sq, skv, d = BACKWARD_SHAPES[shape]
+    got = attention_backward_tile(dtype, d, aligned, sq, skv)
+    assert got == want
+    assert (got is None) == (attention_backward_variant(dtype, d, aligned)
+                             == "cuda_core")
+
+
+@pytest.mark.parametrize("shape,want", [
+    ("seamless_encoder", 1), ("seamless_cross", 3), ("seamless_decoder", 1),
+    ("qwen3", 1), ("zamba2", 1), ("elasticbert_f32", 1)])
+def test_dq_key_splits(shape, want):
+    """One split wherever the dQ grid already fills the card (always at
+    the encoder) or there is one KV tile (the decoder's 32 keys); a few
+    at seamless's cross-attention, whose 128 blocks leave SMs idle; never
+    more splits than KV tiles."""
+    b, hq, _, sq, skv, _ = BACKWARD_SHAPES[shape]
+    splits = dq_key_splits(b * hq, sq, skv, H100_SMS)
+    assert splits == want
+    blocks = b * hq * -(-sq // attn_kernel.WG_ROWS)
+    tiles = -(-skv // attn_kernel.WG_KV)
+    assert (splits > 1) == (blocks < H100_SMS and tiles > 1)
+    assert splits <= tiles
+
+
+@pytest.mark.parametrize("bh,sq,skv", [(1, 1, 1), (1, 5, 64), (2, 1, 65),
+                                       (131, 128, 8192), (132, 128, 64),
+                                       (4, 200, 100000)])
+def test_dq_key_splits_bounds(bh, sq, skv):
+    splits = dq_key_splits(bh, sq, skv, H100_SMS)
+    assert 1 <= splits <= max(1, -(-skv // attn_kernel.WG_KV))
+    assert splits <= 65535
+
+
+def _visible_keys(sq, skv, rows, causal, window):
+    """The keys some query row of ``rows`` sees (global positions: row r
+    at skv - sq + r), by brute force."""
+    keys = set()
+    for r in rows:
+        pos = r + skv - sq
+        keys.update(k for k in range(skv)
+                    if (not causal or k <= pos)
+                    and (not window or k > pos - window))
+    return keys
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (300, 300, True, 0),          # causal
+    (300, 300, True, 48),         # sliding window
+    (77, 333, True, 0),           # suffix queries
+    (200, 900, True, 100),        # suffix queries in a window
+    (150, 40, True, 0),           # rows without keys
+    (32, 4096, False, 0),         # seamless's cross-attention
+    (260, 700, False, 0),
+])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 64])
+def test_dq_splits_cover_the_key_range_once(sq, skv, causal, window,
+                                             splits):
+    """Every wgmma dQ block's KV tiles are those that hold a key its rows
+    may see, and its splits walk them in contiguous ranges, in split
+    order, each tile exactly once (an empty range where there are more
+    splits than tiles)."""
+    rows_per_block, keys = attn_kernel.WG_ROWS, attn_kernel.WG_KV
+    for r0 in range(0, sq, rows_per_block):
+        t_lo, t_hi = dq_block_tiles(sq, skv, r0, causal, window)
+        seen = _visible_keys(sq, skv, range(r0, min(r0 + rows_per_block, sq)),
+                             causal, window)
+        if seen:
+            assert (t_lo, t_hi) == (min(seen) // keys, max(seen) // keys + 1)
+        else:
+            assert t_lo == t_hi
+        walked = []
+        for split in range(splits):
+            first, last = dq_split_tiles(t_lo, t_hi, splits, split)
+            assert t_lo <= first <= last <= t_hi
+            assert not walked or first == walked[-1] + 1 or first == last
+            walked += range(first, last)
+        assert walked == list(range(t_lo, t_hi))
+
+
+@pytest.mark.parametrize("shape,tile,want", [
+    ("seamless_encoder", "wgmma", 0),
+    ("seamless_cross", "wgmma", 3 * 8 * 16 * 32 * 64 * 4),
+    ("seamless_cross", "mma_sync", 0),
+    ("zamba2", "wgmma", 0),
+    ("qwen3", "mma_sync", 0),
+    ("elasticbert_f32", None, 0),
+])
+def test_backward_workspace_bytes(shape, tile, want):
+    """The dQ partials of the wgmma tile's key splits, S x (B, Hq, Sq, d)
+    float32: 0 wherever S = 1 or the tile is another."""
+    b, hq, _, sq, skv, d = BACKWARD_SHAPES[shape]
+    assert backward_workspace_bytes(b, hq, sq, d, tile, skv, H100_SMS) \
+        == want
 
 
 def test_row_alignment_reads_pointer_and_strides():
